@@ -1,11 +1,16 @@
 """Batched weighted Procrustes (Kabsch) with a closed-form 3x3 SVD.
 
-Port of ``mickey_tpu/geometry/kabsch.py`` (forward only: the serving path
-never differentiates the solver). The SVD is the same fixed 6-sweep
-one-sided Jacobi, sorting network, cross-product completion of U and
+Port of ``mickey_tpu/geometry/kabsch.py``. The SVD is the same fixed
+6-sweep one-sided Jacobi, sorting network, cross-product completion of U and
 determinant fix, so the rank-validity bits and the orientation of R follow
 the reference function rather than ``torch.linalg.svd``'s conventions.
 Matrices are carried as lists of their three columns, each (..., 3).
+
+``svd3x3`` is a ``torch.autograd.Function`` when its input needs a gradient
+(the training loss re-solves Procrustes with gradient): the forward is the
+Jacobi path unchanged, the backward the regularized closed-form SVD
+differential of the JAX package's custom VJP, not autograd through the
+Jacobi sweeps (explosive near rank-deficient inputs).
 """
 
 from __future__ import annotations
@@ -47,8 +52,7 @@ def _orthogonal_unit(v: torch.Tensor) -> torch.Tensor:
     return w / torch.clamp(torch.linalg.norm(w, dim=-1, keepdim=True), min=1e-20)
 
 
-def svd3x3(H: torch.Tensor, eps: float = 1e-12):
-    """H (..., 3, 3) -> (U, S, V), H ~= U diag(S) V^T, S descending."""
+def _svd3x3_primal(H: torch.Tensor, eps: float = 1e-12):
     A = [H[..., :, j].float() for j in range(3)]
     eye = torch.eye(3, dtype=torch.float32, device=H.device)
     V = [eye[:, j].expand_as(A[0]) for j in range(3)]
@@ -72,6 +76,45 @@ def svd3x3(H: torch.Tensor, eps: float = 1e-12):
     V[2] = torch.where(flip, -V[2], V[2])
     U = torch.stack([u0, u1, u2], dim=-1)
     return U.to(H.dtype), torch.stack(S, dim=-1).to(H.dtype), torch.stack(V, dim=-1).to(H.dtype)
+
+
+def svd3x3_vjp(U, S, V, gU, gS, gV) -> torch.Tensor:
+    """dH for cotangents (gU, gS, gV) of H = U diag(S) V^T: Townsend's SVD
+    differential with a regularized gap inverse, exact where singular values
+    are apart and bounded where they (nearly) coincide. The absolute 1e-30
+    floor keeps H = 0 (all sampled points coincident) from turning 0/0 into
+    NaN."""
+    U, S, V = U.float(), S.float(), V.float()
+    s2 = S * S
+    D = s2[..., None, :] - s2[..., :, None]  # D_ij = s_j^2 - s_i^2
+    reg = (1e-5 * (s2[..., 0:1, None] + 1e-30)) ** 2 + 1e-30
+    F = D / (D * D + reg)
+    UtgU = U.transpose(-1, -2) @ gU.float()
+    term = (F * (UtgU - UtgU.transpose(-1, -2))) * S[..., None, :]
+    VtgV = V.transpose(-1, -2) @ gV.float()
+    term = term + S[..., :, None] * (F * (VtgV - VtgV.transpose(-1, -2)))
+    term = term + torch.diag_embed(gS.float())
+    return (U @ term) @ V.transpose(-1, -2)
+
+
+class _SVD3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, H):
+        U, S, V = _svd3x3_primal(H)
+        ctx.save_for_backward(U, S, V)
+        return U, S, V
+
+    @staticmethod
+    def backward(ctx, gU, gS, gV):
+        U, S, V = ctx.saved_tensors
+        return svd3x3_vjp(U, S, V, gU, gS, gV).to(U.dtype)
+
+
+def svd3x3(H: torch.Tensor):
+    """H (..., 3, 3) -> (U, S, V), H ~= U diag(S) V^T, S descending."""
+    if torch.is_grad_enabled() and H.requires_grad:
+        return _SVD3x3.apply(H)
+    return _svd3x3_primal(H)
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:

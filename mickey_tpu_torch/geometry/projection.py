@@ -22,6 +22,13 @@ def backproject_3d(uv: torch.Tensor, depth: torch.Tensor, K: torch.Tensor) -> to
     return depth * xyz
 
 
+def project_2d(xyz: torch.Tensor, K: torch.Tensor, eps: float = 1e-16) -> torch.Tensor:
+    """xyz (..., N, 3) camera-frame points -> pixels (..., N, 2), with the
+    reference's +1e-16 depth guard (no abs)."""
+    cam = torch.einsum("...ij,...nj->...ni", K, xyz)
+    return cam[..., :2] / (cam[..., 2:3] + eps)
+
+
 def transform_points(R: torch.Tensor, t: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """R (..., 3, 3) @ X (..., N, 3) + t (..., 1, 3), as broadcast multiply-adds."""
     return (X[..., None, :] * R[..., None, :, :]).sum(dim=-1) + t

@@ -12,7 +12,7 @@ from ..weights import init_params_numpy, params_to_torch
 from .relative_pose import MickeyRelativePose
 
 
-def build_model(cfg, params=None, seed: int = 0, device="cpu") -> MickeyRelativePose:
+def build_model(cfg, params=None, seed: int = 0, device="cuda") -> MickeyRelativePose:
     """``params``: a ``mickey_tpu`` pytree with numpy leaves, or None for
     ``init_params_numpy(cfg, seed)``.
 

@@ -36,7 +36,7 @@ class MickeyRelativePose:
     """Weights live in a nested dict of tensors on ``device``
     (``weights.params_to_torch``); build one with ``models.build_model``."""
 
-    def __init__(self, cfg, params, device="cpu"):
+    def __init__(self, cfg, params, device="cuda"):
         if not (cfg.TPU.get("FUSED_TOPK", False) and int(cfg.TPU.get("SAMPLING_PREFILTER", 0) or 0) > 0):
             raise NotImplementedError("only the fused matcher -> top-K route is ported")
         self.cfg = cfg
@@ -47,7 +47,7 @@ class MickeyRelativePose:
     def extract_feats(self, images: torch.Tensor):
         """(B, H, W, 3) images -> (kpts, depths, scores, descs) head maps, each
         (B, H/14, W/14, .); deterministic, so cacheable per frame."""
-        return heads_apply(self.params, backbone_features(self.params, images, self.cfg), self.cfg)
+        return heads_apply(self.params, backbone_features(self.params, images, self.cfg), self.cfg)[0]
 
     @torch.inference_mode()
     def match_feats(self, feats0, feats1):

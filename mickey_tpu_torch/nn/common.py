@@ -21,10 +21,26 @@ def conv2d(p, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def batchnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last axis, in the JAX op order."""
-    inv = torch.rsqrt(p["var"].to(x.dtype) + eps) * p["scale"].to(x.dtype)
-    return (x - p["mean"].to(x.dtype)) * inv + p["bias"].to(x.dtype)
+def batchnorm(p, x: torch.Tensor, train: bool = False, momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm over all but the channel (last) axis, in the JAX op order.
+
+    Returns (out, new_state). In train mode it normalizes with the batch's
+    biased variance and advances the running stats by an EMA of ``momentum``
+    with the unbiased variance (torch.nn.BatchNorm2d semantics); the new
+    stats carry no gradient. In eval mode new_state is ``p``."""
+    if train:
+        dims = tuple(range(x.ndim - 1))
+        mean = x.mean(dim=dims)
+        var = (x * x).mean(dim=dims) - mean * mean
+        n = x.numel() // x.shape[-1]
+        unbiased = var.detach() * n / max(n - 1, 1)
+        new_p = dict(p)
+        new_p["mean"] = (1 - momentum) * p["mean"] + momentum * mean.detach().float()
+        new_p["var"] = (1 - momentum) * p["var"] + momentum * unbiased.float()
+    else:
+        mean, var, new_p = p["mean"], p["var"], p
+    inv = torch.rsqrt(var.to(x.dtype) + eps) * p["scale"].to(x.dtype)
+    return (x - mean.to(x.dtype)) * inv + p["bias"].to(x.dtype), new_p
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -26,13 +26,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("flash_attention_packed.cu", "fused_topk.cu", "hypothesis_scoring.cu")
+SOURCES = ("flash_attention_packed.cu", "fused_topk.cu", "hypothesis_scoring.cu", "dual_softmax.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"flash_attention_packed": 0, "col_lse": 0, "pair_topk": 0, "hypothesis_scores": 0}
+LAUNCHES = {"flash_attention_packed": 0, "col_lse": 0, "pair_topk": 0, "hypothesis_scores": 0,
+            "pair_softmax": 0, "dual_softmax_bwd_sums": 0, "dual_softmax_bwd_grads": 0}
 
 _P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 _SIGNATURES = {
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "mk_col_lse_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "mk_pair_topk_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
+    "mk_pair_softmax_f32": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
+    "mk_dual_softmax_bwd_sums_f32": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "mk_dual_softmax_bwd_grads_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
 }
 
 
@@ -91,6 +95,8 @@ def build() -> tuple:
         fn.restype = ctypes.c_int
     lib.mk_pair_topk_smem_bytes.argtypes = [_I, _I]
     lib.mk_pair_topk_smem_bytes.restype = _S
+    lib.mk_dual_softmax_row_blocks.argtypes = [_I]
+    lib.mk_dual_softmax_row_blocks.restype = _I
     return lib, log
 
 

@@ -14,6 +14,12 @@ tensors on ``device``:
 
 ``init_params_numpy`` builds a pytree of the same structure, shapes and
 layout from a numpy ``Generator``, for machines without JAX.
+
+For training, ``split_trainable`` separates the frozen backbone from the
+trainable heads and matcher (leaves that require grad, BatchNorm running
+stats held as tensors without grad, the dustbin as a 0-d tensor), and
+``params_to_numpy`` bridges the trainable part back to the JAX package's
+layout, so that tests compare parameters and gradients leaf by leaf.
 """
 
 from __future__ import annotations
@@ -213,4 +219,77 @@ def params_to_torch(params, cfg, device="cpu"):
         }
         head["out"] = conv(hp["out"]) if hp.get("out") is not None else None
         out[name] = head
+    return out
+
+
+# -- training: trainable split and the reverse bridge --------------------------------
+
+
+def is_bn_stat(path) -> bool:
+    """BatchNorm running stats: advanced by the forward, never by the optimizer."""
+    return path[-1] in ("mean", "var")
+
+
+def tree_leaves(tree, path=()):
+    """[(path, tensor)] of a nested dict / list of tensors, in a fixed order."""
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in tree_leaves(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree) for leaf in tree_leaves(v, path + (i,))]
+    return [] if tree is None else [(path, tree)]
+
+
+def split_trainable(params):
+    """The port's params (``params_to_torch``) -> (trainable, backbone), as
+    ``mickey_tpu/training/train_step.py::init_train_state`` splits them. The
+    trainable leaves are set to require grad, in place."""
+    backbone = params["dinov2"]
+    trainable = {k: v for k, v in params.items() if k != "dinov2"}
+    device = params["det_head"]["resblock1"]["conv1"]["w"].device
+    trainable["matcher"] = {k: torch.as_tensor(v, dtype=torch.float32, device=device).clone()
+                            for k, v in params["matcher"].items()}
+    for path, t in tree_leaves(trainable):
+        t.requires_grad_(not is_bn_stat(path))
+    return trainable, backbone
+
+
+def params_to_numpy(tree):
+    """The port's trainable tree (heads, matcher) -> ``mickey_tpu``'s layout
+    with numpy leaves: OIHW -> HWIO, (out, in) -> (in, out), head-transformer
+    layers stacked again, the dustbin a 0-d float32 array."""
+
+    def a(t):
+        return t.detach().cpu().numpy()
+
+    def conv(p):
+        return {"w": a(p["w"]).transpose(2, 3, 1, 0)}
+
+    def lin(p):
+        out = {"w": a(p["w"]).T}
+        if "b" in p:
+            out["b"] = a(p["b"])
+        return out
+
+    def vec(p):
+        return {k: a(v) for k, v in p.items()}
+
+    out = {}
+    for name in _HEADS:
+        if name not in tree:
+            continue
+        hp = tree[name]
+        head = {}
+        for i in range(1, 5):
+            bp = hp[f"resblock{i}"]
+            head[f"resblock{i}"] = {
+                k: (conv(v) if k in ("conv1", "conv2", "shortcut") else vec(v)) for k, v in bp.items()
+            }
+        head["att"] = {"layers": _stack([
+            {k: (vec(v) if k.startswith("norm") else lin(v)) for k, v in lp.items()}
+            for lp in hp["att"]["layers"]
+        ])}
+        head["out"] = conv(hp["out"]) if hp.get("out") is not None else None
+        out[name] = head
+    if "matcher" in tree:
+        out["matcher"] = {k: np.asarray(a(torch.as_tensor(v)), np.float32) for k, v in tree["matcher"].items()}
     return out

@@ -13,6 +13,8 @@ different orders, so agreement is to a few fp32 ulps scaled by the depth of
 the computation (1e-5 relative per stage, 1e-4 on poses).
 """
 
+import ast
+import pathlib
 import subprocess
 import sys
 
@@ -110,14 +112,50 @@ def test_heads_match_jax(jax_params):
     tp = params_to_torch(_np_tree(jax_params), cfg)
     fmap = np.random.default_rng(2).standard_normal((B, 12, 14, 384)).astype(np.float32)
     ref, _ = jext.heads_apply(jax_params, jnp.asarray(fmap), cfg, train=False)
-    out = extractor.heads_apply(tp, torch.from_numpy(fmap), cfg)
+    out, _ = extractor.heads_apply(tp, torch.from_numpy(fmap), cfg)
     for name, a, b in zip(("kpts", "depths", "scores", "descs"), out, ref):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-5 * np.abs(b).max(), err_msg=name)
 
 
+PORT = pathlib.Path(__file__).resolve().parent.parent / "mickey_tpu_torch"
+
+
+def _port_modules():
+    root = PORT.parent
+    return sorted(".".join(p.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
 def test_import_leaves_jax_out():
-    code = "import sys, mickey_tpu_torch.models, mickey_tpu_torch.solver, mickey_tpu_torch.weights; " \
-           "print('jax' in sys.modules)"
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "False"
+    """Importing every module of the port and chip_smoke loads neither jax
+    nor any module of the JAX package."""
+    code = ("import sys, importlib\n"
+            f"for m in {_port_modules()!r} + ['chip_smoke']: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'mickey_tpu' or m.startswith('mickey_tpu.')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         cwd=str(PORT.parent))
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_source_imports_the_jax_package():
+    """An AST scan: no ``import mickey_tpu...`` / ``from mickey_tpu...`` (nor
+    jax) in the port or in chip_smoke.py."""
+    bad = []
+    for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [f"{path.name}: {n}" for n in names if n.split(".")[0] in ("mickey_tpu", "jax")]
+    assert not bad, bad
+
+
+def test_default_config_equals_the_jax_packages():
+    from mickey_tpu.config import default_config as jax_default_config
+    from mickey_tpu_torch.config import default_config as port_default_config
+
+    assert port_default_config().to_dict() == jax_default_config().to_dict()

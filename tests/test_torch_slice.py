@@ -118,7 +118,7 @@ def test_slice_fp32_matches_jax_with_injected_draws(jax_params):
     draws = _replay_jax_draws(key, tcorr.top_scores, cfg)
 
     jmodel = JaxPose(cfg, params=jax_params)
-    model = build_model(cfg, _np_tree(jax_params))
+    model = build_model(cfg, _np_tree(jax_params), device="cpu")
     t = torch.from_numpy
     feats = model.extract_feats(torch.cat([t(im0), t(im1)]))
     ours = model.match_feats(tuple(f[:B] for f in feats), tuple(f[B:] for f in feats))
@@ -157,7 +157,7 @@ def test_slice_bf16_against_jax(jax_params):
     tcorr = _jax_table(jax_params, cfg, im0, im1)
     draws = _replay_jax_draws(key, tcorr.top_scores, cfg)
     ref = JaxPose(cfg, params=jax_params)(jnp.asarray(im0), jnp.asarray(im1), K0, K1, key=key, lite=True)
-    model = build_model(cfg, _np_tree(jax_params))
+    model = build_model(cfg, _np_tree(jax_params), device="cpu")
     t = torch.from_numpy
     feats = model.extract_feats(torch.cat([t(im0), t(im1)]))
     ours = model.match_feats(tuple(f[:B] for f in feats), tuple(f[B:] for f in feats))
