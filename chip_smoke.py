@@ -9,25 +9,31 @@ Phases, one line each, any failure exits non-zero:
              for sm_90a and print ``-Xptxas -v`` per kernel;
 2. kernels - every kernel against its plain PyTorch version at the shapes
              its main path gives it (serving: B = 2 pairs; training: B = 8
-             pairs, 1938 keypoints), with the tolerances stated below, and
-             the training matcher's whole forward and backward against
-             torch.autograd of the dense dual-softmax;
+             pairs, 1938 keypoints), with the tolerances stated below; the
+             training matcher's whole forward and backward against
+             torch.autograd of the dense dual-softmax, and the fused top-K
+             training route's against the dense table and torch.autograd of
+             the dense logsumexps;
 3. slice   - the pose-serving main path at full ViT-L width (714x532 images,
              1938 keypoints, B = 2 pairs, seeded random weights) in both
              layouts (general pairs, shared keyframe); outputs finite and of
-             the right shape, every serving kernel launched; then a small
-             input run on the card checked stage by stage against the plain
-             CPU path;
+             the right shape, every serving kernel launched; then the general
+             layout with ``TPU.PACKED_ATTENTION=False`` (K1b launched, K1 not,
+             backbone features within the bf16 bound of the packed run's);
+             then a small input run on the card checked stage by stage
+             against the plain CPU path;
    train   - the staged training step (``MicKeyTrainer``) at full width,
-             default config, B = 8 pairs of 714x532: 3 steps with finite loss,
-             grad norm and gradients, every trainable leaf and the BN running
-             stats changed, the backbone unchanged, every training kernel
-             launched; then one small-input step's loss, gradients and BN
-             stats on the card against the plain CPU path with injected draws;
+             default config, B = 8 pairs of 714x532, on both matcher routes
+             (dense; fused top-K with ``TPU.TRAIN_FUSED_TOPK=True``): 3 steps
+             each with finite loss, grad norm and gradients, every trainable
+             leaf and the BN running stats changed, the backbone unchanged,
+             every kernel of the route launched and none of the other's;
+             then one small-input step's loss, gradients and BN stats on each
+             route on the card against the plain CPU path with injected draws;
 4. timing  - CUDA-event medians of both serving layouts (pairs/s) and their
-             stages, of the train step and its stages, and of each kernel
-             beside its plain version, its bound on the card and, where one
-             PyTorch call computes the same function, that call.
+             stages, of the train step and its stages on both routes, and of
+             each kernel beside its plain version, its bound on the card and,
+             where one PyTorch call computes the same function, that call.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 results before the last line, and ``{"ok": true, "device": ...}`` last. There
@@ -51,6 +57,8 @@ SEED = 0
 KERNELS = (
     ("flash_attention_packed", "mickey_tpu_torch/csrc/flash_attention_packed.cu",
      "mickey_tpu/ops/flash_attention.py:132"),
+    ("flash_attention", "mickey_tpu_torch/csrc/flash_attention_packed.cu",
+     "mickey_tpu/ops/flash_attention.py:75"),
     ("col_lse", "mickey_tpu_torch/csrc/fused_topk.cu", "mickey_tpu/ops/fused_matcher.py:82"),
     ("pair_topk", "mickey_tpu_torch/csrc/fused_topk.cu", "mickey_tpu/ops/fused_matcher.py:432"),
     ("hypothesis_scores", "mickey_tpu_torch/csrc/hypothesis_scoring.cu",
@@ -58,13 +66,18 @@ KERNELS = (
     ("pair_softmax", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:107"),
     ("dual_softmax_bwd_sums", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:234"),
     ("dual_softmax_bwd_grads", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:256"),
+    ("lse_bwd", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:665"),
 )
+# each main path's kernels, and the kernels it must not launch
 SERVING_KERNELS = ("flash_attention_packed", "col_lse", "pair_topk", "hypothesis_scores")
+UNPACKED_SERVING_KERNELS = ("flash_attention", "col_lse", "pair_topk", "hypothesis_scores")
 TRAIN_KERNELS = ("flash_attention_packed", "col_lse", "pair_softmax", "dual_softmax_bwd_sums",
                  "dual_softmax_bwd_grads")
+FUSED_TRAIN_KERNELS = ("flash_attention_packed", "col_lse", "pair_topk", "lse_bwd")
+DENSE_MATCHER_KERNELS = ("pair_softmax", "dual_softmax_bwd_sums", "dual_softmax_bwd_grads")
 # Tolerances (kernel vs plain, same inputs):
-#  K1: bf16 operands and bf16-rounded probabilities against the fp32 plain
-#      version: |diff| < 2e-2 on O(1) outputs.
+#  K1, K1b: bf16 operands and bf16-rounded probabilities against the fp32
+#      plain version: |diff| < 2e-2 on O(1) outputs.
 #  K2, K3: fp32 throughout; only the summation order differs:
 #      |diff| <= 1e-5 |ref| + 1e-6 max|ref|; indices that one side selects
 #      with a margin above its selection boundary must be selected by the
@@ -76,6 +89,15 @@ TRAIN_KERNELS = ("flash_attention_packed", "col_lse", "pair_softmax", "dual_soft
 #      fused_dual_softmax_vjp against torch.autograd of the dense dual_softmax:
 #      values and the dustbin gradient at 1e-4 relative, dsc gradients at
 #      1e-4 max|ref|.
+#  K6: fp32, summation order amplified by exp as in K5: dd0, dd1 to 1e-4
+#      max|ref|. The whole fused_topk_scores_train: the table against the
+#      dense dual-softmax's (values at 1e-5 relative, index sets up to
+#      near-ties, row_ok equal), lse_row and lse_col against dense_lse at
+#      1e-5 relative; its backward against torch.autograd of dense_lse: dsc
+#      gradients at 1e-4 max|ref|, the dustbin gradient at 1e-4 relative.
+#  Backbone, packed against unpacked attention (K1 against K1b, one kernel
+#      body on two addressings, bf16 either way): cosine > 0.999 per image,
+#      as the backbone against the plain CPU path.
 ATTN_TOL = 2e-2
 RTOL = 1e-5
 DS_RTOL = 1e-4
@@ -161,15 +183,25 @@ def _rot(a) -> np.ndarray:
 def kernel_calls(inp, alpha: float = 1.0, inv_temp: float = 10.0):
     """name -> (kernel call, plain call), both on the same inputs."""
     from mickey_tpu_torch.ops import fused_matcher as fm
-    from mickey_tpu_torch.ops.flash_attention import attention_packed_plain, flash_attention_packed
+    from mickey_tpu_torch.ops.flash_attention import (
+        attention_packed_plain,
+        attention_plain,
+        flash_attention,
+        flash_attention_packed,
+        qkv_heads,
+    )
     from mickey_tpu_torch.ops.hypothesis_scoring import hypothesis_scores, hypothesis_scores_plain
 
+    q, k, v = qkv_heads(inp["qkv"], inp["heads"])  # the strided views the unpacked backbone hands K1b
+    seq = q.shape[2]
     lse_c = fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inv_temp, alpha)
     k2b = (inp["dsc0"], inp["dsc1"], inp["scr0"], inp["scr1"], lse_c, inv_temp, alpha, inp["topl"])
     hyp = (inp["X"], inp["Y"], inp["R"], inp["t"], 0.3)
     return {
         "flash_attention_packed": (lambda: flash_attention_packed(inp["qkv"], inp["heads"]),
                                    lambda: attention_packed_plain(inp["qkv"].float(), inp["heads"])),
+        "flash_attention": (lambda: flash_attention(q, k, v, seq),
+                            lambda: attention_plain(q.float(), k.float(), v.float(), seq)),
         "col_lse": (lambda: fm.col_lse(inp["dsc0"], inp["dsc1"], inv_temp, alpha),
                     lambda: fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inv_temp, alpha)),
         "pair_topk": (lambda: fm.pair_topk(*k2b), lambda: fm.pair_topk_plain(*k2b)),
@@ -183,12 +215,13 @@ def check_kernels(inp) -> dict:
 
     calls = kernel_calls(inp)
     res = {}
-    out, ref = (f() for f in calls["flash_attention_packed"])
-    _sync(out)
-    err = (out.float() - ref).abs().max().item()
-    if not err < ATTN_TOL:
-        raise SmokeError(f"flash_attention_packed: max |diff| {err:.3e} >= {ATTN_TOL}")
-    res["flash_attention_packed"] = err
+    for name in ("flash_attention_packed", "flash_attention"):
+        out, ref = (f() for f in calls[name])
+        _sync(out)
+        err = (out.float() - ref).abs().max().item()
+        if not err < ATTN_TOL:
+            raise SmokeError(f"{name}: max |diff| {err:.3e} >= {ATTN_TOL}")
+        res[name] = err
     res["col_lse"] = _close(*(f() for f in calls["col_lse"]), "col_lse")
     (v, i, st, lr), (pv, pi, pst, plr) = (f() for f in calls["pair_topk"])
     err = _close(v, pv, "pair_topk values")
@@ -214,9 +247,10 @@ def check_kernels(inp) -> dict:
 
 
 def train_kernel_inputs(device, *, pairs: int, kpts: int, desc: int, seed: int = SEED):
-    """Seeded descriptors and an upstream cotangent G at the training
-    matcher's shapes, with the intermediate inputs of each K4 / K5 kernel
-    made by the plain versions."""
+    """Seeded descriptors, an upstream cotangent G, the logsumexps'
+    cotangents gr, gc and detection scores at the training matcher's shapes,
+    with the intermediate inputs of each K4 / K5 / K6 kernel made by the
+    plain versions."""
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     rng = np.random.default_rng(seed + 2)
@@ -225,6 +259,11 @@ def train_kernel_inputs(device, *, pairs: int, kpts: int, desc: int, seed: int =
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     inp = dict(dsc0=t(d[0]), dsc1=t(d[1]), G=t(rng.standard_normal((pairs, kpts, kpts), dtype=np.float32)),
                alpha=1.0, inv_temp=10.0)
+    # K6: the logsumexps' cotangents, and detection scores for the table
+    for name in ("gr", "gc"):
+        inp[name] = t(rng.standard_normal((pairs, kpts), dtype=np.float32))
+    for name in ("scr0", "scr1"):
+        inp[name] = t(rng.uniform(0.1, 1, (pairs, kpts)).astype(np.float32))
     inp["lse_col"] = fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inp["inv_temp"], inp["alpha"])
     _, inp["lse_row"] = fm.pair_softmax_plain(inp["dsc0"], inp["dsc1"], inp["lse_col"], inp["inv_temp"], inp["alpha"])
     inp["r"], inp["c"] = fm.dual_softmax_bwd_sums_plain(inp["dsc0"], inp["dsc1"], inp["G"], inp["lse_row"],
@@ -233,12 +272,13 @@ def train_kernel_inputs(device, *, pairs: int, kpts: int, desc: int, seed: int =
 
 
 def train_kernel_calls(tin):
-    """name -> (kernel call, plain call) for K4 and K5, on the same inputs."""
+    """name -> (kernel call, plain call) for K4, K5 and K6, on the same inputs."""
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     d0, d1, G, it, a = tin["dsc0"], tin["dsc1"], tin["G"], tin["inv_temp"], tin["alpha"]
     sums = (d0, d1, G, tin["lse_row"], tin["lse_col"], it)
     grads = (d0, d1, G, tin["lse_row"], tin["lse_col"], tin["r"], tin["c"], it)
+    lse = (d0, d1, tin["gr"], tin["gc"], tin["lse_row"], tin["lse_col"], it)
     return {
         "pair_softmax": (lambda: fm.pair_softmax(d0, d1, tin["lse_col"], it, a),
                          lambda: fm.pair_softmax_plain(d0, d1, tin["lse_col"], it, a)),
@@ -246,6 +286,7 @@ def train_kernel_calls(tin):
                                   lambda: fm.dual_softmax_bwd_sums_plain(*sums)),
         "dual_softmax_bwd_grads": (lambda: fm.dual_softmax_bwd_grads(*grads),
                                    lambda: fm.dual_softmax_bwd_grads_plain(*grads)),
+        "lse_bwd": (lambda: fm.lse_bwd(*lse), lambda: fm.lse_bwd_plain(*lse)),
     }
 
 
@@ -281,6 +322,38 @@ def check_train_kernels(tin) -> dict:
     return res
 
 
+def check_topk_train_kernels(tin, prefilter: int, topl: int) -> dict:
+    """Phase 2, fused top-K training route: K6 against its plain version,
+    then the whole fused_topk_scores_train against the dense route: its
+    table and logsumexps against dense_topk_scores_train, its backward for
+    the cotangents (gr, gc) against torch.autograd of dense_lse. Returns
+    name -> max |diff|."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    (g0, g1), (pg0, pg1) = (f() for f in train_kernel_calls(tin)["lse_bwd"])
+    res = {"lse_bwd": max(_close_to_max(g0, pg0, "lse_bwd dd0", DS_RTOL), _close_to_max(g1, pg1, "lse_bwd dd1", DS_RTOL))}
+    temp = 1.0 / tin["inv_temp"]
+    runs = {}
+    for name, fn in (("fused", fm.fused_topk_scores_train), ("dense", fm.dense_topk_scores_train)):
+        d0, d1 = (tin[k].clone().requires_grad_(True) for k in ("dsc0", "dsc1"))
+        a = torch.tensor(tin["alpha"], device=d0.device, requires_grad=True)
+        out = fn(d0, d1, tin["scr0"], tin["scr1"], a, prefilter, temperature=temp, row_topl=topl)
+        ((out[3] * tin["gr"]).sum() + (out[4] * tin["gc"]).sum()).backward()
+        runs[name] = [x.detach() for x in out] + [d0.grad, d1.grad, a.grad]
+        del out, d0, d1
+    (v, i, ok, lr, lc, g0, g1, ga), (pv, pi, pok, plr, plc, pg0, pg1, pga) = runs["fused"], runs["dense"]
+    _close(v, pv, "fused_topk_scores_train values")
+    _sets_agree(v, i, pv, pi, "fused_topk_scores_train table")
+    if not torch.equal(ok.cpu(), pok.cpu()):
+        raise SmokeError("fused_topk_scores_train: row_ok differs from the dense oracle")
+    _close(lr, plr, "fused_topk_scores_train lse_row")
+    _close(lc, plc, "fused_topk_scores_train lse_col")
+    _close_to_max(g0, pg0, "fused_topk_scores_train d dsc0", DS_RTOL)
+    _close_to_max(g1, pg1, "fused_topk_scores_train d dsc1", DS_RTOL)
+    _close(ga.reshape(1), pga.reshape(1), "fused_topk_scores_train d dustbin", DS_RTOL)
+    return res
+
+
 def _sync(t: torch.Tensor) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -294,23 +367,42 @@ def slice_inputs(device, pairs: int, height: int, width: int, seed: int = SEED):
     return t(ims[0]), t(ims[1]), t(K), t(K)
 
 
-def run_slice(model, image0, image1, K0, K1) -> dict:
-    """Phase 3: both serving layouts; outputs finite and of the right shapes."""
+def run_slice(model, image0, image1, K0, K1, layouts=("general", "shared")) -> dict:
+    """Phase 3: the serving layouts; outputs finite and of the right shapes."""
     B = image0.shape[0]
     gen = lambda: torch.Generator(device=image0.device).manual_seed(SEED)  # noqa: E731
-    general = model(image0, image1, K0, K1, generator=gen())
-    key_feats = model.extract_feats(image0[:1])
-    ref_feats = tuple(f.expand(B, *f.shape[1:]) for f in key_feats)  # one keyframe, every pair
-    shared = model.call_with_ref_feats(ref_feats, image1, K0, K1, generator=gen())
-    _sync(general.R)
-    for name, out in (("general", general), ("shared", shared)):
+    outs = {}
+    if "general" in layouts:
+        outs["general"] = model(image0, image1, K0, K1, generator=gen())
+    if "shared" in layouts:
+        key_feats = model.extract_feats(image0[:1])
+        ref_feats = tuple(f.expand(B, *f.shape[1:]) for f in key_feats)  # one keyframe, every pair
+        outs["shared"] = model.call_with_ref_feats(ref_feats, image1, K0, K1, generator=gen())
+    for name, out in outs.items():
+        _sync(out.R)
         for field, shape in (("R", (B, 3, 3)), ("t", (B, 1, 3)), ("inliers", (B,)), ("valid", (B,))):
             v = getattr(out, field)
             if tuple(v.shape) != shape:
                 raise SmokeError(f"{name}.{field}: shape {tuple(v.shape)} != {shape}")
             if v.dtype != torch.bool and not bool(torch.isfinite(v).all()):
                 raise SmokeError(f"{name}.{field}: non-finite values")
-    return {"general": general, "shared": shared}
+    return outs
+
+
+def check_unpacked_backbone(model, model_u, image0, image1) -> dict:
+    """Phase 3, ``PACKED_ATTENTION=False``: the backbone's features through
+    K1b against the packed run's through K1 on the same images (cosine per
+    image > 0.999); returns the worst cosine and the max |diff|."""
+    from mickey_tpu_torch.nn.extractor import backbone_features
+
+    ims = torch.cat([image0, image1])
+    with torch.inference_mode():
+        a = backbone_features(model.params, ims, model.cfg).flatten(1).double()
+        b = backbone_features(model_u.params, ims, model_u.cfg).flatten(1).double()
+    cos = torch.nn.functional.cosine_similarity(b, a).min().item()
+    if not cos > 0.999:
+        raise SmokeError(f"unpacked backbone: cosine to the packed run {cos:.6f} <= 0.999")
+    return {"backbone_cos": cos, "backbone_max_abs": (a - b).abs().max().item()}
 
 
 def check_against_plain(model, cpu_model, image0, image1, K0, K1) -> dict:
@@ -460,9 +552,11 @@ def check_train_against_plain(cfg, params, device, *, pairs: int, height: int, w
 
     1. Heads in train mode: outputs at 1e-4 and the forward's BN running
        stats at 1e-5, each relative to the leaf's largest entry.
-    2. Matcher (K4 forward, K5 backward) and loss on the card's head outputs:
-       the loss at 1e-4 relative; its gradients with respect to the four head
-       maps and the dustbin at 1e-3 of each one's largest entry.
+    2. Matcher and loss on the card's head outputs, on the route ``cfg``
+       selects (dense: K4 forward, K5 backward; fused top-K: K2 forward, K6
+       backward): the loss at 1e-4 relative; its gradients with respect to
+       the four head maps and the dustbin at 1e-3 of each one's largest
+       entry.
     3. The heads' backward for the plain path's head-output gradients, on
        the card and on the CPU in fp32, each against the same backward in
        fp64 on the CPU: every parameter leaf's gradient on the card within
@@ -474,9 +568,18 @@ def check_train_against_plain(cfg, params, device, *, pairs: int, height: int, w
        normwise and 5.0e-2 in their largest entry relative to the leaf's
        largest (a random feature map, this check's shapes); a wrong backward
        is off by O(1). The CPU's own distance is reported beside the card's."""
-    from mickey_tpu_torch.nn.extractor import correspondences_from_heads, heads_apply
-    from mickey_tpu_torch.training.loss import LossConfig, metric_pose_loss
-    from mickey_tpu_torch.training.train_step import StagedTrainStep, batch_pose, init_train_state
+    from mickey_tpu_torch.nn.extractor import (
+        correspondences_from_heads,
+        heads_apply,
+        topk_train_correspondences_from_heads,
+    )
+    from mickey_tpu_torch.training.loss import LossConfig, metric_pose_loss, metric_pose_loss_topk
+    from mickey_tpu_torch.training.train_step import (
+        StagedTrainStep,
+        batch_pose,
+        init_train_state,
+        use_train_fused_topk,
+    )
     from mickey_tpu_torch.weights import is_bn_stat, params_to_torch, tree_leaves
 
     cpu = torch.device("cpu")
@@ -503,11 +606,19 @@ def check_train_against_plain(cfg, params, device, *, pairs: int, height: int, w
     # 2. matcher + loss on the same head outputs
     def tail(st, fs, b, dev):
         fs = [f.detach().to(dev).requires_grad_(True) for f in fs]
-        corr = correspondences_from_heads(st.params, fs, cfg, train=True)
         Rgt, tgt = batch_pose(b)
-        total, _ = metric_pose_loss(corr.final_scores, corr.kps0, corr.depth0, corr.kps1, corr.depth1,
-                                    b["K_color0"], b["K_color1"], b["Kori_color0"], b["Kori_color1"], Rgt, tgt,
-                                    lc, topk, sample_override=tuple(d.to(dev) for d in draws))
+        Ks = (b["K_color0"], b["K_color1"], b["Kori_color0"], b["Kori_color1"])
+        override = tuple(d.to(dev) for d in draws)
+        if use_train_fused_topk(cfg, lc):
+            c = topk_train_correspondences_from_heads(st.params, fs, cfg)
+            total, _ = metric_pose_loss_topk(
+                (c.top_scores, c.top_idx, c.row_ok, c.lse_row, c.lse_col), c.dsc0, c.dsc1, c.scr0, c.scr1,
+                c.kps0, c.depth0, c.kps1, c.depth1, *Ks, Rgt, tgt, lc, topk,
+                temperature=float(cfg.FEATURE_MATCHER.DUAL_SOFTMAX.TEMPERATURE), sample_override=override)
+        else:
+            c = correspondences_from_heads(st.params, fs, cfg, train=True)
+            total, _ = metric_pose_loss(c.final_scores, c.kps0, c.depth0, c.kps1, c.depth1, *Ks, Rgt, tgt,
+                                        lc, topk, sample_override=override)
         return total.item(), torch.autograd.grad(total, fs + [st.params["matcher"]["dustbin_score"]])
 
     loss, g_tail = tail(state, feats, batch, device)
@@ -556,19 +667,21 @@ def _double_tree(tree):
     return tree if tree is None else tree.detach().double().requires_grad_(tree.requires_grad)
 
 
+def _elapsed_ms(fn) -> float:
+    """CUDA-event time of one call of ``fn()`` in milliseconds."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Median CUDA-event time of ``fn()`` in milliseconds."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(_elapsed_ms(fn) for _ in range(iters))
 
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at its 700 W limit).
@@ -603,9 +716,10 @@ def kernel_bounds(inp, tin) -> dict:
     hr = inp["R"].shape[1]
     corr_t = 2.0 * Bt * Mt * Nt * Ct
     descs_t = (Bt * Mt * Ct + Bt * Nt * Ct) * f32
+    attn = _bound(4.0 * imgs * heads * seq * seq * d, (imgs * seq * three_c + imgs * seq * heads * d) * 2, PEAK_BF16)
     return {
-        "flash_attention_packed": _bound(4.0 * imgs * heads * seq * seq * d,
-                                         (imgs * seq * three_c + imgs * seq * heads * d) * 2, PEAK_BF16),
+        "flash_attention_packed": attn,
+        "flash_attention": attn,  # the same q, k, v read and output written, on another layout
         "col_lse": _bound(2.0 * B * M * N * C, (B * M * C + B * N * C + B * N) * f32, PEAK_FP32),
         "pair_topk": _bound(2.0 * B * M * N * C,
                             (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * L * M + 4 * B * M) * f32, PEAK_FP32),
@@ -614,17 +728,38 @@ def kernel_bounds(inp, tin) -> dict:
         "dual_softmax_bwd_sums": _bound(corr_t, descs_t + (Bt * Mt * Nt + 2 * Bt * Mt + 2 * Bt * Nt) * f32, PEAK_FP32),
         "dual_softmax_bwd_grads": _bound(3 * corr_t, 2 * descs_t + (Bt * Mt * Nt + 2 * Bt * Mt + 2 * Bt * Nt) * f32,
                                          PEAK_FP32),
+        # s, dS dsc1 and dS^T dsc0: three products (the kernel recomputes s
+        # in each of its two launches, four)
+        "lse_bwd": _bound(3 * corr_t, 2 * descs_t + (2 * Bt * Mt + 2 * Bt * Nt) * f32, PEAK_FP32),
     }
 
 
 def library_calls(inp) -> dict:
     """name -> one PyTorch call computing the kernel's function, where one
-    exists: K1 is scaled_dot_product_attention on the unpacked heads."""
-    imgs, seq, three_c = inp["qkv"].shape
-    heads = inp["heads"]
-    qkv = inp["qkv"].reshape(imgs, seq, heads, 3, three_c // 3 // heads)
-    q, k, v = (qkv[:, :, :, i].permute(0, 2, 1, 3).contiguous() for i in range(3))
-    return {"flash_attention_packed": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)}
+    exists: K1 and K1b are scaled_dot_product_attention on the unpacked heads."""
+    from mickey_tpu_torch.ops.flash_attention import qkv_heads
+
+    q, k, v = (x.contiguous() for x in qkv_heads(inp["qkv"], inp["heads"]))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    return {"flash_attention_packed": sdpa, "flash_attention": sdpa}
+
+
+def _launched(launches: dict, path: str, needed, absent=()) -> dict:
+    """Fail unless every kernel in ``needed`` was launched and none in ``absent``."""
+    missing = [k for k in needed if launches[k] == 0]
+    extra = [k for k in absent if launches[k] != 0]
+    if missing or extra:
+        raise SmokeError(f"{path}: kernels never launched {missing}, launched but off this path {extra}")
+    return launches
+
+
+def _counted(fn):
+    """Run ``fn`` with every launch count at 0; returns (its result, the counts)."""
+    from mickey_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    out = fn()
+    return out, dict(_cuda.LAUNCHES)
 
 
 def main() -> int:
@@ -632,7 +767,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 1
     from mickey_tpu_torch import default_config
-    from mickey_tpu_torch.models import MicKeyTrainer, build_model
+    from mickey_tpu_torch.models import MicKeyTrainer, MickeyRelativePose, build_model
     from mickey_tpu_torch.ops import _cuda
     from mickey_tpu_torch.weights import init_params_numpy
 
@@ -649,43 +784,52 @@ def main() -> int:
     #    B = 2) and training (B = 8 pairs, 1938 keypoints, C = 128)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cfg = default_config()
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=16,
                         prefilter=4096, samples=2048, hyps=100)
     errs = check_kernels(inp)
     tin = train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128)
     errs.update(check_train_kernels(tin))
+    errs.update(check_topk_train_kernels(tin, prefilter=int(cfg.TPU.SAMPLING_PREFILTER),
+                                         topl=int(cfg.TPU.MATCHER_TOPL)))
     print("kernels: ok | " + " ".join(f"{k} max|diff|={v:.3e}" for k, v in errs.items()), flush=True)
 
-    # 3a. serving slice at full width, then a small input against the plain CPU path
-    cfg = default_config()
+    # 3a. serving slice at full width in both layouts, the general layout on
+    #     unpacked attention, then a small input against the plain CPU path
     params = init_params_numpy(cfg, SEED)
     model = build_model(cfg, params, device=dev)
     image0, image1, K0, K1 = slice_inputs(dev, pairs=2, height=714, width=532)
-    _cuda.reset_launches()
-    outs = run_slice(model, image0, image1, K0, K1)
-    serve_launches = dict(_cuda.LAUNCHES)
-    missing = [k for k in SERVING_KERNELS if serve_launches[k] == 0]
-    if missing:
-        raise SmokeError(f"slice: kernels never launched on the serving path: {missing}")
+    outs, serve_launches = _counted(lambda: run_slice(model, image0, image1, K0, K1))
+    _launched(serve_launches, "serving", SERVING_KERNELS, ("flash_attention",))
+    cfg_u = cfg.clone()
+    cfg_u.TPU.PACKED_ATTENTION = False
+    model_u = MickeyRelativePose(cfg_u, model.params, device=dev)  # the same weights
+    outs_u, unpacked_launches = _counted(lambda: run_slice(model_u, image0, image1, K0, K1, ("general",)))
+    _launched(unpacked_launches, "serving, unpacked attention", UNPACKED_SERVING_KERNELS, ("flash_attention_packed",))
+    unpacked = check_unpacked_backbone(model, model_u, image0, image1)
     cpu_model = build_model(cfg, params, device="cpu")
     small = check_against_plain(model, cpu_model, *slice_inputs(dev, pairs=2, height=224, width=252))
     del cpu_model
     g = outs["general"]
     print(f"slice: ok | launches {serve_launches} | conf {g.inliers.tolist()} valid {g.valid.tolist()} | "
+          f"unpacked attention: launches {unpacked_launches} conf {outs_u['general'].inliers.tolist()} {unpacked} | "
           f"small-input vs plain {small}", flush=True)
 
-    # 3b. training at full width: B = 8 pairs of 714x532, 3 staged steps
-    trainer = MicKeyTrainer(cfg, params=params, seed=SEED, device=dev)
+    # 3b. training at full width: B = 8 pairs of 714x532, 3 staged steps on
+    #     each matcher route, then a small step of each against the CPU path
+    cfg_f = cfg.clone()
+    cfg_f.TPU.TRAIN_FUSED_TOPK = True
     batch = train_batch(dev, pairs=cfg.TRAINING.BATCH_SIZE, height=714, width=532)
-    _cuda.reset_launches()
-    steps = run_train(trainer, batch, steps=3)
-    train_launches = dict(_cuda.LAUNCHES)
-    missing = [k for k in TRAIN_KERNELS if train_launches[k] == 0]
-    if missing:
-        raise SmokeError(f"train: kernels never launched on the training path: {missing}")
-    small_train = check_train_against_plain(small_loss_cfg(cfg), params, dev, pairs=2, height=224, width=252)
+    trainers, train_launches = {}, {}
+    for route, c, needed, absent in (("dense", cfg, TRAIN_KERNELS, ("flash_attention", "pair_topk", "lse_bwd")),
+                                     ("fused", cfg_f, FUSED_TRAIN_KERNELS, ("flash_attention",) + DENSE_MATCHER_KERNELS)):
+        trainers[route] = MicKeyTrainer(c, params=params, seed=SEED, device=dev)
+        steps, train_launches[route] = _counted(lambda: run_train(trainers[route], batch, steps=3))
+        _launched(train_launches[route], f"train, {route} route", needed, absent)
+        small_train = check_train_against_plain(small_loss_cfg(c), params, dev, pairs=2, height=224, width=252)
+        print(f"train ({route}): ok | launches {train_launches[route]} | steps {steps} | "
+              f"small-input vs plain {small_train}", flush=True)
     del params
-    print(f"train: ok | launches {train_launches} | steps {steps} | small-input vs plain {small_train}", flush=True)
 
     # 4. timing
     B = image0.shape[0]
@@ -694,21 +838,24 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     t_general = time_ms(lambda: model(image0, image1, K0, K1, generator=gen.manual_seed(SEED)))
     t_shared = time_ms(lambda: model.call_with_ref_feats(ref_feats, image1, K0, K1, generator=gen.manual_seed(SEED)))
+    t_unpacked = time_ms(lambda: model_u(image0, image1, K0, K1, generator=gen.manual_seed(SEED)))
     stages = _stage_times(model, image0, image1, K0, K1)
-    train_stages = _train_stage_times(trainer, batch)
+    train_stages = {route: _train_stage_times(tr, batch) for route, tr in trainers.items()}
     calls = {**kernel_calls(inp), **train_kernel_calls(tin)}
     kt = {name: (time_ms(k, iters=20), time_ms(p, iters=20)) for name, (k, p) in calls.items()}
     lib_ms = {name: time_ms(f, iters=20) for name, f in library_calls(inp).items()}
     bounds = kernel_bounds(inp, tin)
     print(f"timing: ok | {card} | general {B / t_general * 1e3:.3f} pairs/s ({t_general:.3f} ms/batch of {B}) | "
-          f"shared keyframe {B / t_shared * 1e3:.3f} pairs/s ({t_shared:.3f} ms) | stages ms {stages} | "
-          f"train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | "
+          f"shared keyframe {B / t_shared * 1e3:.3f} pairs/s ({t_shared:.3f} ms) | "
+          f"general, unpacked attention {B / t_unpacked * 1e3:.3f} pairs/s ({t_unpacked:.3f} ms) | "
+          f"stages ms {stages} | train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | "
           + " ".join(f"{n} {k:.4f}/{p:.4f} ms kernel/plain" for n, (k, p) in kt.items())
           + " | " + " ".join(f"{n} library {t:.4f} ms" for n, t in lib_ms.items()), flush=True)
 
+    runs = (serve_launches, unpacked_launches, *train_launches.values())
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serve_launches[n] + train_launches[n], "max_abs_err": errs[n], "ms": kt[n][0],
+         "launches": sum(r[n] for r in runs), "max_abs_err": errs[n], "ms": kt[n][0],
          "plain_ms": kt[n][1], "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": lib_ms.get(n)}
         for n, src, rep in KERNELS
     ]}))
@@ -741,50 +888,72 @@ def _train_stage_times(trainer, batch, iters: int = 5) -> dict:
     """CUDA-event medians of the staged train step at its batch, and of its
     stages: backbone forward, heads forward, matcher forward, loss forward
     (each building its autograd graph, as in training), one backward pass,
-    the optimizer. The optimizer and whole-step timings update the state."""
-    from mickey_tpu_torch.nn.extractor import compute_correspondences, heads_apply
+    the optimizer; and on the card the peak device memory of one step. The
+    matcher and loss are the trainer's route: dense (``match_scores``,
+    ``metric_pose_loss``) or fused top-K (``fused_topk_scores_train``,
+    ``metric_pose_loss_topk``). The optimizer and whole-step timings update
+    the state."""
+    from mickey_tpu_torch.nn.extractor import (
+        correspondences_from_heads,
+        heads_apply,
+        topk_train_correspondences_from_heads,
+    )
     from mickey_tpu_torch.nn.matcher import match_scores
-    from mickey_tpu_torch.training.loss import metric_pose_loss
-    from mickey_tpu_torch.training.train_step import batch_pose
+    from mickey_tpu_torch.ops.fused_matcher import fused_topk_scores_train
+    from mickey_tpu_torch.training.loss import metric_pose_loss, metric_pose_loss_topk
+    from mickey_tpu_torch.training.train_step import batch_pose, train_loss, use_train_fused_topk
 
     cfg, step, st, gen, topk = trainer.cfg, trainer.train_step, trainer.state, trainer.generator, trainer.topk
     db = trainer.device_batch(batch)
     Rgt, tgt = batch_pose(db)
     Ks = [db[k] for k in ("K_color0", "K_color1", "Kori_color0", "Kori_color1")]
     fmap = step.backbone_fwd(trainer.backbone, db["image0"], db["image1"])
-    corr, _ = compute_correspondences(st.params, None, None, cfg, train=True, fmap=fmap)
     leaf = lambda t: t.detach().requires_grad_(True)  # noqa: E731
-    d0, d1 = leaf(corr.dsc0), leaf(corr.dsc1)
-    loss_in = [leaf(corr.final_scores)] + [leaf(t) for t in (corr.kps0, corr.depth0, corr.kps1, corr.depth1)]
-    del corr
-
-    def full_forward():
-        c, _ = compute_correspondences(st.params, None, None, cfg, train=True, fmap=fmap)
-        return metric_pose_loss(c.final_scores, c.kps0, c.depth0, c.kps1, c.depth1, *Ks, Rgt, tgt,
-                                step.lc, topk, generator=gen)[0]
+    with torch.no_grad():
+        feats = heads_apply(st.params, fmap, cfg, train=True)[0]
+    if use_train_fused_topk(cfg, step.lc):
+        c = topk_train_correspondences_from_heads(st.params, feats, cfg)
+        fm = cfg.FEATURE_MATCHER.DUAL_SOFTMAX
+        d0, d1, s0, s1, kps0, dep0, kps1, dep1 = (leaf(t) for t in (c.dsc0, c.dsc1, c.scr0, c.scr1, c.kps0, c.depth0,
+                                                                     c.kps1, c.depth1))
+        tk = (c.top_scores, c.top_idx, c.row_ok, leaf(c.lse_row), leaf(c.lse_col))
+        matcher = lambda: fused_topk_scores_train(  # noqa: E731
+            d0, d1, s0[..., 0], s1[..., 0], st.params["matcher"].get("dustbin_score", 0.0), step.lc.prefilter,
+            temperature=float(fm.TEMPERATURE), use_dustbin=bool(fm.USE_DUSTBIN), row_topl=int(cfg.TPU.MATCHER_TOPL))
+        loss = lambda: metric_pose_loss_topk(tk, d0, d1, s0, s1, kps0, dep0, kps1, dep1, *Ks, Rgt, tgt,  # noqa: E731
+                                             step.lc, topk, temperature=float(fm.TEMPERATURE), generator=gen)
+    else:
+        c = correspondences_from_heads(st.params, feats, cfg, train=True)
+        d0, d1 = leaf(c.dsc0), leaf(c.dsc1)
+        loss_in = [leaf(c.final_scores)] + [leaf(t) for t in (c.kps0, c.depth0, c.kps1, c.depth1)]
+        matcher = lambda: match_scores(st.params["matcher"], d0, d1, cfg, train=True)  # noqa: E731
+        loss = lambda: metric_pose_loss(*loss_in, *Ks, Rgt, tgt, step.lc, topk, generator=gen)  # noqa: E731
+    del c
 
     leaves = st.trainable()
+    forward = lambda: train_loss(st.params, fmap, db, cfg, step.lc, topk, gen)[0]  # noqa: E731
     bwd = []
     for i in range(iters + 1):
-        total = full_forward()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        end.record()
-        end.synchronize()
+        total = forward()
+        t = _elapsed_ms(lambda: torch.autograd.grad(total, leaves, allow_unused=True))
         if i:
-            bwd.append(start.elapsed_time(end))
+            bwd.append(t)
         del total
+    grads = torch.autograd.grad(forward(), leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     out = {
         "backbone_fwd": time_ms(lambda: step.backbone_fwd(trainer.backbone, db["image0"], db["image1"]), iters, 1),
         "heads_fwd": time_ms(lambda: heads_apply(st.params, fmap, cfg, train=True), iters, 1),
-        "matcher_fwd": time_ms(lambda: match_scores(st.params["matcher"], d0, d1, cfg, train=True), iters, 1),
-        "loss_fwd": time_ms(lambda: metric_pose_loss(*loss_in, *Ks, Rgt, tgt, step.lc, topk, generator=gen), iters, 1),
+        "matcher_fwd": time_ms(matcher, iters, 1),
+        "loss_fwd": time_ms(loss, iters, 1),
         "backward": statistics.median(bwd),
         "optimizer": time_ms(lambda: step.optimizer.update(leaves, grads, st.opt_state, st.step), iters, 1),
         "step": time_ms(lambda: step(st, trainer.backbone, db, gen, topk), iters, 1),
     }
+    if fmap.is_cuda:  # the peak device memory of one whole step
+        torch.cuda.reset_peak_memory_stats(fmap.device)
+        step(st, trainer.backbone, db, gen, topk)
+        out["step_peak_gib"] = torch.cuda.max_memory_allocated(fmap.device) / 2**30
     return {k: round(v, 3) for k, v in out.items()}
 
 

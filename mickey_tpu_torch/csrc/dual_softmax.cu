@@ -13,6 +13,12 @@
 //       _bwd_grads_kernel (:256) -> mk_dual_softmax_bwd_grads_f32:
 //       dS = 2 P o G - A c - B r with A = exp(s - lse_col), B = exp(s - lse_row),
 //       dd0 = dS dsc1 / T and dd1 = dS^T dsc0 / T.
+// and fused_topk_scores_train's backward:
+//   K6  _lse_bwd_kernel (:665) -> mk_lse_bwd_f32: the VJP of the two
+//       logsumexps alone, for cotangents gr (B, M) and gc (B, N):
+//       dS = gr exp(s - lse_row) + gc exp(s - lse_col), dd0 and dd1 as in K5.
+//       It reads no (B, M, N) tensor at all: that is the point of the fused
+//       top-K training route.
 // All arithmetic is fp32 FMA on the CUDA cores, never TF32: the reference
 // computes the correlation at Precision.HIGHEST and 1/T = 10 turns TF32
 // truncation into ~0.04 logit error.
@@ -20,7 +26,8 @@
 // What bounds them on the H100: the recomputed correlation (2 B M N C flops per
 // pass; 7.7 GFLOP at B = 8, M = N = 1938, C = 128) against 67 TFLOP/s of fp32,
 // next to one pass over the (B, M, N) matrix (P written, or G read: 120 MB at
-// 3.35 TB/s). So all three are bound by operations. Design:
+// 3.35 TB/s; K6 moves only the descriptors and vectors). So all four are bound
+// by operations. Design:
 //   * one register-tiled fp32 GEMM tile (64 x 64 per CTA of 256 threads, a
 //     4 x 4 micro tile per thread, operands k-major in shared memory, the
 //     whole descriptor depth C <= 128 staged at once) shared by every kernel;
@@ -33,7 +40,8 @@
 //     are the same from run to run.
 //   * K4 sweeps the other axis twice: online row max / sum-exp first, then
 //     the writes. K5's grads kernel forms the dS tile in shared memory and
-//     multiplies it with the already staged descriptor tile.
+//     multiplies it with the already staged descriptor tile; K6 is the same
+//     kernel with another dS epilogue and no G tile to load.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -250,37 +258,42 @@ __global__ void col_partials_kernel(const float* __restrict__ cpart, float* __re
   c[e] = tot;
 }
 
-// One side of the gradient: the CTA owns 64 rows of the `own` axis (dsc0's for
-// dd0, dsc1's for dd1) and loops over the other axis. G element (own o,
-// other t) sits at g[o * g_so + t * g_st]; lse / sums come per axis.
-//   dS = 2 exp(s - lse_own) exp(s - lse_oth) G - exp(s - lse_oth) sum_oth
-//        - exp(s - lse_own) sum_own
+// One side of a gradient: the CTA owns 64 rows of the `own` axis (dsc0's for
+// dd0, dsc1's for dd1) and loops over the other axis; logsumexps and weights
+// come per axis, and with P_own = exp(s - lse_oth) (softmax along the owned
+// axis), P_oth = exp(s - lse_own):
+//   kDense (K5): G element (own o, other t) sits at g[o * g_so + t * g_st],
+//     the weights are the sums of G o P, and
+//     dS = 2 P_own P_oth G - P_own w_oth - P_oth w_own;
+//   !kDense (K6): no G, the weights are the logsumexps' cotangents, and
+//     dS = w_own P_oth + w_oth P_own.
 //   dd[o] = sum_t dS[o, t] Xt[t] / T
+template <bool kDense>
 __global__ void __launch_bounds__(NT)
 bwd_grads_kernel(const float* __restrict__ xo, const float* __restrict__ xt,
                  const float* __restrict__ g, long long g_so, long long g_st,
                  const float* __restrict__ lse_own, const float* __restrict__ lse_oth,
-                 const float* __restrict__ sum_own, const float* __restrict__ sum_oth,
+                 const float* __restrict__ w_own, const float* __restrict__ w_oth,
                  float* __restrict__ dd, int n_own, int n_oth, int C, float inv_temp) {
   extern __shared__ __align__(16) float sm[];
   float* As = sm;
   float* Bs = sm + C * LDA;
-  float* Ds = Bs + C * LDA;  // BM x LDT: G, then dS in place
+  float* Ds = Bs + C * LDA;  // BM x LDT: G (kDense), then dS in place
   const int b = blockIdx.y, o0 = blockIdx.x * BM;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const float* XO = xo + (size_t)b * n_own * C;
   const float* XT = xt + (size_t)b * n_oth * C;
-  const float* Gb = g + (size_t)b * n_own * n_oth;
+  const float* Gb = kDense ? g + (size_t)b * n_own * n_oth : nullptr;
   const float* LT = lse_oth + (size_t)b * n_oth;
-  const float* ST = sum_oth + (size_t)b * n_oth;
+  const float* WT = w_oth + (size_t)b * n_oth;
 
   stage_kmajor(XO, o0, n_own, C, As);
-  float lo[4], so[4];
+  float lo[4], wo[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int o = o0 + ty * 4 + a;
     lo[a] = o < n_own ? lse_own[(size_t)b * n_own + o] : 0.f;
-    so[a] = o < n_own ? sum_own[(size_t)b * n_own + o] : 0.f;
+    wo[a] = o < n_own ? w_own[(size_t)b * n_own + o] : 0.f;
   }
   float out[4][CQ];
 #pragma unroll
@@ -292,12 +305,14 @@ bwd_grads_kernel(const float* __restrict__ xo, const float* __restrict__ xt,
   for (int t0 = 0; t0 < n_oth; t0 += BN) {
     __syncthreads();
     stage_kmajor(XT, t0, n_oth, C, Bs);
-    for (int e = threadIdx.x; e < BM * BN; e += NT) {
-      // neighbouring threads on neighbouring addresses of G
-      const int oo = g_st == 1 ? e / BN : e % BM;
-      const int tt = g_st == 1 ? e % BN : e / BM;
-      const int o = o0 + oo, t = t0 + tt;
-      Ds[oo * LDT + tt] = (o < n_own && t < n_oth) ? Gb[o * g_so + t * g_st] : 0.f;
+    if constexpr (kDense) {
+      for (int e = threadIdx.x; e < BM * BN; e += NT) {
+        // neighbouring threads on neighbouring addresses of G
+        const int oo = g_st == 1 ? e / BN : e % BM;
+        const int tt = g_st == 1 ? e % BN : e / BM;
+        const int o = o0 + oo, t = t0 + tt;
+        Ds[oo * LDT + tt] = (o < n_own && t < n_oth) ? Gb[o * g_so + t * g_st] : 0.f;
+      }
     }
     __syncthreads();
     tile_dot(As, Bs, C, acc);
@@ -314,7 +329,10 @@ bwd_grads_kernel(const float* __restrict__ xo, const float* __restrict__ xt,
         const float v = acc[a][c] * inv_temp;
         const float pa = expf(v - LT[t]);   // softmax along the owned axis
         const float pb = expf(v - lo[a]);   // softmax along the other axis
-        *slot = 2.f * (pa * pb) * *slot - pa * ST[t] - pb * so[a];
+        if constexpr (kDense)
+          *slot = 2.f * (pa * pb) * *slot - pa * WT[t] - pb * wo[a];
+        else
+          *slot = wo[a] * pb + WT[t] * pa;
       }
     __syncthreads();
     for (int tt = 0; tt < BN; ++tt) {
@@ -390,15 +408,17 @@ extern "C" int mk_dual_softmax_bwd_sums_f32(const void* d0, const void* d1, cons
   return (int)cudaGetLastError();
 }
 
-// Two launches: rows of dsc0 owned (dd0), then rows of dsc1 owned (dd1).
-extern "C" int mk_dual_softmax_bwd_grads_f32(const void* d0, const void* d1, const void* g,
-                                             const void* lse_row, const void* lse_col,
-                                             const void* r, const void* c, void* dd0, void* dd1,
-                                             int B, int M, int N, int C, float inv_temp,
-                                             void* stream) {
+namespace {
+
+// dd0 and dd1 (B, M, C), (B, N, C) of one gradient kernel: two launches, rows
+// of dsc0 owned (dd0), then rows of dsc1 owned (dd1).
+template <bool kDense>
+int grads_both_sides(const void* d0, const void* d1, const void* g, const void* lse_row,
+                     const void* lse_col, const void* w_row, const void* w_col, void* dd0,
+                     void* dd1, int B, int M, int N, int C, float inv_temp, void* stream) {
   if (C < 1 || C > CMAX) return (int)cudaErrorInvalidValue;
   const size_t smem = operand_bytes(C) + tile_bytes();
-  int e = set_smem((const void*)bwd_grads_kernel, smem);
+  int e = set_smem((const void*)bwd_grads_kernel<kDense>, smem);
   if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
   const float* D0 = static_cast<const float*>(d0);
@@ -406,13 +426,32 @@ extern "C" int mk_dual_softmax_bwd_grads_f32(const void* d0, const void* d1, con
   const float* G = static_cast<const float*>(g);
   const float* LR = static_cast<const float*>(lse_row);
   const float* LC = static_cast<const float*>(lse_col);
-  const float* R = static_cast<const float*>(r);
-  const float* Cs = static_cast<const float*>(c);
-  bwd_grads_kernel<<<dim3((M + BM - 1) / BM, B), NT, smem, s>>>(
-      D0, D1, G, (long long)N, 1LL, LR, LC, R, Cs, static_cast<float*>(dd0), M, N, C, inv_temp);
+  const float* WR = static_cast<const float*>(w_row);
+  const float* WC = static_cast<const float*>(w_col);
+  bwd_grads_kernel<kDense><<<dim3((M + BM - 1) / BM, B), NT, smem, s>>>(
+      D0, D1, G, (long long)N, 1LL, LR, LC, WR, WC, static_cast<float*>(dd0), M, N, C, inv_temp);
   e = (int)cudaGetLastError();
   if (e) return e;
-  bwd_grads_kernel<<<dim3((N + BM - 1) / BM, B), NT, smem, s>>>(
-      D1, D0, G, 1LL, (long long)N, LC, LR, Cs, R, static_cast<float*>(dd1), N, M, C, inv_temp);
+  bwd_grads_kernel<kDense><<<dim3((N + BM - 1) / BM, B), NT, smem, s>>>(
+      D1, D0, G, 1LL, (long long)N, LC, LR, WC, WR, static_cast<float*>(dd1), N, M, C, inv_temp);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mk_dual_softmax_bwd_grads_f32(const void* d0, const void* d1, const void* g,
+                                             const void* lse_row, const void* lse_col,
+                                             const void* r, const void* c, void* dd0, void* dd1,
+                                             int B, int M, int N, int C, float inv_temp,
+                                             void* stream) {
+  return grads_both_sides<true>(d0, d1, g, lse_row, lse_col, r, c, dd0, dd1, B, M, N, C, inv_temp,
+                                stream);
+}
+
+// gr (B, M), gc (B, N): the cotangents of lse_row and lse_col.
+extern "C" int mk_lse_bwd_f32(const void* d0, const void* d1, const void* gr, const void* gc,
+                              const void* lse_row, const void* lse_col, void* dd0, void* dd1,
+                              int B, int M, int N, int C, float inv_temp, void* stream) {
+  return grads_both_sides<false>(d0, d1, nullptr, lse_row, lse_col, gr, gc, dd0, dd1, B, M, N, C,
+                                 inv_temp, stream);
 }

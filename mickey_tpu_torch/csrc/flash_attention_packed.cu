@@ -1,11 +1,18 @@
-// Packed head-major flash attention for the DINOv2 backbone (forward only).
+// Flash attention for the DINOv2 backbone (forward only), on two layouts.
 //
-// Replaces mickey_tpu/ops/flash_attention.py::flash_attention_packed
-// (_flash_packed_kernel + _online_softmax_attend): non-causal
-// softmax(q k^T / sqrt(D)) v read straight from the qkv linear output, whose
-// minor dim is packed head-major as (H, 3, D), and written head-concat as
-// (B, S, H*D) for the proj linear. Keys at positions >= S are masked, so the
-// 1939-token ViT-L sequence needs no padding.
+// Replaces mickey_tpu/ops/flash_attention.py's two Pallas kernels:
+//   K1  flash_attention_packed (_flash_packed_kernel + _online_softmax_attend)
+//       -> mk_flash_attention_packed_bf16: non-causal softmax(q k^T / sqrt(D)) v
+//       read straight from the qkv linear output, whose minor dim is packed
+//       head-major as (H, 3, D), and written head-concat as (B, S, H*D) for the
+//       proj linear;
+//   K1b flash_attention (_flash_kernel) -> mk_flash_attention_bf16: the same
+//       math on q, k, v of shape (B, H, S, D) with any strides over (B, H, S)
+//       and unit stride over D (the permuted views of the qkv linear output
+//       need no copy), written as a contiguous (B, H, S, D).
+// Keys at positions >= seq_len are masked, so the 1939-token ViT-L sequence
+// needs no padding. Both entries run one kernel body; only the addressing
+// (`Layout`) differs.
 //
 // Numerics follow the TPU kernel: bf16 operands, products on the tensor
 // cores with fp32 accumulation, the 1/sqrt(D) scale applied to the fp32
@@ -42,22 +49,33 @@ constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
 
 constexpr size_t SMEM_BYTES = 4 * BQ * LDH * sizeof(bf16) + BQ * LDS * sizeof(float);
 
+// Where image b, head h of q, k, v and the output start (element offsets
+// b * x_b + h * x_h from each base) and the element stride between their
+// consecutive sequence rows (x_s); the D = 64 values of a row are contiguous.
+// Every row starts 16-byte aligned.
+struct Layout {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
+};
+
 // Copy rows [r0, r0 + 64) of one 64-wide head slice into shared memory,
 // 16 bytes per thread-step; rows >= S are zero-filled.
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int S,
-                                          size_t row_stride) {
+                                          long long row_stride) {
   for (int i = threadIdx.x; i < 64 * 8; i += NT) {
     int r = i >> 3, c8 = (i & 7) * 8;
     int row = r0 + r;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) v = *reinterpret_cast<const uint4*>(src + (size_t)row * row_stride + c8);
+    if (row < S) v = *reinterpret_cast<const uint4*>(src + (long long)row * row_stride + c8);
     *reinterpret_cast<uint4*>(dst + r * LDH + c8) = v;
   }
 }
 
 __global__ void __launch_bounds__(NT)
-flash_packed_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int H,
-                    float scale) {
+flash_kernel(const Layout L, int S, int seq_len, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BQ * LDH;
@@ -66,24 +84,24 @@ flash_packed_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
   float* Ss = reinterpret_cast<float*>(Ps + BQ * LDH);
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * D;
-  const size_t row_stride = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)b * S * row_stride + (size_t)h * 3 * D;
+  const bf16* qb = L.q + b * L.q_b + h * L.q_h;
+  const bf16* kb = L.k + b * L.k_b + h * L.k_h;
+  const bf16* vb = L.v + b * L.v_b + h * L.v_h;
   const int warp = threadIdx.x >> 5;
   const int r = threadIdx.x >> 1;          // this thread's query row in the tile
   const int c0 = (threadIdx.x & 1) * 32;   // and its half of the columns
 
-  load_tile(Qs, base, q0, S, row_stride);
+  load_tile(Qs, qb, q0, S, L.q_s);
 
   float m = NEG_INF, l = 0.f;
   float o[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) o[j] = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  for (int k0 = 0; k0 < seq_len; k0 += BK) {
     __syncthreads();  // previous tile's K/V no longer in use (and Q loaded)
-    load_tile(Ks, base + D, k0, S, row_stride);
-    load_tile(Vs, base + 2 * D, k0, S, row_stride);
+    load_tile(Ks, kb, k0, S, L.k_s);
+    load_tile(Vs, vb, k0, S, L.v_s);
     __syncthreads();
 
     // S_tile = Q K^T for this warp's 16 rows
@@ -115,7 +133,7 @@ flash_packed_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       float v = Ss[r * LDS + c0 + j] * scale;
-      if (k0 + c0 + j >= S) v = NEG_INF;
+      if (k0 + c0 + j >= seq_len) v = NEG_INF;
       s[j] = v;
       mx = fmaxf(mx, v);
     }
@@ -164,7 +182,7 @@ flash_packed_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
   const int q = q0 + r;
   if (q < S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    bf16* dst = out + ((size_t)b * S + q) * C + (size_t)h * D + c0;
+    bf16* dst = L.o + b * L.o_b + h * L.o_h + q * L.o_s + c0;
 #pragma unroll
     for (int j = 0; j < 32; j += 8) {
       __align__(16) bf16 v[8];
@@ -175,15 +193,38 @@ flash_packed_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
   }
 }
 
-}  // namespace
-
-extern "C" int mk_flash_attention_packed_bf16(const void* qkv, void* out, int B, int S, int H,
-                                              float scale, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(flash_packed_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+int launch(const Layout& L, int B, int H, int S, int seq_len, float scale, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_packed_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, H, scale);
+  flash_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(L, S, seq_len, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1: qkv (B, S, 3 H D) packed head-major -> out (B, S, H D).
+extern "C" int mk_flash_attention_packed_bf16(const void* qkv, void* out, int B, int S, int H,
+                                              float scale, void* stream) {
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const long long C = (long long)H * D, row = 3 * C;
+  const Layout L{x, x + D, x + 2 * D, static_cast<bf16*>(out),
+                 S * row, 3 * D, row, S * row, 3 * D, row, S * row, 3 * D, row,
+                 S * C, D, C};
+  return launch(L, B, H, S, S, scale, stream);
+}
+
+// K1b: q, k, v (B, H, S, D) with element strides
+// {q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s} -> out (B, H, S, D) contiguous;
+// keys at positions >= seq_len masked.
+extern "C" int mk_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                       const long long* strides, int B, int H, int S,
+                                       int seq_len, float scale, void* stream) {
+  const long long* st = strides;
+  const Layout L{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                 static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                 st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                 (long long)H * S * D, (long long)S * D, D};
+  return launch(L, B, H, S, seq_len, scale, stream);
 }

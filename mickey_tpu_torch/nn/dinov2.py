@@ -2,9 +2,11 @@
 
 Patch-14 ViT with LayerScale, pre-norm blocks and exact-GELU MLP. Compute
 runs in the backbone dtype (bf16 by default) with LayerNorm statistics in
-fp32; attention goes through ``ops.flash_attention.flash_attention_packed``
-on the head-major packed qkv. The sequence (1939 tokens for ViT-L at
-714x532) is not padded: the attention kernel masks its own ragged tile.
+fp32. Attention goes through ``ops.flash_attention.flash_attention_packed``
+on the head-major packed qkv (``packed=True``, the default) or through
+``flash_attention`` on its (B, H, S, D) views (``TPU.PACKED_ATTENTION=False``).
+The sequence (1939 tokens for ViT-L at 714x532) is not padded: the attention
+kernels mask their own ragged tile.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import flash_attention_packed
+from ..ops.flash_attention import flash_attention, flash_attention_packed, qkv_heads
 from .common import layernorm, linear
 
 VIT_CONFIGS = {
@@ -68,11 +70,15 @@ def interpolate_pos_encoding(pos_embed: torch.Tensor, h0: int, w0: int) -> torch
     return torch.cat([pos_embed[:, :1], out.to(pos_embed.dtype)], dim=1)
 
 
-def block_apply(x: torch.Tensor, bp, num_heads: int) -> torch.Tensor:
+def block_apply(x: torch.Tensor, bp, num_heads: int, packed: bool = True) -> torch.Tensor:
     """One pre-norm ViT block with LayerScale; x (B, S, C) in the compute dtype."""
     h = layernorm(bp["norm1"], x.float(), eps=1e-6).to(x.dtype)
     qkv = linear(bp["attn"]["qkv"], h)  # (B, S, 3C), head-major columns
-    attn = flash_attention_packed(qkv, num_heads)
+    if packed:
+        attn = flash_attention_packed(qkv, num_heads)
+    else:
+        b, s, c3 = qkv.shape
+        attn = flash_attention(*qkv_heads(qkv, num_heads), s).transpose(1, 2).reshape(b, s, c3 // 3)
     x = x + bp["ls1"]["gamma"].to(x.dtype) * linear(bp["attn"]["proj"], attn)
     h = layernorm(bp["norm2"], x.float(), eps=1e-6).to(x.dtype)
     h = linear(bp["mlp"]["fc2"], F.gelu(linear(bp["mlp"]["fc1"], h), approximate="none"))
@@ -80,7 +86,7 @@ def block_apply(x: torch.Tensor, bp, num_heads: int) -> torch.Tensor:
 
 
 def vit_forward_features(params, images: torch.Tensor, num_heads: int, patch_size: int = 14,
-                         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                         dtype: torch.dtype = torch.bfloat16, packed: bool = True) -> torch.Tensor:
     """images (B, H, W, 3) in [0, 1] -> patch tokens (B, H/14 * W/14, C), fp32."""
     b, h, w, c_in = images.shape
     h0, w0 = h // patch_size, w // patch_size
@@ -91,14 +97,14 @@ def vit_forward_features(params, images: torch.Tensor, num_heads: int, patch_siz
     x = torch.cat([cls, x], dim=1)
     x = x + interpolate_pos_encoding(params["pos_embed"], h0, w0).to(dtype)
     for bp in params["blocks"]:
-        x = block_apply(x, bp, num_heads)
+        x = block_apply(x, bp, num_heads, packed)
     x = layernorm(params["norm"], x.float(), eps=1e-6)
     return x[:, 1:]
 
 
 def vit_features_chw(params, images_nhwc: torch.Tensor, num_heads: int, patch_size: int = 14,
-                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                     dtype: torch.dtype = torch.bfloat16, packed: bool = True) -> torch.Tensor:
     """Patch tokens as a (B, H/14, W/14, C) fp32 feature map."""
     b, h, w, _ = images_nhwc.shape
-    toks = vit_forward_features(params, images_nhwc, num_heads, patch_size, dtype)
+    toks = vit_forward_features(params, images_nhwc, num_heads, patch_size, dtype, packed)
     return toks.reshape(b, h // patch_size, w // patch_size, -1)

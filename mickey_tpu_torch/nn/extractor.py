@@ -1,5 +1,6 @@
-"""Backbone + heads, the fused matcher -> top-K stage of serving and the
-dense correspondences of training (``mickey_tpu/nn/extractor.py``)."""
+"""Backbone + heads, the fused matcher -> top-K stage of serving, and the
+correspondences of training on both matcher routes: dense, and fused top-K
+(``mickey_tpu/nn/extractor.py``)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.fused_matcher import fused_topk_scores
+from ..ops.fused_matcher import fused_topk_scores, fused_topk_scores_train
 from .dinov2 import VIT_CONFIGS, vit_features_chw
 from .heads import depth_head_apply, desc_head_apply, det_head_apply, offset_head_apply
 from .matcher import match_scores
@@ -28,8 +29,9 @@ def backbone_features(params, images: torch.Tensor, cfg) -> torch.Tensor:
     if h % df or w % df:
         raise ValueError(f"image size {(h, w)} not divisible by {df}")
     variant = cfg.MICKEY.DINOV2.get("VARIANT", "vit_large")
-    return vit_features_chw(params["dinov2"], images, VIT_CONFIGS[variant]["num_heads"],
-                            patch_size=df, dtype=torch.bfloat16 if cfg.MICKEY.DINOV2.FLOAT16 else torch.float32)
+    return vit_features_chw(params["dinov2"], images, VIT_CONFIGS[variant]["num_heads"], patch_size=df,
+                            dtype=torch.bfloat16 if cfg.MICKEY.DINOV2.FLOAT16 else torch.float32,
+                            packed=bool(cfg.TPU.get("PACKED_ATTENTION", True)))
 
 
 def heads_apply(params, fmap: torch.Tensor, cfg, train: bool = False):
@@ -142,3 +144,56 @@ def compute_correspondences(params, image0, image1, cfg, train: bool = False, fm
             fmap = backbone_features(params, torch.cat([image0, image1], dim=0), cfg)
     feats, new_params = heads_apply(params, fmap.float(), cfg, train)
     return correspondences_from_heads(params, feats, cfg, train), new_params
+
+
+class TrainTopKCorrespondences(NamedTuple):
+    """Correspondences of the fused top-K training route
+    (``TPU.TRAIN_FUSED_TOPK``): per-image features grad-carrying, and in
+    place of the dense match matrices the detached top-P sampling table and
+    the grad-carrying logsumexps that give log final scores at sampled
+    entries (``ops.fused_matcher.fused_topk_scores_train``)."""
+
+    kps0: torch.Tensor  # (B, N0, 2) absolute pixels
+    depth0: torch.Tensor  # (B, N0, 1)
+    scr0: torch.Tensor  # (B, N0, 1)
+    dsc0: torch.Tensor  # (B, N0, C)
+    kps1: torch.Tensor
+    depth1: torch.Tensor
+    scr1: torch.Tensor
+    dsc1: torch.Tensor
+    top_scores: torch.Tensor  # (B, P) detached final scores, descending
+    top_idx: torch.Tensor  # (B, P) int32 flat indices into the N0 x N1 matrix
+    row_ok: torch.Tensor  # (B,)
+    lse_row: torch.Tensor  # (B, N0) grad-carrying
+    lse_col: torch.Tensor  # (B, N1) grad-carrying
+
+
+def topk_train_correspondences_from_heads(params, feats, cfg) -> TrainTopKCorrespondences:
+    """The fused top-K training matcher on stacked (2B) head outputs (kpts in
+    patch units), image0 rows first."""
+    if cfg.FEATURE_MATCHER.TYPE != "DualSoftmax":
+        raise NotImplementedError("TRAIN_FUSED_TOPK supports the DualSoftmax matcher only")
+    kpts, depths, scores, descs = feats
+    b = kpts.shape[0] // 2
+    kpts = absolute_kpt_coordinates(kpts, cfg.MICKEY.DINOV2.DOWN_FACTOR)
+    (k0, k1), (d0, d1), (s0, s1), (c0, c1) = ((t[:b], t[b:]) for t in (kpts, depths, scores, descs))
+    kps0, depth0, scr0, dsc0 = _flatten_maps(k0, d0, s0, c0)
+    kps1, depth1, scr1, dsc1 = _flatten_maps(k1, d1, s1, c1)
+    fm = cfg.FEATURE_MATCHER.DUAL_SOFTMAX
+    tk = fused_topk_scores_train(
+        dsc0, dsc1, scr0[..., 0], scr1[..., 0], params["matcher"].get("dustbin_score", 0.0),
+        int(cfg.TPU.SAMPLING_PREFILTER), temperature=float(fm.TEMPERATURE),
+        use_dustbin=bool(fm.USE_DUSTBIN), row_topl=int(cfg.TPU.get("MATCHER_TOPL", 16)),
+    )
+    return TrainTopKCorrespondences(kps0, depth0, scr0, dsc0, kps1, depth1, scr1, dsc1, *tk)
+
+
+def compute_correspondences_topk_train(params, image0, image1, cfg, fmap=None):
+    """``compute_correspondences`` for the fused top-K training route (train
+    mode implied): the dense match matrices never exist. Returns
+    (TrainTopKCorrespondences, new_params)."""
+    if fmap is None:
+        with torch.no_grad():
+            fmap = backbone_features(params, torch.cat([image0, image1], dim=0), cfg)
+    feats, new_params = heads_apply(params, fmap.float(), cfg, train=True)
+    return topk_train_correspondences_from_heads(params, feats, cfg), new_params

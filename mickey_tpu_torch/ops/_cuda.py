@@ -32,18 +32,22 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"flash_attention_packed": 0, "col_lse": 0, "pair_topk": 0, "hypothesis_scores": 0,
-            "pair_softmax": 0, "dual_softmax_bwd_sums": 0, "dual_softmax_bwd_grads": 0}
+LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "col_lse": 0, "pair_topk": 0,
+            "hypothesis_scores": 0, "pair_softmax": 0, "dual_softmax_bwd_sums": 0,
+            "dual_softmax_bwd_grads": 0, "lse_bwd": 0}
 
 _P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "mk_flash_attention_packed_bf16": [_P, _P, _I, _I, _I, _F, _P],
+    "mk_flash_attention_bf16": [_P] * 4 + [_LLP] + [_I] * 4 + [_F, _P],
     "mk_col_lse_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "mk_pair_topk_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
     "mk_pair_softmax_f32": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "mk_dual_softmax_bwd_sums_f32": [_P] * 8 + [_I] * 4 + [_F, _P],
     "mk_dual_softmax_bwd_grads_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "mk_lse_bwd_f32": [_P] * 8 + [_I] * 4 + [_F, _P],
 }
 
 

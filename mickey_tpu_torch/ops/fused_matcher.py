@@ -27,11 +27,26 @@ Forward (K4): ``col_lse`` again, then ``pair_softmax`` (``csrc/dual_softmax.cu``
 Backward (K5): ``dual_softmax_bwd_sums`` (r, c) and ``dual_softmax_bwd_grads``
 (dd0, dd1), both recomputing the correlation from the saved logsumexps.
 
+Fused top-K training, ``fused_topk_scores_train`` (a ``torch.autograd.Function``):
+the serving route's table (K2a, K2b, top-P glue), detached, plus the
+grad-carrying lse_row and lse_col. With final_ij = P_ij scr0_i scr1_j,
+
+    log final_ij = 2 s_ij - lse_row_i - lse_col_j + log scr0_i + log scr1_j
+
+is linear in s and the two logsumexps, so the loss needs the dense matrix in
+neither direction. The VJP of the logsumexps for cotangents gr (B, M),
+gc (B, N) is K6 (``lse_bwd``, ``csrc/dual_softmax.cu``):
+
+    dS = gr_i exp(s_ij - lse_row_i) + gc_j exp(s_ij - lse_col_j)
+    d dsc0 = dS @ dsc1 / T,   d dsc1 = dS^T @ dsc0 / T
+    d alpha = sum_i gr_i exp(a - lse_row_i) + sum_j gc_j exp(a - lse_col_j)
+
 Each kernel wrapper launches its kernel on a CUDA tensor and takes its plain
 version on a CPU tensor; there is no fallback on the card.
 ``dense_topk_scores`` applied to ``nn.matcher.dual_softmax`` is the oracle of
 the serving route, autograd of ``nn.matcher.dual_softmax`` that of the
-training route.
+training route, ``dense_topk_scores_train`` (autograd of ``dense_lse``) that
+of the fused training route.
 """
 
 from __future__ import annotations
@@ -160,6 +175,23 @@ def exact_topk_desc(vals: torch.Tensor, k: int):
     return v, i
 
 
+def _topk_table(dsc0, dsc1, scr0, scr1, inv_temp: float, alpha: float, prefilter: int, row_topl: int):
+    """K2a, K2b and the top-P glue: (top_scores, top_idx, row_ok, lse_row, lse_col)."""
+    B, M, _ = dsc0.shape
+    scr0 = scr0.float().contiguous()
+    scr1 = scr1.float().contiguous()
+    lse_col = col_lse(dsc0, dsc1, inv_temp, alpha)
+    vals, idxs, stats, lse_row = pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp, alpha, row_topl)
+    row_ok = (
+        (stats[..., 1].sum(dim=-1) == 0)  # all finite
+        & (stats[..., 2].amin(dim=-1) >= 0)  # nonnegative
+        & (stats[..., 0].sum(dim=-1) > 0)  # positive mass
+    )
+    top_scores, pos = exact_topk_desc(vals.reshape(B, row_topl * M), prefilter)
+    top_idx = torch.gather(idxs.reshape(B, row_topl * M), 1, pos)
+    return top_scores, top_idx, row_ok, lse_row, lse_col
+
+
 def fused_topk_scores(
     dsc0: torch.Tensor,  # (B, M, C) L2-normalized descriptors, fp32
     dsc1: torch.Tensor,  # (B, N, C)
@@ -173,21 +205,8 @@ def fused_topk_scores(
 ):
     """Returns (top_scores (B, P) fp32 descending, top_idx (B, P) int32 flat
     indices into the M x N matrix, row_ok (B,) bool)."""
-    B, M, _ = dsc0.shape
-    inv_temp = float(1.0 / temperature)
-    alpha = _alpha(dustbin, use_dustbin)
-    scr0 = scr0.float().contiguous()
-    scr1 = scr1.float().contiguous()
-    lse_c = col_lse(dsc0, dsc1, inv_temp, alpha)
-    vals, idxs, stats, _ = pair_topk(dsc0, dsc1, scr0, scr1, lse_c, inv_temp, alpha, row_topl)
-    row_ok = (
-        (stats[..., 1].sum(dim=-1) == 0)  # all finite
-        & (stats[..., 2].amin(dim=-1) >= 0)  # nonnegative
-        & (stats[..., 0].sum(dim=-1) > 0)  # positive mass
-    )
-    top_scores, pos = exact_topk_desc(vals.reshape(B, row_topl * M), prefilter)
-    top_idx = torch.gather(idxs.reshape(B, row_topl * M), 1, pos)
-    return top_scores, top_idx, row_ok
+    return _topk_table(dsc0, dsc1, scr0, scr1, float(1.0 / temperature), _alpha(dustbin, use_dustbin),
+                       prefilter, row_topl)[:3]
 
 
 def dense_topk_scores(scores: torch.Tensor, prefilter: int, row_topl: int = 16):
@@ -307,6 +326,29 @@ def dual_softmax_bwd_grads(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: floa
 # -- the route -------------------------------------------------------------------
 
 
+def _save_meta(ctx, dsc0, dsc1, dustbin, inv_temp: float, alpha: float, use_dustbin: bool) -> None:
+    """What a backward needs besides its saved tensors."""
+    ctx.inv_temp, ctx.alpha, ctx.use_dustbin = inv_temp, alpha, use_dustbin
+    ctx.dtypes = (dsc0.dtype, dsc1.dtype)
+    ctx.dustbin_meta = (dustbin.shape, dustbin.dtype) if torch.is_tensor(dustbin) else None
+
+
+def _dustbin_grad(ctx, w_row, w_col, lse_row, lse_col):
+    """d alpha = sum_i w_row_i exp(a - lse_row_i) + sum_j w_col_j exp(a - lse_col_j),
+    in the dustbin input's shape and type; None where it was a float. The
+    closed form holds because the dustbin entries carry no cotangent of
+    their own."""
+    if ctx.dustbin_meta is None:
+        return None
+    shape, dtype = ctx.dustbin_meta
+    if ctx.use_dustbin:
+        a = ctx.alpha
+        da = (w_row * torch.exp(a - lse_row)).sum() + (w_col * torch.exp(a - lse_col)).sum()
+    else:
+        da = torch.zeros((), dtype=torch.float32, device=lse_row.device)
+    return da.reshape(shape).to(dtype)
+
+
 def _forward(dsc0, dsc1, inv_temp: float, alpha: float):
     lse_col = col_lse(dsc0, dsc1, inv_temp, alpha)
     out, lse_row = pair_softmax(dsc0, dsc1, lse_col, inv_temp, alpha)
@@ -326,9 +368,7 @@ class _FusedDualSoftmax(torch.autograd.Function):
         alpha = _alpha(dustbin, use_dustbin)
         out, lse_row, lse_col = _forward(d0, d1, inv_temp, alpha)
         ctx.save_for_backward(d0, d1, lse_row, lse_col)
-        ctx.inv_temp, ctx.alpha, ctx.use_dustbin = inv_temp, alpha, use_dustbin
-        ctx.dtypes = (dsc0.dtype, dsc1.dtype)
-        ctx.dustbin_meta = (dustbin.shape, dustbin.dtype) if torch.is_tensor(dustbin) else None
+        _save_meta(ctx, dsc0, dsc1, dustbin, inv_temp, alpha, use_dustbin)
         return out
 
     @staticmethod
@@ -337,16 +377,7 @@ class _FusedDualSoftmax(torch.autograd.Function):
         g = g.float().contiguous()
         r, c = dual_softmax_bwd_sums(d0, d1, g, lse_row, lse_col, ctx.inv_temp)
         dd0, dd1 = dual_softmax_bwd_grads(d0, d1, g, lse_row, lse_col, r, c, ctx.inv_temp)
-        dalpha = None
-        if ctx.dustbin_meta is not None:
-            shape, dtype = ctx.dustbin_meta
-            if ctx.use_dustbin:
-                # closed-form dustbin row / column contributions (G vanishes there)
-                a = ctx.alpha
-                da = -(torch.exp(a - lse_col) * c).sum() - (torch.exp(a - lse_row) * r).sum()
-            else:
-                da = torch.zeros((), dtype=torch.float32, device=g.device)
-            dalpha = da.reshape(shape).to(dtype)
+        dalpha = _dustbin_grad(ctx, -r, -c, lse_row, lse_col)
         return dd0.to(ctx.dtypes[0]), dd1.to(ctx.dtypes[1]), dalpha, None, None
 
 
@@ -354,3 +385,103 @@ def fused_dual_softmax_vjp(dsc0, dsc1, dustbin, temperature: float = 0.1, use_du
     """Differentiable fused dual-softmax: K4 forward, K5 backward. Gradients
     reach dsc0, dsc1 and, where it is a tensor, the dustbin logit."""
     return _FusedDualSoftmax.apply(dsc0, dsc1, dustbin, float(1.0 / temperature), bool(use_dustbin))
+
+
+# -- K6: the logsumexps' backward (fused top-K training) --------------------------
+
+
+def lse_bwd_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float):
+    s = _correlation(dsc0, dsc1, inv_temp)
+    dS = gr[..., None] * torch.exp(s - lse_row[..., None]) + gc[:, None, :] * torch.exp(s - lse_col[:, None, :])
+    return torch.matmul(dS, dsc1.float()) * inv_temp, torch.matmul(dS.transpose(1, 2), dsc0.float()) * inv_temp
+
+
+def lse_bwd(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float):
+    """(dd0 (B, M, C), dd1 (B, N, C)) = (dS dsc1 / T, dS^T dsc0 / T) with
+    dS = gr exp(s - lse_row) + gc exp(s - lse_col): the VJP of the two
+    dustbin-augmented logsumexps."""
+    if dsc0.device.type == "cpu":
+        return lse_bwd_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp)
+    B, M, N, C = _require_descs(dsc0, dsc1, "lse_bwd")
+    for t, name, shape in ((gr, "gr", (B, M)), (gc, "gc", (B, N)), (lse_row, "lse_row", (B, M)),
+                           (lse_col, "lse_col", (B, N))):
+        _cuda.require(t, name, torch.float32, shape, dsc0.device)
+    dd0 = torch.empty((B, M, C), dtype=torch.float32, device=dsc0.device)
+    dd1 = torch.empty((B, N, C), dtype=torch.float32, device=dsc0.device)
+    rc = _cuda.lib().mk_lse_bwd_f32(
+        dsc0.data_ptr(), dsc1.data_ptr(), gr.data_ptr(), gc.data_ptr(), lse_row.data_ptr(), lse_col.data_ptr(),
+        dd0.data_ptr(), dd1.data_ptr(), B, M, N, C, float(inv_temp), _cuda.stream_ptr(dsc0),
+    )
+    _cuda.check(rc, "lse_bwd")
+    _cuda.LAUNCHES["lse_bwd"] += 1
+    return dd0, dd1
+
+
+class _FusedTopKTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dsc0, dsc1, dustbin, scr0, scr1, inv_temp: float, use_dustbin: bool, prefilter: int,
+                row_topl: int):
+        d0, d1 = (d.float().contiguous() for d in (dsc0, dsc1))
+        alpha = _alpha(dustbin, use_dustbin)
+        top_scores, top_idx, row_ok, lse_row, lse_col = _topk_table(d0, d1, scr0, scr1, inv_temp, alpha,
+                                                                    prefilter, row_topl)
+        ctx.save_for_backward(d0, d1, lse_row, lse_col)
+        _save_meta(ctx, dsc0, dsc1, dustbin, inv_temp, alpha, use_dustbin)
+        ctx.mark_non_differentiable(top_scores, top_idx, row_ok)
+        return top_scores, top_idx, row_ok, lse_row, lse_col
+
+    @staticmethod
+    def backward(ctx, _g_scores, _g_idx, _g_ok, gr, gc):
+        d0, d1, lse_row, lse_col = ctx.saved_tensors
+        gr = torch.zeros_like(lse_row) if gr is None else gr.float().contiguous()
+        gc = torch.zeros_like(lse_col) if gc is None else gc.float().contiguous()
+        dd0, dd1 = lse_bwd(d0, d1, gr, gc, lse_row, lse_col, ctx.inv_temp)
+        dalpha = _dustbin_grad(ctx, gr, gc, lse_row, lse_col)
+        return dd0.to(ctx.dtypes[0]), dd1.to(ctx.dtypes[1]), dalpha, None, None, None, None, None, None
+
+
+def fused_topk_scores_train(
+    dsc0: torch.Tensor,  # (B, M, C) L2-normalized descriptors
+    dsc1: torch.Tensor,  # (B, N, C)
+    scr0: torch.Tensor,  # (B, M) detection scores
+    scr1: torch.Tensor,  # (B, N)
+    dustbin,
+    prefilter: int,
+    temperature: float = 0.1,
+    use_dustbin: bool = True,
+    row_topl: int = 16,
+):
+    """Training route of the fused matcher -> top-K. Returns (top_scores
+    (B, P) detached final scores, descending, top_idx (B, P) int32 flat
+    indices, row_ok (B,), lse_row (B, M) and lse_col (B, N), both
+    grad-carrying: K2a + K2b forward, K6 backward). scr0 / scr1 enter the
+    table detached; their gradient flows through the loss's explicit log
+    terms. Gradients reach dsc0, dsc1 and, where it is a tensor, the dustbin
+    logit."""
+    return _FusedTopKTrain.apply(dsc0, dsc1, dustbin, scr0.detach(), scr1.detach(), float(1.0 / temperature),
+                                 bool(use_dustbin), int(prefilter), int(row_topl))
+
+
+def dense_lse(dsc0, dsc1, dustbin, temperature: float, use_dustbin: bool):
+    """(lse_row (B, M), lse_col (B, N)) over the dustbin-augmented correlation,
+    differentiable by autograd: the oracle of K6."""
+    s = torch.einsum("bmc,bnc->bmn", dsc0.float(), dsc1.float()) / temperature
+    lse_row = torch.logsumexp(s, dim=2)
+    lse_col = torch.logsumexp(s, dim=1)
+    if use_dustbin:
+        a = torch.as_tensor(dustbin, dtype=torch.float32, device=s.device)
+        lse_row = torch.logaddexp(lse_row, a)
+        lse_col = torch.logaddexp(lse_col, a)
+    return lse_row, lse_col
+
+
+def dense_topk_scores_train(dsc0, dsc1, scr0, scr1, dustbin, prefilter: int, temperature: float = 0.1,
+                            use_dustbin: bool = True, row_topl: int = 16):
+    """The five outputs of ``fused_topk_scores_train`` from the dense
+    dual-softmax product (table detached, logsumexps by autograd)."""
+    lse_row, lse_col = dense_lse(dsc0, dsc1, dustbin, temperature, use_dustbin)
+    with torch.no_grad():
+        s = torch.einsum("bmc,bnc->bmn", dsc0.float(), dsc1.float()) / temperature
+        final = torch.exp(2.0 * s - lse_row[:, :, None] - lse_col[:, None, :]) * scr0[:, :, None] * scr1[:, None, :]
+        top_scores, top_idx, row_ok = dense_topk_scores(final, prefilter, row_topl=row_topl)
+    return top_scores, top_idx, row_ok, lse_row, lse_col

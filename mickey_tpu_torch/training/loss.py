@@ -1,5 +1,6 @@
 """Metric pose loss: differentiable Procrustes RANSAC + REINFORCE surrogate
-(``mickey_tpu/training/loss.py``, dense route).
+(``mickey_tpu/training/loss.py``): ``metric_pose_loss`` on the dense route,
+``metric_pose_loss_topk`` on the fused top-K route.
 
 One differentiable scalar whose gradient is the reference's two-phase
 manual backward:
@@ -150,6 +151,74 @@ def metric_pose_loss(
     # log of the sampled final scores only: the same values and gradient as
     # gathering log(fs + 1e-16) of the whole matrix
     log_sampled = torch.log(torch.gather(fs_flat, 1, idx.reshape(B, it * S)) + 1e-16).reshape(B, it, S)
+
+    total, aux = _hypotheses_loss_core(X, Y, weights, log_sampled, ridx, row_ok, Rgt, tgt, K0ori, K1ori,
+                                       generator, lc, topk_pct)
+    aux["sampled_idx"] = idx
+    return total, aux
+
+
+def metric_pose_loss_topk(
+    topk,  # (top_scores, top_idx, row_ok, lse_row, lse_col) of fused_topk_scores_train
+    dsc0: torch.Tensor,  # (B, N0, C) grad-carrying L2-normalized descriptors
+    dsc1: torch.Tensor,
+    scr0: torch.Tensor,  # (B, N0, 1) grad-carrying detection scores
+    scr1: torch.Tensor,
+    kps0: torch.Tensor,  # (B, N0, 2) grad-carrying
+    depth0: torch.Tensor,  # (B, N0, 1)
+    kps1: torch.Tensor,
+    depth1: torch.Tensor,
+    K0: torch.Tensor,
+    K1: torch.Tensor,
+    K0ori: torch.Tensor,
+    K1ori: torch.Tensor,
+    Rgt: torch.Tensor,
+    tgt: torch.Tensor,
+    lc: LossConfig,
+    topk_pct: float,
+    temperature: float = 0.1,
+    generator: Optional[torch.Generator] = None,
+    sample_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """``metric_pose_loss`` without the dense (B, N0, N1) final scores, in the
+    forward or the backward. The outer draws are table positions of the
+    detached top-P table, mapped through ``top_idx``; their weights are the
+    table values. The log of a sampled final score is the closed form
+
+        log final_ij = 2 s_ij - lse_row_i - lse_col_j + log scr0_i + log scr1_j
+
+    with s recomputed only at the sampled pairs (a descriptor gather and a
+    rowwise fp32 dot). ``sample_override`` must give both (idx, ridx): this
+    route has no weights for indices outside its table."""
+    top_scores, top_idx, row_ok, lse_row, lse_col = topk
+    B, _, _ = dsc0.shape
+    N1 = dsc1.shape[1]
+    it, S = lc.it_matches, lc.num_samples_matches
+
+    tab = top_scores.detach()  # (B, P)
+    if sample_override is not None:
+        idx, ridx = sample_override
+        if ridx is None:
+            raise ValueError("metric_pose_loss_topk needs a full (idx, ridx) override")
+        weights = torch.zeros((B, it, S), dtype=torch.float32, device=dsc0.device)  # unused with ridx given
+    else:
+        pos = gumbel_topk_sample_draws(generator, _log_weights(tab), S, it)  # (it, B, S) table positions
+        pos = pos.permute(1, 0, 2).reshape(B, it * S).long()
+        idx = torch.gather(top_idx, 1, pos).reshape(B, it, S)
+        weights = torch.gather(tab, 1, pos).reshape(B, it, S)
+        ridx = None
+    idx = idx.long()
+    idx0, idx1 = idx // N1, idx % N1
+
+    X_all, Y_all = _point_tables(kps0, depth0, K0, kps1, depth1, K1)
+    X = _take(idx0, X_all)  # (B, it, S, 3)
+    Y = _take(idx1, Y_all)
+    s_samp = (_take(idx0, dsc0).float() * _take(idx1, dsc1).float()).sum(-1) * (1.0 / float(temperature))
+    lr = _take(idx0, lse_row[..., None])[..., 0]
+    lcol = _take(idx1, lse_col[..., None])[..., 0]
+    ls0 = torch.log(torch.clamp(_take(idx0, scr0)[..., 0], min=1e-30))
+    ls1 = torch.log(torch.clamp(_take(idx1, scr1)[..., 0], min=1e-30))
+    log_sampled = 2.0 * s_samp - lr - lcol + ls0 + ls1
 
     total, aux = _hypotheses_loss_core(X, Y, weights, log_sampled, ridx, row_ok, Rgt, tgt, K0ori, K1ori,
                                        generator, lc, topk_pct)

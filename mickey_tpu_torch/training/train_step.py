@@ -1,11 +1,17 @@
 """The staged training step and its optimizer
-(``mickey_tpu/training/train_step.py::make_staged_train_step``, dense route).
+(``mickey_tpu/training/train_step.py::make_staged_train_step``).
 
 Stage 1 runs the frozen backbone on the stacked 2B images without autograd.
-Stage 2 runs the heads in train mode, the dense matcher (on the card K4
-forward, K5 backward), ``metric_pose_loss`` and one backward pass, then the
-optimizer, then copies the BatchNorm running stats of the forward into the
-parameters.
+Stage 2 runs the heads in train mode, the matcher and the loss, one backward
+pass, then the optimizer, then copies the BatchNorm running stats of the
+forward into the parameters. The matcher and loss take one of two routes:
+
+- dense (default): the (B, M, N) match matrix (on the card K4 forward, K5
+  backward) and ``metric_pose_loss``;
+- fused top-K (``TPU.TRAIN_FUSED_TOPK``, see ``use_train_fused_topk``): the
+  top-P table and the grad-carrying logsumexps (K2a + K2b forward, K6
+  backward) and ``metric_pose_loss_topk``; no (B, M, N) tensor in either
+  direction.
 
 The optimizer has optax's semantics, not torch.optim's:
 ``apply_if_finite(chain(clip_by_global_norm(GRAD_CLIP), adam(lr, eps=1e-6)))``:
@@ -27,9 +33,9 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-from ..nn.extractor import backbone_features, compute_correspondences
+from ..nn.extractor import backbone_features, compute_correspondences, compute_correspondences_topk_train
 from ..weights import is_bn_stat, split_trainable, tree_leaves
-from .loss import LossConfig, metric_pose_loss
+from .loss import LossConfig, metric_pose_loss, metric_pose_loss_topk
 
 
 class AdamState(NamedTuple):
@@ -120,18 +126,43 @@ def batch_pose(batch):
     return T[:, :3, :3], T[:, :3, 3][:, None, :]
 
 
+def use_train_fused_topk(cfg, lc: LossConfig) -> bool:
+    """The fused top-K training route's gate: ``TPU.TRAIN_FUSED_TOPK``, a
+    sampling prefilter (the table's size) and the DualSoftmax matcher."""
+    return (bool(cfg.TPU.get("TRAIN_FUSED_TOPK", False)) and lc.prefilter > 0
+            and cfg.FEATURE_MATCHER.TYPE == "DualSoftmax")
+
+
+def train_loss(params, fmap, batch, cfg, lc: LossConfig, topk_pct: float,
+               generator: Optional[torch.Generator] = None, sample_override=None):
+    """Stage 2's forward on a precomputed feature map, on the route the config
+    selects. Returns (total, aux, new_params); ``new_params`` carries the
+    forward's BN stats."""
+    Rgt, tgt = batch_pose(batch)
+    Ks = (batch["K_color0"], batch["K_color1"], batch["Kori_color0"], batch["Kori_color1"])
+    if use_train_fused_topk(cfg, lc):
+        corr, new_params = compute_correspondences_topk_train(params, None, None, cfg, fmap=fmap)
+        total, aux = metric_pose_loss_topk(
+            (corr.top_scores, corr.top_idx, corr.row_ok, corr.lse_row, corr.lse_col),
+            corr.dsc0, corr.dsc1, corr.scr0, corr.scr1, corr.kps0, corr.depth0, corr.kps1, corr.depth1,
+            *Ks, Rgt, tgt, lc, topk_pct, temperature=float(cfg.FEATURE_MATCHER.DUAL_SOFTMAX.TEMPERATURE),
+            generator=generator, sample_override=sample_override,
+        )
+    else:
+        corr, new_params = compute_correspondences(params, None, None, cfg, train=True, fmap=fmap)
+        total, aux = metric_pose_loss(
+            corr.final_scores, corr.kps0, corr.depth0, corr.kps1, corr.depth1, *Ks,
+            Rgt, tgt, lc, topk_pct, generator=generator, sample_override=sample_override,
+        )
+    return total, aux, new_params
+
+
 def loss_and_grads(params, fmap, batch, cfg, lc: LossConfig, topk_pct: float,
                    generator: Optional[torch.Generator] = None, sample_override=None):
     """Stage 2's forward and backward on a precomputed feature map. Returns
-    (total, aux, new_params, grads): ``new_params`` carries the forward's BN
-    stats, ``grads`` is a tree of params' structure (zeros at BN stats)."""
-    corr, new_params = compute_correspondences(params, None, None, cfg, train=True, fmap=fmap)
-    Rgt, tgt = batch_pose(batch)
-    total, aux = metric_pose_loss(
-        corr.final_scores, corr.kps0, corr.depth0, corr.kps1, corr.depth1,
-        batch["K_color0"], batch["K_color1"], batch["Kori_color0"], batch["Kori_color1"],
-        Rgt, tgt, lc, topk_pct, generator=generator, sample_override=sample_override,
-    )
+    (total, aux, new_params, grads): ``grads`` is a tree of params' structure
+    (zeros at BN stats)."""
+    total, aux, new_params = train_loss(params, fmap, batch, cfg, lc, topk_pct, generator, sample_override)
     leaves = tree_leaves(params)
     wanted = [t for path, t in leaves if not is_bn_stat(path)]
     got = iter(torch.autograd.grad(total, wanted, allow_unused=True))
@@ -155,8 +186,6 @@ class StagedTrainStep:
     ``grad_step`` takes a precomputed feature map instead of the backbone."""
 
     def __init__(self, cfg):
-        if cfg.TPU.get("TRAIN_FUSED_TOPK", False):
-            raise NotImplementedError("the fused top-K training route (K6) is not ported yet")
         self.cfg = cfg
         self.lc = LossConfig.from_cfg(cfg)
         self.optimizer = Optimizer(cfg)

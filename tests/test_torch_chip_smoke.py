@@ -1,22 +1,24 @@
 """Rehearsal of chip_smoke.py's phase functions on the CPU at a tiny size.
 
 On CPU tensors every kernel wrapper takes its plain version, so this checks
-the script's plumbing (inputs, comparisons, both serving layouts, the
-training steps, the stage-by-stage checks against the plain path, the
-bounds), not the kernels. The script itself refuses to run without a GPU,
-which is checked too.
+the script's plumbing (inputs, comparisons, both serving layouts and the
+unpacked-attention backbone, the training steps on both matcher routes, the
+stage-by-stage checks against the plain path, the launch checks, the bounds),
+not the kernels. The script itself refuses to run without a GPU, which is
+checked too.
 """
 
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
 
 import chip_smoke
 from mickey_tpu_torch import default_config
-from mickey_tpu_torch.models import MicKeyTrainer, build_model
+from mickey_tpu_torch.models import MicKeyTrainer, MickeyRelativePose, build_model
 from mickey_tpu_torch.weights import init_params_numpy
 
 
@@ -48,9 +50,10 @@ def test_kernel_phase_rehearsal():
     inp = chip_smoke.kernel_inputs("cpu", images=2, seq=37, heads=2, kpts=40, desc=16, topl=4,
                                    prefilter=64, samples=50, hyps=7)
     errs = chip_smoke.check_kernels(inp)
-    assert set(errs) == set(chip_smoke.SERVING_KERNELS)
-    # plain against plain: exact, except K1 where the bf16 output is held against fp32
+    assert set(errs) == set(chip_smoke.SERVING_KERNELS) | {"flash_attention"}
+    # plain against plain: exact, except K1 / K1b where the bf16 output is held against fp32
     assert errs.pop("flash_attention_packed") < chip_smoke.ATTN_TOL
+    assert errs.pop("flash_attention") < chip_smoke.ATTN_TOL
     assert all(e == 0.0 for e in errs.values())
 
 
@@ -65,6 +68,14 @@ def test_slice_phase_rehearsal():
     small = chip_smoke.check_against_plain(model, build_model(cfg, params, device="cpu"),
                                            *chip_smoke.slice_inputs("cpu", pairs=2, height=56, width=70))
     assert small["backbone_cos"] > 0.999999 and small["pose_rel"] == 0.0
+    cfg_u = cfg.clone()
+    cfg_u.TPU.PACKED_ATTENTION = False
+    model_u = MickeyRelativePose(cfg_u, model.params, device="cpu")
+    ims = chip_smoke.slice_inputs("cpu", pairs=2, height=112, width=140)
+    outs = chip_smoke.run_slice(model_u, *ims, layouts=("general",))
+    assert set(outs) == {"general"}
+    unpacked = chip_smoke.check_unpacked_backbone(model, model_u, *ims[:2])
+    assert unpacked["backbone_cos"] > 0.999999 and unpacked["backbone_max_abs"] < 1e-5
 
 
 def test_sets_agree_rejects_a_real_difference():
@@ -89,8 +100,19 @@ def test_refuses_without_gpu(tmp_path):
 def test_train_kernel_phase_rehearsal():
     tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
     errs = chip_smoke.check_train_kernels(tin)
-    assert set(errs) | set(chip_smoke.SERVING_KERNELS) == {name for name, _, _ in chip_smoke.KERNELS}
+    errs.update(chip_smoke.check_topk_train_kernels(tin, prefilter=64, topl=4))
+    serving = set(chip_smoke.SERVING_KERNELS) | set(chip_smoke.UNPACKED_SERVING_KERNELS)
+    assert set(errs) | serving == {name for name, _, _ in chip_smoke.KERNELS}
     assert all(e == 0.0 for e in errs.values())  # plain against plain
+
+
+def test_launch_check():
+    counts = {name: 1 for name, _, _ in chip_smoke.KERNELS}
+    chip_smoke._launched(counts, "x", chip_smoke.FUSED_TRAIN_KERNELS)
+    with pytest.raises(chip_smoke.SmokeError):
+        chip_smoke._launched(dict(counts, lse_bwd=0), "x", chip_smoke.FUSED_TRAIN_KERNELS)
+    with pytest.raises(chip_smoke.SmokeError):  # a dense-route kernel on the fused route
+        chip_smoke._launched(counts, "x", chip_smoke.FUSED_TRAIN_KERNELS, chip_smoke.DENSE_MATCHER_KERNELS)
 
 
 def _tiny_train_cfg():
@@ -102,8 +124,16 @@ def _tiny_train_cfg():
     return cfg
 
 
-def test_train_phase_rehearsal():
+def _wall_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_train_phase_rehearsal(fused, monkeypatch):
     cfg = _tiny_train_cfg()
+    cfg.TPU.TRAIN_FUSED_TOPK = fused
     params = _tiny_params(cfg)
     trainer = MicKeyTrainer(cfg, params=params, device="cpu")
     steps = chip_smoke.run_train(trainer, chip_smoke.train_batch("cpu", pairs=2, height=126, width=140), steps=2)
@@ -114,6 +144,10 @@ def test_train_phase_rehearsal():
     card, cpu = small.pop("card_worst_leaf_vs_fp64"), small.pop("cpu_worst_leaf_vs_fp64")
     assert card == cpu and 0.0 < card < chip_smoke.GRAD_TOL
     assert all(v == 0.0 for v in small.values())
+    monkeypatch.setattr(chip_smoke, "_elapsed_ms", _wall_ms)  # CUDA events need the card
+    stages = chip_smoke._train_stage_times(trainer, chip_smoke.train_batch("cpu", pairs=2, height=126, width=140),
+                                           iters=1)
+    assert set(stages) == {"backbone_fwd", "heads_fwd", "matcher_fwd", "loss_fwd", "backward", "optimizer", "step"}
 
 
 def test_run_train_rejects_unchanged_parameters():

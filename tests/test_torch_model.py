@@ -93,6 +93,23 @@ def test_backbone_matches_jax(jax_params):
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)  # LayerNorm output, O(1)
 
 
+def test_unpacked_backbone_matches_jax(jax_params):
+    """``TPU.PACKED_ATTENTION=False``: the port's backbone on K1b's plain
+    version against the JAX backbone's unpacked path with its Pallas
+    attention kernel in interpret mode (sequence padded to 512 there)."""
+    cfg = small_cfg()
+    cfg.TPU.PACKED_ATTENTION = False
+    tp = params_to_torch(_np_tree(jax_params), cfg)
+    im0, _, _, _ = _inputs(3)
+    ref = np.asarray(jdinov2.vit_features_chw(jax_params["dinov2"], jnp.asarray(im0), cfg_dtype="float32",
+                                              use_pallas=True, num_heads=6, packed=False, interpret=True))
+    out = extractor.backbone_features(tp, torch.from_numpy(im0), cfg).numpy()
+    assert out.shape == ref.shape == (B, 12, 14, 384)
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)  # LayerNorm output, O(1)
+    packed = extractor.backbone_features(tp, torch.from_numpy(im0), small_cfg()).numpy()
+    np.testing.assert_allclose(out, packed, rtol=1e-5, atol=1e-5)
+
+
 def test_backbone_bf16_within_envelope(jax_params):
     """bf16 rounds at other places in the two frameworks: the feature maps
     agree to the bf16 envelope (cosine > 0.999, max error 0.1 on O(1)
