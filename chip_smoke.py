@@ -9,7 +9,8 @@ Phases, one line each, any failure exits non-zero:
              for sm_90a and print ``-Xptxas -v`` per kernel;
 2. kernels - every kernel against its plain PyTorch version at the shapes
              its main path gives it (serving: B = 2 pairs; training: B = 8
-             pairs, 1938 keypoints), with the tolerances stated below; the
+             pairs, 1938 keypoints; K1-old: the tools' (16, 2048, 3072)
+             bf16 ablation input), with the tolerances stated below; the
              training matcher's whole forward and backward against
              torch.autograd of the dense dual-softmax, and the fused top-K
              training route's against the dense table and torch.autograd of
@@ -22,6 +23,17 @@ Phases, one line each, any failure exits non-zero:
              backbone features within the bf16 bound of the packed run's);
              then a small input run on the card checked stage by stage
              against the plain CPU path;
+   exact   - the exact inference path at full width
+             (``MICKEY.DINOV2.FLOAT16=False``: the fp32 backbone through
+             K1f): the full output (``lite=False``, dense route) with every
+             field of the JAX package's shape, and the dense route's lite
+             outputs (``TPU.FUSED_TOPK=False``, both layouts); K1f and the
+             dense kernels launched, no bf16 attention nor K2b; then the
+             fp32 backbone on unpacked attention against packed (1e-5
+             relative) and the bf16 backbone against the fp32 one (cosine
+             > 0.999), the default config's dense full output against the
+             fused route's top-P table, a synthetic upstream checkpoint
+             loaded bitwise, and a small input against the plain CPU path;
    train   - the staged training step (``MicKeyTrainer``) at full width,
              default config, B = 8 pairs of 714x532, on both matcher routes
              (dense; fused top-K with ``TPU.TRAIN_FUSED_TOPK=True``): 3 steps
@@ -31,9 +43,12 @@ Phases, one line each, any failure exits non-zero:
              then one small-input step's loss, gradients and BN stats on each
              route on the card against the plain CPU path with injected draws;
 4. timing  - CUDA-event medians of both serving layouts (pairs/s) and their
-             stages, of the train step and its stages on both routes, and of
-             each kernel beside its plain version, its bound on the card and,
-             where one PyTorch call computes the same function, that call.
+             stages, of the exact path and its stages, of the default
+             config's full output, of the train step and its stages on both
+             routes, of each kernel beside its plain version, its bound on
+             the card and, where one PyTorch call computes the same function,
+             that call; and the tools' K1-old A/B (K1's bf16 body against
+             K1-old's counterpart at (16, 2048, 3072)).
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 results before the last line, and ``{"ok": true, "device": ...}`` last. There
@@ -44,7 +59,9 @@ rehearse them at a tiny size, where every wrapper takes its plain version.
 
 from __future__ import annotations
 
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -59,6 +76,12 @@ KERNELS = (
      "mickey_tpu/ops/flash_attention.py:132"),
     ("flash_attention", "mickey_tpu_torch/csrc/flash_attention_packed.cu",
      "mickey_tpu/ops/flash_attention.py:75"),
+    ("flash_attention_packed_f32", "mickey_tpu_torch/csrc/flash_attention_f32.cu",
+     "mickey_tpu/ops/flash_attention.py:132"),
+    ("flash_attention_f32", "mickey_tpu_torch/csrc/flash_attention_f32.cu",
+     "mickey_tpu/ops/flash_attention.py:75"),
+    ("flash_attention_packed_upcast", "mickey_tpu_torch/csrc/flash_attention_f32.cu",
+     "tools/bench_backbone_profile.py:92"),
     ("col_lse", "mickey_tpu_torch/csrc/fused_topk.cu", "mickey_tpu/ops/fused_matcher.py:82"),
     ("pair_topk", "mickey_tpu_torch/csrc/fused_topk.cu", "mickey_tpu/ops/fused_matcher.py:432"),
     ("hypothesis_scores", "mickey_tpu_torch/csrc/hypothesis_scoring.cu",
@@ -75,9 +98,21 @@ TRAIN_KERNELS = ("flash_attention_packed", "col_lse", "pair_softmax", "dual_soft
                  "dual_softmax_bwd_grads")
 FUSED_TRAIN_KERNELS = ("flash_attention_packed", "col_lse", "pair_topk", "lse_bwd")
 DENSE_MATCHER_KERNELS = ("pair_softmax", "dual_softmax_bwd_sums", "dual_softmax_bwd_grads")
+# the exact path (FLOAT16=False, the dense route's full output and its lite
+# outputs with FUSED_TOPK=False), and the tools' K1-old A/B
+EXACT_KERNELS = ("flash_attention_packed_f32", "col_lse", "pair_softmax", "hypothesis_scores")
+EXACT_ABSENT = ("flash_attention_packed", "flash_attention", "pair_topk")
+ABLATION_KERNELS = ("flash_attention", "flash_attention_packed_upcast")
 # Tolerances (kernel vs plain, same inputs):
 #  K1, K1b: bf16 operands and bf16-rounded probabilities against the fp32
 #      plain version: |diff| < 2e-2 on O(1) outputs.
+#  K1f (fp32 packed and strided): fp32 FFMA against the plain version's fp32
+#      cuBLAS products (TF32 off); only the summation order differs:
+#      |diff| <= 1e-5 max|ref|. K1-old (bf16 in, fp32 math, bf16 out): within
+#      one bf16 ulp of the plain version's rounded output (at the larger of
+#      the two), plus K1f's 1e-5 max|ref| for the fp32 results' own
+#      difference, on rows below seq_len (the rows past it are the TPU's
+#      padded rows).
 #  K2, K3: fp32 throughout; only the summation order differs:
 #      |diff| <= 1e-5 |ref| + 1e-6 max|ref|; indices that one side selects
 #      with a margin above its selection boundary must be selected by the
@@ -99,6 +134,7 @@ DENSE_MATCHER_KERNELS = ("pair_softmax", "dual_softmax_bwd_sums", "dual_softmax_
 #      body on two addressings, bf16 either way): cosine > 0.999 per image,
 #      as the backbone against the plain CPU path.
 ATTN_TOL = 2e-2
+F32_ATTN_TOL = 1e-5
 RTOL = 1e-5
 DS_RTOL = 1e-4
 MARGIN = 1e-4
@@ -138,6 +174,21 @@ def _close_to_max(a: torch.Tensor, b: torch.Tensor, what: str, tol: float) -> fl
     return err
 
 
+def _within_bf16_ulp(a: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """Two bf16 roundings of fp32 results that agree to F32_ATTN_TOL max|ref|
+    (K1f's bound): |a - ref| <= one bf16 ulp at the larger of the two, plus
+    F32_ATTN_TOL max|ref| (near zero the ulp is smaller than the fp32
+    results' own difference). Returns max |diff|."""
+    a, ref = a.float().cpu(), ref.float().cpu()
+    big = torch.maximum(a.abs(), ref.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)  # 2^(e-8) for |x| in [2^(e-1), 2^e)
+    err = (a - ref).abs()
+    bad = int((err > ulp + F32_ATTN_TOL * ref.abs().max()).sum())
+    if bad:
+        raise SmokeError(f"{what}: {bad} values beyond one bf16 ulp, max |diff| {err.max().item():.3e}")
+    return err.max().item()
+
+
 def _sets_agree(vals_a, idx_a, vals_b, idx_b, what: str) -> None:
     """Rows of (value, index) selections: each side's entries above its own
     boundary value by MARGIN (relative) must appear in the other's row."""
@@ -152,8 +203,11 @@ def _sets_agree(vals_a, idx_a, vals_b, idx_b, what: str) -> None:
 
 
 def kernel_inputs(device, *, images: int, seq: int, heads: int, kpts: int, desc: int,
-                  topl: int, prefilter: int, samples: int, hyps: int, seed: int = SEED):
-    """Seeded inputs at the main path's shapes for each kernel."""
+                  topl: int, prefilter: int, samples: int, hyps: int, old_images: int, old_seq: int,
+                  old_len: int, seed: int = SEED):
+    """Seeded inputs at the main path's shapes for each kernel; K1-old's at
+    the tools' ablation shape (``old_images`` x ``old_seq`` rows, keys from
+    ``old_len`` on masked, N(0, 0.05^2) values as the tool draws them)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     qkv = t(rng.standard_normal((images, seq, 3 * heads * 64), dtype=np.float32)).to(torch.bfloat16)
@@ -167,8 +221,11 @@ def kernel_inputs(device, *, images: int, seq: int, heads: int, kpts: int, desc:
     tr = rng.uniform(-0.1, 0.1, (images // 2, hyps, 1, 3)).astype(np.float32)
     Y = X @ _rot(np.array([0.1, -0.05, 0.02])).T.astype(np.float32) + 0.05
     Y = Y + rng.normal(0, 0.1, Y.shape).astype(np.float32)
+    qkv32 = t(rng.standard_normal((images, seq, 3 * heads * 64), dtype=np.float32))
+    qkv_old = t(0.05 * rng.standard_normal((old_images, old_seq, 3 * heads * 64), dtype=np.float32)).to(torch.bfloat16)
     return dict(qkv=qkv, heads=heads, dsc0=t(d[0]), dsc1=t(d[1]), scr0=t(scr[0]), scr1=t(scr[1]),
-                topl=topl, prefilter=prefilter, X=t(X), Y=t(Y), R=t(R), t=t(tr))
+                topl=topl, prefilter=prefilter, X=t(X), Y=t(Y), R=t(R), t=t(tr), qkv32=qkv32, qkv_old=qkv_old,
+                old_len=old_len)
 
 
 def _rot(a) -> np.ndarray:
@@ -187,12 +244,18 @@ def kernel_calls(inp, alpha: float = 1.0, inv_temp: float = 10.0):
         attention_packed_plain,
         attention_plain,
         flash_attention,
+        flash_attention_f32,
         flash_attention_packed,
+        flash_attention_packed_f32,
+        flash_attention_packed_upcast,
         qkv_heads,
     )
     from mickey_tpu_torch.ops.hypothesis_scoring import hypothesis_scores, hypothesis_scores_plain
 
-    q, k, v = qkv_heads(inp["qkv"], inp["heads"])  # the strided views the unpacked backbone hands K1b
+    heads = inp["heads"]
+    q, k, v = qkv_heads(inp["qkv"], heads)  # the strided views the unpacked backbone hands K1b
+    q32, k32, v32 = qkv_heads(inp["qkv32"], heads)
+    old, old_len = inp["qkv_old"], inp["old_len"]
     seq = q.shape[2]
     lse_c = fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inv_temp, alpha)
     k2b = (inp["dsc0"], inp["dsc1"], inp["scr0"], inp["scr1"], lse_c, inv_temp, alpha, inp["topl"])
@@ -202,6 +265,12 @@ def kernel_calls(inp, alpha: float = 1.0, inv_temp: float = 10.0):
                                    lambda: attention_packed_plain(inp["qkv"].float(), inp["heads"])),
         "flash_attention": (lambda: flash_attention(q, k, v, seq),
                             lambda: attention_plain(q.float(), k.float(), v.float(), seq)),
+        "flash_attention_packed_f32": (lambda: flash_attention_packed_f32(inp["qkv32"], heads),
+                                       lambda: attention_packed_plain(inp["qkv32"], heads)),
+        "flash_attention_f32": (lambda: flash_attention_f32(q32, k32, v32, seq),
+                                lambda: attention_plain(q32, k32, v32, seq)),
+        "flash_attention_packed_upcast": (lambda: flash_attention_packed_upcast(old, heads, old_len),
+                                          lambda: attention_packed_plain(old, heads, old_len)),
         "col_lse": (lambda: fm.col_lse(inp["dsc0"], inp["dsc1"], inv_temp, alpha),
                     lambda: fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inv_temp, alpha)),
         "pair_topk": (lambda: fm.pair_topk(*k2b), lambda: fm.pair_topk_plain(*k2b)),
@@ -222,6 +291,10 @@ def check_kernels(inp) -> dict:
         if not err < ATTN_TOL:
             raise SmokeError(f"{name}: max |diff| {err:.3e} >= {ATTN_TOL}")
         res[name] = err
+    for name in ("flash_attention_packed_f32", "flash_attention_f32"):
+        res[name] = _close_to_max(*(f() for f in calls[name]), name, F32_ATTN_TOL)
+    out, ref = (f()[:, :inp["old_len"]] for f in calls["flash_attention_packed_upcast"])
+    res["flash_attention_packed_upcast"] = _within_bf16_ulp(out, ref, "flash_attention_packed_upcast")
     res["col_lse"] = _close(*(f() for f in calls["col_lse"]), "col_lse")
     (v, i, st, lr), (pv, pi, pst, plr) = (f() for f in calls["pair_topk"])
     err = _close(v, pv, "pair_topk values")
@@ -368,12 +441,12 @@ def slice_inputs(device, pairs: int, height: int, width: int, seed: int = SEED):
 
 
 def run_slice(model, image0, image1, K0, K1, layouts=("general", "shared")) -> dict:
-    """Phase 3: the serving layouts; outputs finite and of the right shapes."""
+    """Phase 3: the serving layouts' lite outputs; finite and of the right shapes."""
     B = image0.shape[0]
     gen = lambda: torch.Generator(device=image0.device).manual_seed(SEED)  # noqa: E731
     outs = {}
     if "general" in layouts:
-        outs["general"] = model(image0, image1, K0, K1, generator=gen())
+        outs["general"] = model(image0, image1, K0, K1, generator=gen(), lite=True)
     if "shared" in layouts:
         key_feats = model.extract_feats(image0[:1])
         ref_feats = tuple(f.expand(B, *f.shape[1:]) for f in key_feats)  # one keyframe, every pair
@@ -389,20 +462,252 @@ def run_slice(model, image0, image1, K0, K1, layouts=("general", "shared")) -> d
     return outs
 
 
-def check_unpacked_backbone(model, model_u, image0, image1) -> dict:
-    """Phase 3, ``PACKED_ATTENTION=False``: the backbone's features through
-    K1b against the packed run's through K1 on the same images (cosine per
-    image > 0.999); returns the worst cosine and the max |diff|."""
+def run_full(model, image0, image1, K0, K1) -> object:
+    """Phase 3, exact: the full output (``lite=False``); every field finite
+    and of the JAX package's shape."""
+    B, h, w, _ = image0.shape
+    df = model.cfg.MICKEY.DINOV2.DOWN_FACTOR
+    n = (h // df) * (w // df)
+    S = int(model.cfg.PROCRUSTES.NUM_SAMPLED_MATCHES)
+    out = model(image0, image1, K0, K1, generator=torch.Generator(device=image0.device).manual_seed(SEED))
+    _sync(out.R)
+    est, corr = out.estimate, out.corr
+    fields = [("R", out.R, (B, 3, 3)), ("t", out.t, (B, 1, 3)), ("inliers", out.inliers, (B,)),
+              ("valid", out.valid, (B,)), ("corr.final_scores", corr.final_scores, (B, n, n)),
+              ("corr.depth_map0", corr.depth_map0, (B, h // df, w // df, 1)), ("corr.kps1", corr.kps1, (B, n, 2))]
+    fields += [(f"estimate.{f}", getattr(est, f), (B, S) + tail) for f, tail in
+               (("cor0", (2,)), ("cor1", (2,)), ("d0", (1,)), ("d1", (1,)), ("weights", ()), ("inlier_mask", ()))]
+    for name, v, shape in fields:
+        if tuple(v.shape) != shape:
+            raise SmokeError(f"full output {name}: shape {tuple(v.shape)} != {shape}")
+        if v.dtype != torch.bool and not bool(torch.isfinite(v).all()):
+            raise SmokeError(f"full output {name}: non-finite values")
+    return out
+
+
+def compare_backbones(model_a, model_b, image0, image1, what: str, min_cos: float = 0.999,
+                      max_rel: float | None = None) -> dict:
+    """Two models' backbone features on the same images: cosine per image
+    above ``min_cos`` and, if given, max |diff| within ``max_rel`` of
+    max|a|. Returns the worst cosine, the max |diff| and that ratio."""
     from mickey_tpu_torch.nn.extractor import backbone_features
 
     ims = torch.cat([image0, image1])
     with torch.inference_mode():
-        a = backbone_features(model.params, ims, model.cfg).flatten(1).double()
-        b = backbone_features(model_u.params, ims, model_u.cfg).flatten(1).double()
+        a = backbone_features(model_a.params, ims, model_a.cfg).flatten(1).double()
+        b = backbone_features(model_b.params, ims, model_b.cfg).flatten(1).double()
     cos = torch.nn.functional.cosine_similarity(b, a).min().item()
-    if not cos > 0.999:
-        raise SmokeError(f"unpacked backbone: cosine to the packed run {cos:.6f} <= 0.999")
-    return {"backbone_cos": cos, "backbone_max_abs": (a - b).abs().max().item()}
+    max_abs = (a - b).abs().max().item()
+    rel = max_abs / a.abs().max().item()
+    if not cos > min_cos:
+        raise SmokeError(f"{what}: cosine {cos:.9f} <= {min_cos}")
+    if max_rel is not None and not rel <= max_rel:
+        raise SmokeError(f"{what}: max |diff| {max_abs:.3e} is {rel:.3e} of max|ref| > {max_rel}")
+    return {"backbone_cos": cos, "backbone_max_abs": max_abs, "backbone_rel": rel}
+
+
+def check_dense_table(model, image0, image1, K0, K1) -> dict:
+    """Phase 3, table cross-check on the default config: the full output's
+    dense final scores (K2a + K4) against the fused route's K2 table on the
+    same head outputs. The fused table is the top-P over each row's top-L
+    candidates; under that selection (``dense_topk_scores``) the dense
+    matrix must give the same table: values at 1e-5 relative, index sets up
+    to near-ties, row_ok equal. Also reports the share of the exact global
+    top-P (``torch.topk`` over the whole matrix) that the fused table holds,
+    by count and by score mass."""
+    from mickey_tpu_torch.ops.fused_matcher import dense_topk_scores
+
+    B = image0.shape[0]
+    cfg = model.cfg
+    full = model(image0, image1, K0, K1, generator=torch.Generator(device=image0.device).manual_seed(SEED))
+    feats = model.extract_feats(torch.cat([image0, image1]))
+    tc = model.match_feats(tuple(f[:B] for f in feats), tuple(f[B:] for f in feats), fused=True)
+    final = full.corr.final_scores
+    P, L = int(cfg.TPU.SAMPLING_PREFILTER), int(cfg.TPU.MATCHER_TOPL)
+    dv, di, dok = dense_topk_scores(final, P, row_topl=L)
+    err = _close(tc.top_scores, dv, "dense vs fused table values")
+    _sets_agree(tc.top_scores, tc.top_idx, dv, di, "dense vs fused table")
+    if not torch.equal(tc.row_ok.cpu(), dok.cpu()):
+        raise SmokeError("dense vs fused table: row_ok differs")
+    gv, gi = torch.topk(final.reshape(B, -1).float(), P, dim=-1)
+    recall = [len(set(a.tolist()) & set(b.tolist())) / P for a, b in zip(tc.top_idx.long().cpu(), gi.cpu())]
+    mass = (tc.top_scores.double().sum(-1) / gv.double().sum(-1)).tolist()
+    return {"table_max_abs": err, "global_topP_recall": recall, "global_topP_mass": mass}
+
+
+def upstream_state_dicts(params):
+    """The upstream release's two state dicts, made from a ``mickey_tpu``
+    layout params tree by inverting the converters (HWIO -> OIHW, (in, out)
+    -> (out, in), head-major qkv -> [q|k|v], stacked -> numbered): the
+    Lightning checkpoint's ``state_dict`` (heads and matcher, with the
+    ``compute_matches.`` prefix) and the DINOv2 ``.pth``."""
+    from mickey_tpu_torch.training.checkpoint import HEAD_OUT_KEY
+
+    def T(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a copy; 0-d stays 0-d
+
+    def conv(a):
+        return T(np.asarray(a).transpose(3, 2, 0, 1))
+
+    def lin(a):
+        return T(np.asarray(a).T)
+
+    vit = params["dinov2"]
+    dino = {"patch_embed.proj.weight": conv(vit["patch_embed"]["w"]), "patch_embed.proj.bias": T(vit["patch_embed"]["b"]),
+            "cls_token": T(vit["cls_token"]), "pos_embed": T(vit["pos_embed"]),
+            "norm.weight": T(vit["norm"]["scale"]), "norm.bias": T(vit["norm"]["bias"])}
+    blocks = vit["blocks"]
+    heads = {384: 6, 768: 12, 1024: 16, 1536: 24}[np.asarray(blocks["norm1"]["scale"]).shape[1]]
+    for i in range(np.asarray(blocks["norm1"]["scale"]).shape[0]):
+        pre = f"blocks.{i}."
+        get = lambda *path: np.asarray(functools.reduce(lambda d, k: d[k], path, blocks))[i]  # noqa: E731
+        w, b = get("attn", "qkv", "w"), get("attn", "qkv", "b")
+        cin, c3 = w.shape
+        w = w.reshape(cin, heads, 3, c3 // (3 * heads)).transpose(0, 2, 1, 3).reshape(cin, c3)
+        b = b.reshape(heads, 3, c3 // (3 * heads)).transpose(1, 0, 2).reshape(c3)
+        dino.update({pre + "attn.qkv.weight": lin(w), pre + "attn.qkv.bias": T(b)})
+        for name, path in (("attn.proj", ("attn", "proj")), ("mlp.fc1", ("mlp", "fc1")), ("mlp.fc2", ("mlp", "fc2"))):
+            dino.update({f"{pre}{name}.weight": lin(get(*path, "w")), f"{pre}{name}.bias": T(get(*path, "b"))})
+        for n in ("norm1", "norm2"):
+            dino.update({f"{pre}{n}.weight": T(get(n, "scale")), f"{pre}{n}.bias": T(get(n, "bias"))})
+        for n in ("ls1", "ls2"):
+            dino[f"{pre}{n}.gamma"] = T(get(n, "gamma"))
+
+    sd = {}
+    for head, out_key in HEAD_OUT_KEY.items():
+        pre, hp = f"compute_matches.extractor.{head}.", params[head]
+        for r in range(1, 5):
+            blk, bp = f"{pre}resblock{r}.", hp[f"resblock{r}"]
+            for c in ("conv1", "conv2"):
+                sd[f"{blk}{c}.weight"] = conv(bp[c]["w"])
+            if "shortcut" in bp:
+                sd[f"{blk}shortcut.0.weight"] = conv(bp["shortcut"]["w"])
+            for bn in ("bn1", "bn2"):
+                if bn in bp:
+                    for ours, theirs in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                                         ("var", "running_var")):
+                        sd[f"{blk}{bn}.{theirs}"] = T(bp[bn][ours])
+        layers = hp["att"]["layers"]
+        for i in range(np.asarray(layers["q_proj"]["w"]).shape[0]):
+            lp = f"{pre}att_layer.layers.{i}."
+            for ours, theirs in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"), ("merge", "merge"),
+                                 ("mlp_fc1", "mlp.0"), ("mlp_fc2", "mlp.2")):
+                sd[f"{lp}{theirs}.weight"] = lin(np.asarray(layers[ours]["w"])[i])
+            for n in ("norm1", "norm2"):
+                sd[f"{lp}{n}.weight"] = T(np.asarray(layers[n]["scale"])[i])
+                sd[f"{lp}{n}.bias"] = T(np.asarray(layers[n]["bias"])[i])
+        if out_key:
+            sd[f"{pre}{out_key}.weight"] = conv(hp["out"]["w"])
+    if "dustbin_score" in params["matcher"]:
+        sd["compute_matches.matcher.matching_mat.dustbin_score"] = T(params["matcher"]["dustbin_score"])
+    return sd, dino
+
+
+def check_checkpoint(cfg, params, device, image0, image1, K0, K1) -> dict:
+    """Phase 3, checkpoint: a synthetic upstream ``.ckpt`` and DINOv2
+    ``.pth`` written from ``params`` to a temporary directory, loaded with
+    ``build_model(cfg, checkpoint=..., dinov2_path=...)``: every parameter
+    bitwise equal to ``build_model(cfg, params)``'s, and the same pose under
+    the same generator seed."""
+    import tempfile
+
+    from mickey_tpu_torch.models import build_model
+    from mickey_tpu_torch.weights import tree_leaves
+
+    sd, dino = upstream_state_dicts(params)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, pth = os.path.join(tmp, "mickey.ckpt"), os.path.join(tmp, "dinov2_vitl14_pretrain.pth")
+        torch.save({"state_dict": sd}, ckpt)
+        torch.save(dino, pth)
+        del sd, dino
+        # from another random init, so every parameter has to come from the files
+        loaded = build_model(cfg, checkpoint=ckpt, dinov2_path=pth, seed=SEED + 1, device=device)
+    ref = build_model(cfg, params, device=device)
+    a, b = tree_leaves(loaded.params), tree_leaves(ref.params)
+    if [p for p, _ in a] != [p for p, _ in b]:
+        raise SmokeError("checkpoint: the loaded parameter tree differs in structure")
+    differ = [".".join(map(str, p)) for (p, x), (_, y) in zip(a, b)
+              if not (torch.equal(x, y) if torch.is_tensor(x) else x == y)]
+    if differ:
+        raise SmokeError(f"checkpoint: {len(differ)} parameters differ, e.g. {differ[:3]}")
+    gen = lambda: torch.Generator(device=image0.device).manual_seed(SEED)  # noqa: E731
+    pa = loaded(image0, image1, K0, K1, generator=gen(), lite=True)
+    pb = ref(image0, image1, K0, K1, generator=gen(), lite=True)
+    if not all(torch.equal(x, y) for x, y in zip(pa[:4], pb[:4])):
+        raise SmokeError("checkpoint: the loaded model's pose differs")
+    return {"leaves": len(a), "bitwise": True, "pose_equal": True}
+
+
+def check_exact_against_plain(model, cpu_model, image0, image1, K0, K1) -> dict:
+    """Phase 3, exact path, small input: the card's stages against the plain
+    CPU path of the same weights, all fp32. The backbone (24 layers of fp32
+    products in two summation orders) to 1e-3 of its largest feature, far
+    inside the bf16 path's bound (cosine 0.999, errors of a few percent);
+    the heads at 1e-4 relative on the
+    card's feature map; the dense final scores (K4 against the plain
+    dual-softmax) at 1e-4 relative plus 1e-6 of the largest; the top-P
+    prefilter on identical final scores to the same values; the pose
+    (identical final scores, the same injected draws carried over by match)
+    R and t to 1e-4 absolute, the confidence to 1e-4 relative, validity
+    equal, at most 1% of the inlier mask flipped."""
+    from mickey_tpu_torch.nn.extractor import backbone_features, correspondences_from_heads, heads_apply
+    from mickey_tpu_torch.solver import draw_samples, estimate_pose_from_cfg
+
+    cfg = model.cfg
+    cpu = torch.device("cpu")
+    ims = torch.cat([image0, image1])
+    b = image0.shape[0]
+    with torch.inference_mode():
+        fmap = backbone_features(model.params, ims, cfg)
+        fmap_ref = backbone_features(cpu_model.params, ims.to(cpu), cfg)
+        backbone_rel = _rel(fmap, fmap_ref)
+        if not backbone_rel <= 1e-3:
+            raise SmokeError(f"exact backbone: {backbone_rel:.3e} of max|ref| from the plain CPU path")
+        feats = heads_apply(model.params, fmap, cfg)[0]
+        feats_ref = heads_apply(cpu_model.params, fmap.to(cpu), cfg)[0]
+        heads_err = max(_rel(x, y) for x, y in zip(feats, feats_ref))
+        if not heads_err < 1e-4:
+            raise SmokeError(f"exact heads: relative error {heads_err:.3e} >= 1e-4")
+        corr = correspondences_from_heads(model.params, feats, cfg)
+        corr_ref = correspondences_from_heads(cpu_model.params, tuple(f.to(cpu) for f in feats), cfg)
+        scores_err = _close(corr.final_scores, corr_ref.final_scores, "exact final scores", DS_RTOL)
+        pc = cfg.PROCRUSTES
+        dev = image0.device
+        corr_dev = type(corr_ref)(*(x.to(dev) for x in corr_ref))
+        P = int(cfg.TPU.SAMPLING_PREFILTER)
+        table, idx = torch.topk(corr_ref.final_scores.reshape(b, -1), P, dim=-1)
+        table_dev, idx_dev = torch.topk(corr_dev.final_scores.reshape(b, -1), P, dim=-1)
+        if not torch.equal(table_dev.cpu(), table):
+            raise SmokeError("exact prefilter: the card's top-P values differ from the CPU's on the same scores")
+        draws = draw_samples(torch.Generator().manual_seed(SEED), table, pc.IT_MATCHES, pc.IT_RANSAC,
+                             pc.NUM_SAMPLED_MATCHES, pc.NUM_CORR_3D_3D)
+        ref = estimate_pose_from_cfg(corr_ref, K0.to(cpu), K1.to(cpu), cfg, draws=draws)
+        # the same draws by match: exact ties may sit in another order in the card's table
+        moved = _carry_draws(draws, idx, idx_dev.cpu())
+        out = estimate_pose_from_cfg(corr_dev, K0, K1, cfg, draws=type(draws)(*(d.to(dev) for d in moved)))
+        errs = {"R_abs": (out.R.cpu() - ref.R).abs().max().item(), "t_abs": (out.t.cpu() - ref.t).abs().max().item(),
+                "conf_rel": _rel(out.confidence, ref.confidence)}
+        # a distance within rounding of the hard 0.15 m threshold may flip
+        flips = int((out.inlier_mask.cpu() != ref.inlier_mask).sum())
+        if not (max(errs.values()) < 1e-4 and torch.equal(out.valid.cpu(), ref.valid)
+                and flips <= 0.01 * ref.inlier_mask.numel()):
+            raise SmokeError(f"exact solver: {errs}, {flips} inlier flips vs the plain CPU path "
+                             f"(|t| {ref.t.abs().max().item():.3e}, table order moved at "
+                             f"{int((idx_dev.cpu() != idx).sum())} positions)")
+    return {"backbone_rel": backbone_rel, "heads_rel": heads_err, "final_scores_max_abs": scores_err,
+            **errs, "inlier_flips": flips}
+
+
+def _carry_draws(draws, idx_from, idx_to):
+    """Draws (outer positions in a table of flat match indices ``idx_from``)
+    moved to the positions of the same matches in ``idx_to`` (B, P)."""
+    outer = draws.outer_local.clone()
+    for bb in range(outer.shape[1]):
+        where = {int(m): p for p, m in enumerate(idx_to[bb].tolist())}
+        frm = idx_from[bb]
+        outer[:, bb] = torch.tensor([[where[int(frm[p])] for p in row] for row in outer[:, bb].tolist()],
+                                    dtype=outer.dtype)
+    return type(draws)(outer, draws.ridx)
 
 
 def check_against_plain(model, cpu_model, image0, image1, K0, K1) -> dict:
@@ -716,10 +1021,20 @@ def kernel_bounds(inp, tin) -> dict:
     hr = inp["R"].shape[1]
     corr_t = 2.0 * Bt * Mt * Nt * Ct
     descs_t = (Bt * Mt * Ct + Bt * Nt * Ct) * f32
-    attn = _bound(4.0 * imgs * heads * seq * seq * d, (imgs * seq * three_c + imgs * seq * heads * d) * 2, PEAK_BF16)
+    attn_flops = 4.0 * imgs * heads * seq * seq * d
+    attn_bytes = imgs * seq * three_c + imgs * seq * heads * d  # elements: qkv read, output written
+    attn = _bound(attn_flops, attn_bytes * 2, PEAK_BF16)
+    attn32 = _bound(attn_flops, attn_bytes * f32, PEAK_FP32)
+    # K1-old: every query row of the padded sequence against the keys before old_len, fp32 FFMA
+    o_imgs, o_seq, o_three_c = inp["qkv_old"].shape
+    old = _bound(4.0 * o_imgs * heads * o_seq * inp["old_len"] * d, (o_imgs * o_seq * (o_three_c + o_three_c // 3)) * 2,
+                 PEAK_FP32)
     return {
         "flash_attention_packed": attn,
         "flash_attention": attn,  # the same q, k, v read and output written, on another layout
+        "flash_attention_packed_f32": attn32,
+        "flash_attention_f32": attn32,
+        "flash_attention_packed_upcast": old,
         "col_lse": _bound(2.0 * B * M * N * C, (B * M * C + B * N * C + B * N) * f32, PEAK_FP32),
         "pair_topk": _bound(2.0 * B * M * N * C,
                             (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * L * M + 4 * B * M) * f32, PEAK_FP32),
@@ -736,12 +1051,17 @@ def kernel_bounds(inp, tin) -> dict:
 
 def library_calls(inp) -> dict:
     """name -> one PyTorch call computing the kernel's function, where one
-    exists: K1 and K1b are scaled_dot_product_attention on the unpacked heads."""
+    exists: K1 and K1b are scaled_dot_product_attention on the unpacked heads,
+    K1f the same on the fp32 heads (TF32 off). K1-old has none: no single
+    call upcasts bf16 operands and returns bf16."""
     from mickey_tpu_torch.ops.flash_attention import qkv_heads
 
     q, k, v = (x.contiguous() for x in qkv_heads(inp["qkv"], inp["heads"]))
+    q32, k32, v32 = (x.contiguous() for x in qkv_heads(inp["qkv32"], inp["heads"]))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    return {"flash_attention_packed": sdpa, "flash_attention": sdpa}
+    sdpa32 = lambda: torch.nn.functional.scaled_dot_product_attention(q32, k32, v32)  # noqa: E731
+    return {"flash_attention_packed": sdpa, "flash_attention": sdpa, "flash_attention_packed_f32": sdpa32,
+            "flash_attention_f32": sdpa32}
 
 
 def _launched(launches: dict, path: str, needed, absent=()) -> dict:
@@ -786,7 +1106,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = default_config()
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=16,
-                        prefilter=4096, samples=2048, hyps=100)
+                        prefilter=4096, samples=2048, hyps=100, old_images=16, old_seq=2048, old_len=1939)
     errs = check_kernels(inp)
     tin = train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128)
     errs.update(check_train_kernels(tin))
@@ -806,16 +1126,48 @@ def main() -> int:
     model_u = MickeyRelativePose(cfg_u, model.params, device=dev)  # the same weights
     outs_u, unpacked_launches = _counted(lambda: run_slice(model_u, image0, image1, K0, K1, ("general",)))
     _launched(unpacked_launches, "serving, unpacked attention", UNPACKED_SERVING_KERNELS, ("flash_attention_packed",))
-    unpacked = check_unpacked_backbone(model, model_u, image0, image1)
+    # K1b against K1 on the same images: one body, bf16 either way
+    unpacked = compare_backbones(model, model_u, image0, image1, "unpacked backbone")
     cpu_model = build_model(cfg, params, device="cpu")
-    small = check_against_plain(model, cpu_model, *slice_inputs(dev, pairs=2, height=224, width=252))
-    del cpu_model
+    small_ims = slice_inputs(dev, pairs=2, height=224, width=252)
+    small = check_against_plain(model, cpu_model, *small_ims)
     g = outs["general"]
     print(f"slice: ok | launches {serve_launches} | conf {g.inliers.tolist()} valid {g.valid.tolist()} | "
           f"unpacked attention: launches {unpacked_launches} conf {outs_u['general'].inliers.tolist()} {unpacked} | "
           f"small-input vs plain {small}", flush=True)
 
-    # 3b. training at full width: B = 8 pairs of 714x532, 3 staged steps on
+    # 3b. the exact path at full width: fp32 backbone (K1f), the full output
+    #     on the dense route, and the dense route's lite outputs; then the
+    #     backbone agreements, the dense/fused table cross-check, the
+    #     checkpoint loader and a small input against the plain CPU path
+    cfg_x = cfg.clone()
+    cfg_x.MICKEY.DINOV2.FLOAT16 = False
+    cfg_xd = cfg_x.clone()
+    cfg_xd.TPU.FUSED_TOPK = False
+    model_x = MickeyRelativePose(cfg_x, model.params, device=dev)  # the same weights
+    model_xd = MickeyRelativePose(cfg_xd, model.params, device=dev)
+    (full_x, outs_xd), exact_launches = _counted(
+        lambda: (run_full(model_x, image0, image1, K0, K1), run_slice(model_xd, image0, image1, K0, K1)))
+    _launched(exact_launches, "exact path", EXACT_KERNELS, EXACT_ABSENT)
+    cfg_xu = cfg_x.clone()
+    cfg_xu.TPU.PACKED_ATTENTION = False
+    model_xu = MickeyRelativePose(cfg_xu, model.params, device=dev)
+    agree_xu, exact_unpacked_launches = _counted(lambda: compare_backbones(
+        model_x, model_xu, image0, image1, "fp32 backbone, unpacked against packed", max_rel=1e-5))
+    _launched(exact_unpacked_launches, "exact backbone, unpacked attention", ("flash_attention_f32",),
+              ("flash_attention_packed", "flash_attention"))
+    agree_bf16 = compare_backbones(model_x, model, image0, image1, "bf16 backbone against fp32")
+    table = check_dense_table(model, image0, image1, K0, K1)
+    ckpt = check_checkpoint(cfg, params, dev, image0, image1, K0, K1)
+    small_x = check_exact_against_plain(model_x, MickeyRelativePose(cfg_x, cpu_model.params, device="cpu"), *small_ims)
+    del cpu_model
+    print(f"exact: ok | launches {exact_launches} | full output conf {full_x.inliers.tolist()} "
+          f"valid {full_x.valid.tolist()} inliers {full_x.estimate.inlier_mask.sum(-1).tolist()} | dense lite conf "
+          f"{outs_xd['general'].inliers.tolist()} shared {outs_xd['shared'].inliers.tolist()} | fp32 unpacked vs packed "
+          f"{agree_xu} launches {exact_unpacked_launches} | bf16 vs fp32 {agree_bf16} | dense vs fused table {table} | "
+          f"checkpoint {ckpt} | small-input vs plain {small_x}", flush=True)
+
+    # 3c. training at full width: B = 8 pairs of 714x532, 3 staged steps on
     #     each matcher route, then a small step of each against the CPU path
     cfg_f = cfg.clone()
     cfg_f.TPU.TRAIN_FUSED_TOPK = True
@@ -836,23 +1188,34 @@ def main() -> int:
     key_feats = model.extract_feats(image0[:1])
     ref_feats = tuple(f.expand(B, *f.shape[1:]) for f in key_feats)
     gen = torch.Generator(device=dev)
-    t_general = time_ms(lambda: model(image0, image1, K0, K1, generator=gen.manual_seed(SEED)))
+    t_general = time_ms(lambda: model(image0, image1, K0, K1, generator=gen.manual_seed(SEED), lite=True))
     t_shared = time_ms(lambda: model.call_with_ref_feats(ref_feats, image1, K0, K1, generator=gen.manual_seed(SEED)))
-    t_unpacked = time_ms(lambda: model_u(image0, image1, K0, K1, generator=gen.manual_seed(SEED)))
+    t_unpacked = time_ms(lambda: model_u(image0, image1, K0, K1, generator=gen.manual_seed(SEED), lite=True))
+    t_exact = time_ms(lambda: model_x(image0, image1, K0, K1, generator=gen.manual_seed(SEED)))
+    t_full = time_ms(lambda: model(image0, image1, K0, K1, generator=gen.manual_seed(SEED)))
     stages = _stage_times(model, image0, image1, K0, K1)
+    exact_stages = _stage_times(model_x, image0, image1, K0, K1, fused=False)
     train_stages = {route: _train_stage_times(tr, batch) for route, tr in trainers.items()}
     calls = {**kernel_calls(inp), **train_kernel_calls(tin)}
     kt = {name: (time_ms(k, iters=20), time_ms(p, iters=20)) for name, (k, p) in calls.items()}
     lib_ms = {name: time_ms(f, iters=20) for name, f in library_calls(inp).items()}
     bounds = kernel_bounds(inp, tin)
+    # the tools' K1-old A/B at its shape: K1's body in bf16 (through K1b, the
+    # entry with seq_len) against K1-old's counterpart, in turns
+    ab, ablation_launches = _counted(lambda: ablation_times(inp))
+    _launched(ablation_launches, "K1-old ablation", ABLATION_KERNELS)
     print(f"timing: ok | {card} | general {B / t_general * 1e3:.3f} pairs/s ({t_general:.3f} ms/batch of {B}) | "
           f"shared keyframe {B / t_shared * 1e3:.3f} pairs/s ({t_shared:.3f} ms) | "
           f"general, unpacked attention {B / t_unpacked * 1e3:.3f} pairs/s ({t_unpacked:.3f} ms) | "
-          f"stages ms {stages} | train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | "
+          f"exact path (FLOAT16=False, full output) {B / t_exact * 1e3:.3f} pairs/s ({t_exact:.3f} ms) | "
+          f"default config, full output {B / t_full * 1e3:.3f} pairs/s ({t_full:.3f} ms) | "
+          f"stages ms {stages} | exact stages ms {exact_stages} | K1-old A/B ms {ab} | "
+          f"train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | "
           + " ".join(f"{n} {k:.4f}/{p:.4f} ms kernel/plain" for n, (k, p) in kt.items())
           + " | " + " ".join(f"{n} library {t:.4f} ms" for n, t in lib_ms.items()), flush=True)
 
-    runs = (serve_launches, unpacked_launches, *train_launches.values())
+    runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
+            ablation_launches)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r[n] for r in runs), "max_abs_err": errs[n], "ms": kt[n][0],
@@ -864,8 +1227,10 @@ def main() -> int:
     return 0
 
 
-def _stage_times(model, image0, image1, K0, K1) -> dict:
-    """Per-layer medians on the general layout's 2B stacked images."""
+def _stage_times(model, image0, image1, K0, K1, fused: bool = True) -> dict:
+    """Per-layer medians on the general layout's 2B stacked images, on the
+    fused matcher route or (``fused=False``) the dense one, whose solver
+    stage includes the top-P prefilter."""
     from mickey_tpu_torch.nn.extractor import backbone_features, heads_apply
 
     cfg, B = model.cfg, image0.shape[0]
@@ -874,14 +1239,31 @@ def _stage_times(model, image0, image1, K0, K1) -> dict:
         fmap = backbone_features(model.params, ims, cfg)
         feats = heads_apply(model.params, fmap, cfg)[0]
         halves = (tuple(f[:B] for f in feats), tuple(f[B:] for f in feats))
-        tc = model.match_feats(*halves)
+        tc = model.match_feats(*halves, fused=fused)
         gen = torch.Generator(device=image0.device)
         return {
             "backbone": round(time_ms(lambda: backbone_features(model.params, ims, cfg)), 3),
             "heads": round(time_ms(lambda: heads_apply(model.params, fmap, cfg)), 3),
-            "matcher": round(time_ms(lambda: model.match_feats(*halves)), 3),
+            "matcher": round(time_ms(lambda: model.match_feats(*halves, fused=fused)), 3),
             "solver": round(time_ms(lambda: model.solve(tc, K0, K1, gen.manual_seed(SEED))), 3),
         }
+
+
+def ablation_times(inp, iters: int = 20) -> dict:
+    """The tools' K1-old A/B (``kernel_new`` against ``kernel_old``) at
+    K1-old's inputs: CUDA-event medians of K1's bf16 body (through the K1b
+    entry, which takes ``seq_len``) and of K1-old's counterpart, timed in
+    turns (new, old, old, new) and averaged per kernel."""
+    from mickey_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed_upcast, qkv_heads
+
+    old, heads, old_len = inp["qkv_old"], inp["heads"], inp["old_len"]
+    views = qkv_heads(old, heads)
+    fns = {"k1_bf16": lambda: flash_attention(*views, old_len),
+           "k1_old_f32": lambda: flash_attention_packed_upcast(old, heads, old_len)}
+    t = {k: [] for k in fns}
+    for name in ("k1_bf16", "k1_old_f32", "k1_old_f32", "k1_bf16"):
+        t[name].append(time_ms(fns[name], iters=iters))
+    return {k: round(sum(v) / len(v), 4) for k, v in t.items()}
 
 
 def _train_stage_times(trainer, batch, iters: int = 5) -> dict:

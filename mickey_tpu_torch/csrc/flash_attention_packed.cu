@@ -12,7 +12,9 @@
 //       need no copy), written as a contiguous (B, H, S, D).
 // Keys at positions >= seq_len are masked, so the 1939-token ViT-L sequence
 // needs no padding. Both entries run one kernel body; only the addressing
-// (`Layout`) differs.
+// (`Layout`, attention_layout.cuh) differs. The fp32-operand counterparts
+// (MICKEY.DINOV2.FLOAT16=False, and the tools' K1-old) are in
+// flash_attention_f32.cu.
 //
 // Numerics follow the TPU kernel: bf16 operands, products on the tensor
 // cores with fp32 accumulation, the 1/sqrt(D) scale applied to the fp32
@@ -34,6 +36,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "attention_layout.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -49,17 +53,7 @@ constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
 
 constexpr size_t SMEM_BYTES = 4 * BQ * LDH * sizeof(bf16) + BQ * LDS * sizeof(float);
 
-// Where image b, head h of q, k, v and the output start (element offsets
-// b * x_b + h * x_h from each base) and the element stride between their
-// consecutive sequence rows (x_s); the D = 64 values of a row are contiguous.
-// Every row starts 16-byte aligned.
-struct Layout {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
-  long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
-};
+typedef AttnLayout<bf16, bf16> Layout;  // attention_layout.cuh
 
 // Copy rows [r0, r0 + 64) of one 64-wide head slice into shared memory,
 // 16 bytes per thread-step; rows >= S are zero-filled.

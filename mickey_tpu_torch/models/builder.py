@@ -1,20 +1,30 @@
-"""Model builder (``mickey_tpu/models/builder.py``), random or bridged weights.
-
-Loading the upstream ``.ckpt`` and DINOv2 ``.pth`` files is not ported yet;
-``params`` takes a ``mickey_tpu`` parameter pytree instead.
+"""Model builder (``mickey_tpu/models/builder.py``): a ``MickeyRelativePose``
+from a random init, a ``mickey_tpu`` parameter pytree, or the upstream
+checkpoint files.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import torch
 
+from ..training.checkpoint import load_reference_checkpoint, resolve_dinov2_weights
 from ..weights import init_params_numpy, params_to_torch
 from .relative_pose import MickeyRelativePose
 
 
-def build_model(cfg, params=None, seed: int = 0, device="cuda") -> MickeyRelativePose:
+def build_model(cfg, params=None, *, checkpoint: str = "", dinov2_path: Optional[str] = None, seed: int = 0,
+                device="cuda") -> MickeyRelativePose:
     """``params``: a ``mickey_tpu`` pytree with numpy leaves, or None for
-    ``init_params_numpy(cfg, seed)``.
+    ``init_params_numpy(cfg, seed)``. ``checkpoint``: an upstream Lightning
+    ``.ckpt`` (heads and matcher) overlaid on those params, with the frozen
+    DINOv2 from ``dinov2_path`` (or where ``resolve_dinov2_weights`` finds
+    it). A checkpoint without DINOv2 weights raises, since a trained head on
+    a random backbone gives poses that look valid and are garbage, unless
+    ``MICKEY_ALLOW_RANDOM_BACKBONE=1``. A native (orbax) checkpoint directory
+    raises ``NotImplementedError``.
 
     Turns TF32 off process-wide: the matcher's fp32 correlation stands in
     for the reference's Precision.HIGHEST product, and cuDNN would otherwise
@@ -26,4 +36,14 @@ def build_model(cfg, params=None, seed: int = 0, device="cuda") -> MickeyRelativ
     torch.backends.cudnn.allow_tf32 = False
     if params is None:
         params = init_params_numpy(cfg, seed)
+    if checkpoint:
+        dinov2_path = resolve_dinov2_weights(dinov2_path)
+        if not dinov2_path and os.environ.get("MICKEY_ALLOW_RANDOM_BACKBONE") != "1":
+            raise FileNotFoundError(
+                "Loading a trained checkpoint requires the frozen DINOv2 backbone weights, which were not "
+                "found (no local file; the port never downloads). Set MICKEY_DINOV2_PATH or pass dinov2_path, "
+                "or set MICKEY_ALLOW_RANDOM_BACKBONE=1 to knowingly run with a random backbone (smoke tests only).")
+        if os.path.isdir(checkpoint):
+            raise NotImplementedError(f"{checkpoint}: native (orbax) checkpoints cannot be read by the port")
+        params = {**params, **load_reference_checkpoint(checkpoint, dinov2_path)}
     return MickeyRelativePose(cfg, params_to_torch(params, cfg, device), device=device)

@@ -1,28 +1,40 @@
 """Inference model: metric relative pose between two images
-(``mickey_tpu/models/relative_pose.py::MickeyRelativePose``), on the fused
-matcher -> top-K route.
+(``mickey_tpu/models/relative_pose.py::MickeyRelativePose``).
 
-Both serving layouts run through the same stages: extract (backbone + heads)
-on the stacked images, the fused matcher on the stacked 2B head outputs,
-then the solver. ``call_with_ref_feats`` takes the image0 side from a cached
+Every call runs the same stages: extract (backbone + heads) on the stacked
+images, the matcher on the stacked 2B head outputs, then the solver. Two
+matcher routes, chosen as the JAX package chooses them:
+
+- the fused matcher -> top-K route (``TPU.FUSED_TOPK`` with a
+  ``TPU.SAMPLING_PREFILTER``), for the lite output: the dense match matrix
+  never exists;
+- the dense route (``compute_correspondences`` in eval mode, then
+  ``estimate_pose``), for the full output (``lite=False``, the default: the
+  dense match matrices, depth and score maps and the best correspondence set
+  with its inlier mask, as the demo draws them) and for every call when the
+  fused route is off.
+
+``call_with_ref_feats`` takes the image0 side from a cached
 ``extract_feats`` result, so a scene's shared keyframe runs the backbone
-once. Only ``lite=True`` exists so far: the full output (dense match
-matrices for visualization) belongs to the dense route, not ported yet.
+once; it returns the lite output.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from ..nn.extractor import (
+    Correspondences,
+    TopKCorrespondences,
     absolute_kpt_coordinates,
     backbone_features,
+    correspondences_from_heads,
     heads_apply,
     topk_correspondences_from_heads,
 )
-from ..solver.procrustes_ransac import Draws, estimate_pose_topk_from_cfg
+from ..solver.procrustes_ransac import Draws, PoseEstimate, estimate_pose_from_cfg, estimate_pose_topk_from_cfg
 
 
 class RelativePoseOutput(NamedTuple):
@@ -30,6 +42,13 @@ class RelativePoseOutput(NamedTuple):
     t: torch.Tensor  # (B, 1, 3)
     inliers: torch.Tensor  # (B,) confidence (soft inlier count)
     valid: torch.Tensor  # (B,)
+    estimate: Optional[PoseEstimate] = None  # the full solver output; None on the lite output
+    corr: Optional[Correspondences] = None  # the dense trunk outputs; None on the lite output
+
+
+def use_fused_topk(cfg) -> bool:
+    """Whether the lite output takes the fused matcher -> top-K route."""
+    return bool(cfg.TPU.get("FUSED_TOPK", False)) and int(cfg.TPU.get("SAMPLING_PREFILTER", 0) or 0) > 0
 
 
 class MickeyRelativePose:
@@ -37,8 +56,6 @@ class MickeyRelativePose:
     (``weights.params_to_torch``); build one with ``models.build_model``."""
 
     def __init__(self, cfg, params, device="cuda"):
-        if not (cfg.TPU.get("FUSED_TOPK", False) and int(cfg.TPU.get("SAMPLING_PREFILTER", 0) or 0) > 0):
-            raise NotImplementedError("only the fused matcher -> top-K route is ported")
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
@@ -50,34 +67,53 @@ class MickeyRelativePose:
         return heads_apply(self.params, backbone_features(self.params, images, self.cfg), self.cfg)[0]
 
     @torch.inference_mode()
-    def match_feats(self, feats0, feats1):
-        """Fused matcher stage on two sides' ``extract_feats`` outputs."""
-        kpts, depths, scores, descs = (torch.cat([a, b], dim=0) for a, b in zip(feats0, feats1))
-        kpts = absolute_kpt_coordinates(kpts, self.cfg.MICKEY.DINOV2.DOWN_FACTOR)
-        return topk_correspondences_from_heads(self.params, kpts, depths, scores, descs, self.cfg)
+    def match_feats(self, feats0, feats1, fused: Optional[bool] = None):
+        """Matcher stage on two sides' ``extract_feats`` outputs: the fused
+        route's ``TopKCorrespondences`` (``fused``, by default where the config
+        selects it), else the dense ``Correspondences``."""
+        stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(feats0, feats1))
+        if fused is None:
+            fused = use_fused_topk(self.cfg)
+        if fused:
+            kpts = absolute_kpt_coordinates(stacked[0], self.cfg.MICKEY.DINOV2.DOWN_FACTOR)
+            return topk_correspondences_from_heads(self.params, kpts, *stacked[1:], self.cfg)
+        return correspondences_from_heads(self.params, stacked, self.cfg)
 
     @torch.inference_mode()
-    def solve(self, tcorr, K0, K1, generator: Optional[torch.Generator] = None,
-              draws: Optional[Draws] = None) -> RelativePoseOutput:
+    def estimate(self, corr: Union[TopKCorrespondences, Correspondences], K0, K1,
+                 generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None) -> PoseEstimate:
+        """The solver on either matcher route's output."""
         if generator is None and draws is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        est = estimate_pose_topk_from_cfg(tcorr, K0, K1, self.cfg, generator=generator, draws=draws)
+        if isinstance(corr, TopKCorrespondences):
+            return estimate_pose_topk_from_cfg(corr, K0, K1, self.cfg, generator=generator, draws=draws)
+        return estimate_pose_from_cfg(corr, K0, K1, self.cfg, generator=generator, draws=draws)
+
+    def solve(self, corr, K0, K1, generator: Optional[torch.Generator] = None,
+              draws: Optional[Draws] = None) -> RelativePoseOutput:
+        """``estimate`` as the lite output."""
+        est = self.estimate(corr, K0, K1, generator, draws)
         return RelativePoseOutput(R=est.R, t=est.t, inliers=est.confidence, valid=est.valid)
 
     def __call__(self, image0, image1, K0, K1, generator: Optional[torch.Generator] = None,
-                 lite: bool = True, draws: Optional[Draws] = None) -> RelativePoseOutput:
+                 lite: bool = False, draws: Optional[Draws] = None) -> RelativePoseOutput:
         """image0/1: (B, H, W, 3) NHWC, float in [0, 1] or uint8; K: (B, 3, 3).
-        ``draws`` injects the solver's sample indices (tests)."""
-        if not lite:
-            raise NotImplementedError("the full (dense) output is not ported yet; use lite=True")
+        ``lite=False`` (the default) returns the full output on the dense
+        route; ``lite=True`` only R, t, confidence and validity, on the fused
+        route where the config selects it. ``draws`` injects the solver's
+        sample indices (tests)."""
         b = image0.shape[0]
         feats = self.extract_feats(torch.cat([image0, image1], dim=0))
-        tcorr = self.match_feats(tuple(f[:b] for f in feats), tuple(f[b:] for f in feats))
-        return self.solve(tcorr, K0, K1, generator, draws)
+        corr = self.match_feats(tuple(f[:b] for f in feats), tuple(f[b:] for f in feats),
+                                fused=lite and use_fused_topk(self.cfg))
+        est = self.estimate(corr, K0, K1, generator, draws)
+        out = RelativePoseOutput(R=est.R, t=est.t, inliers=est.confidence, valid=est.valid)
+        return out if lite else out._replace(estimate=est, corr=corr)
 
     def call_with_ref_feats(self, ref_feats, image1, K0, K1, generator: Optional[torch.Generator] = None,
                             draws: Optional[Draws] = None) -> RelativePoseOutput:
         """Pose from cached image0-side ``extract_feats`` outputs (gathered
-        per pair) and query images: only the queries run the backbone."""
-        tcorr = self.match_feats(ref_feats, self.extract_feats(image1))
-        return self.solve(tcorr, K0, K1, generator, draws)
+        per pair) and query images: only the queries run the backbone. The
+        lite output, on either matcher route."""
+        corr = self.match_feats(ref_feats, self.extract_feats(image1))
+        return self.solve(corr, K0, K1, generator, draws)

@@ -1,10 +1,12 @@
 """Frozen DINOv2 ViT backbone (``mickey_tpu/nn/dinov2.py``), inference only.
 
 Patch-14 ViT with LayerScale, pre-norm blocks and exact-GELU MLP. Compute
-runs in the backbone dtype (bf16 by default) with LayerNorm statistics in
+runs in the backbone dtype (bf16 by default; fp32 with
+``MICKEY.DINOV2.FLOAT16=False``, the exact mode) with LayerNorm statistics in
 fp32. Attention goes through ``ops.flash_attention.flash_attention_packed``
 on the head-major packed qkv (``packed=True``, the default) or through
-``flash_attention`` on its (B, H, S, D) views (``TPU.PACKED_ATTENTION=False``).
+``flash_attention`` on its (B, H, S, D) views (``TPU.PACKED_ATTENTION=False``);
+both pick their kernel by the dtype (bf16: K1 / K1b, fp32: K1f).
 The sequence (1939 tokens for ViT-L at 714x532) is not padded: the attention
 kernels mask their own ragged tile.
 """

@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 All sources under ``mickey_tpu_torch/csrc/`` have a plain ``extern "C"``
-interface. On first use they are compiled by one ``nvcc`` call for
-``sm_90a`` into a single shared library under ``mickey_tpu_torch/build/``
-(listed in ``.gitignore``), named by a hash of the sources so an edit
+interface. On first use each source is compiled by its own ``nvcc`` process
+for ``sm_90a``, all started together, and the objects are linked into a
+single shared library under ``mickey_tpu_torch/build/`` (listed in
+``.gitignore``), named by a hash of the sources and headers so an edit
 rebuilds, and loaded with ``ctypes``. Nothing here runs at import: the CPU
 tests import every module, on machines without ``nvcc`` or a GPU.
 
@@ -20,19 +21,21 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("flash_attention_packed.cu", "fused_topk.cu", "hypothesis_scoring.cu", "dual_softmax.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("flash_attention_packed.cu", "flash_attention_f32.cu", "fused_topk.cu", "hypothesis_scoring.cu",
+           "dual_softmax.cu")
+HEADERS = ("attention_layout.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "col_lse": 0, "pair_topk": 0,
+LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "flash_attention_packed_f32": 0,
+            "flash_attention_f32": 0, "flash_attention_packed_upcast": 0, "col_lse": 0, "pair_topk": 0,
             "hypothesis_scores": 0, "pair_softmax": 0, "dual_softmax_bwd_sums": 0,
             "dual_softmax_bwd_grads": 0, "lse_bwd": 0}
 
@@ -41,6 +44,9 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "mk_flash_attention_packed_bf16": [_P, _P, _I, _I, _I, _F, _P],
     "mk_flash_attention_bf16": [_P] * 4 + [_LLP] + [_I] * 4 + [_F, _P],
+    "mk_flash_attention_packed_f32": [_P, _P, _I, _I, _I, _F, _P],
+    "mk_flash_attention_f32": [_P] * 4 + [_LLP] + [_I] * 4 + [_F, _P],
+    "mk_flash_attention_packed_upcast_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "mk_col_lse_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "mk_pair_topk_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
@@ -69,9 +75,36 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile(so: Path) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link into
+    ``so``. Returns the compilers' ``-Xptxas -v`` output."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{s}.o" for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = []
+        for s, p in zip(SOURCES, procs):
+            out, err = p.communicate()
+            if p.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{out}{err}")
+            logs.append(err)
+        lib = Path(tmp) / so.name
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(lib, so)
+    return "".join(logs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -83,15 +116,7 @@ def build() -> tuple:
     built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libmickey_kernels_{_source_hash()}.so"
-    log = ""
-    if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        log = proc.stderr
-        os.replace(tmp, so)
+    log = "" if so.exists() else _compile(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

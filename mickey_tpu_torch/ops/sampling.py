@@ -41,6 +41,13 @@ def gumbel_topk_sample(generator: Optional[torch.Generator], log_weights: torch.
 
 
 def gumbel_topk_sample_draws(generator: Optional[torch.Generator], log_weights: torch.Tensor,
-                             k: int, draws: int) -> torch.Tensor:
-    """``draws`` independent samples: (draws, *batch, k) int32, as one batched top-k."""
-    return gumbel_topk_sample(generator, log_weights.expand((draws,) + log_weights.shape), k)
+                             k: int, draws: int, max_elems: int = 1 << 26) -> torch.Tensor:
+    """``draws`` independent samples: (draws, *batch, k) int32. One batched
+    top-k while the perturbed (draws, *batch, N) tensor stays within
+    ``max_elems`` elements (256 MB of fp32); above that (the exact regime
+    over a whole N0 x N1 match matrix, no prefilter) one draw at a time, so
+    the peak is one (*batch, N) noise tensor. The distribution is the same
+    either way: the noise is iid across draws."""
+    if draws * log_weights.numel() <= max_elems:
+        return gumbel_topk_sample(generator, log_weights.expand((draws,) + log_weights.shape), k)
+    return torch.stack([gumbel_topk_sample(generator, log_weights, k) for _ in range(draws)])

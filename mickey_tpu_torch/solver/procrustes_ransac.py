@@ -1,10 +1,19 @@
-"""Probabilistic Procrustes RANSAC on the fused top-K sampling table.
+"""Probabilistic Procrustes RANSAC, on the dense match matrix or on the fused
+top-K sampling table.
 
-Port of ``mickey_tpu/solver/procrustes_ransac.py::estimate_pose_topk`` and
-its ``_solve_sampled`` core. Drawing is split from solving: ``draw_samples``
+Port of ``mickey_tpu/solver/procrustes_ransac.py``: ``estimate_pose`` (dense
+(B, N0, N1) final scores, the exact and visualization route),
+``estimate_pose_topk`` (the fused route's table) and their shared
+``_solve_sampled`` core. Drawing is split from solving: ``draw_samples``
 makes the Gumbel top-k draws from a ``torch.Generator``, and
 ``_solve_sampled`` takes them as injected index tensors, so a test can replay
 the draws JAX made and compare poses one to one.
+
+The dense route's prefilter is an exact ``torch.topk`` of the flat scores,
+sorted descending, where the JAX package takes
+``approx_max_k(recall_target=0.95)``: a deliberate deviation, as in the loss.
+With ``prefilter`` 0 (or at least N0 * N1) the draws sample the whole flat
+matrix and index it directly.
 
 All it_matches x it_RANSAC minimal Kabsch solves run as one batched call;
 the fused scoring kernel (``ops.hypothesis_scoring``) runs once per outer
@@ -16,6 +25,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..geometry import backproject_3d, inlier_counting_3d, soft_inlier_counting_3d, weighted_procrustes
@@ -30,10 +40,17 @@ class PoseEstimate(NamedTuple):
     t: torch.Tensor  # (B, 1, 3)
     confidence: torch.Tensor  # (B,) soft-inlier count of the best hypothesis
     valid: torch.Tensor  # (B,) bool
+    # the best draw's correspondence set (inlier export, visualization)
+    cor0: torch.Tensor  # (B, S, 2)
+    cor1: torch.Tensor  # (B, S, 2)
+    d0: torch.Tensor  # (B, S, 1)
+    d1: torch.Tensor  # (B, S, 1)
+    weights: torch.Tensor  # (B, S) their final scores
+    inlier_mask: torch.Tensor  # (B, S) hard inliers at th_inlier under the final pose
 
 
 class Draws(NamedTuple):
-    outer_local: torch.Tensor  # (it, B, S) positions in the top-P table
+    outer_local: torch.Tensor  # (it, B, S) positions in the sampling table (top-P, or the flat matrix)
     ridx: torch.Tensor  # (it, B, R, C) positions among each draw's S samples
 
 
@@ -41,11 +58,12 @@ def log_weights(scores: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     return torch.where(scores > 0, torch.log(torch.clamp(scores, min=eps)), NEG_INF)
 
 
-def draw_samples(generator: Optional[torch.Generator], top_scores: torch.Tensor, it_matches: int,
+def draw_samples(generator: Optional[torch.Generator], w_table: torch.Tensor, it_matches: int,
                  it_ransac: int, num_samples: int, num_corr: int) -> Draws:
-    """The solver's two levels of draws: it_matches samples of num_samples
-    table entries, then it_ransac minimal sets of num_corr within each."""
-    w_table = top_scores.float()
+    """The solver's two levels of draws from a (B, P) table of sampling
+    weights: it_matches samples of num_samples table entries, then
+    it_ransac minimal sets of num_corr within each."""
+    w_table = w_table.float()
     B = w_table.shape[0]
     outer = gumbel_topk_sample_draws(generator, log_weights(w_table), num_samples, it_matches)
     w = torch.gather(w_table.expand(it_matches, -1, -1), 2, outer.long())  # (it, B, S)
@@ -58,17 +76,21 @@ def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, -2, idx[..., None].expand(*idx.shape, table.shape[-1]))
 
 
-def _solve_sampled(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, K0, K1,
+def _solve_sampled(w_table, remap, row_ok, kps0, depth0, kps1, depth1, K0, K1,
                    draws: Draws, *, n1: int, num_corr: int, num_refinements: int,
                    th_inlier: float, th_soft_inlier: float) -> PoseEstimate:
-    w_table = top_scores.float()
+    """RANSAC and refinement on the draws. ``w_table`` (B, P): the sampling
+    table's scores; ``remap`` (B, P): its flat match indices into the
+    N0 x N1 matrix, or None when the table is the flat matrix itself."""
+    w_table = w_table.float()
     B = w_table.shape[0]
-    X_all = backproject_3d(kps0.float(), depth0.float(), K0.float())  # (B, N0, 3)
-    Y_all = backproject_3d(kps1.float(), depth1.float(), K1.float())  # (B, N1, 3)
+    kps0, depth0, kps1, depth1 = (x.float() for x in (kps0, depth0, kps1, depth1))
+    X_all = backproject_3d(kps0, depth0, K0.float())  # (B, N0, 3)
+    Y_all = backproject_3d(kps1, depth1, K1.float())  # (B, N1, 3)
 
     outer_local = draws.outer_local.long()
     it, _, S = outer_local.shape
-    outer_idx = torch.gather(top_idx.long().expand(it, -1, -1), 2, outer_local)  # (it, B, S)
+    outer_idx = outer_local if remap is None else torch.gather(remap.long().expand(it, -1, -1), 2, outer_local)
     X = _rows(X_all.expand(it, -1, -1, -1), outer_idx // n1)  # (it, B, S, 3)
     Y = _rows(Y_all.expand(it, -1, -1, -1), outer_idx % n1)
 
@@ -99,6 +121,8 @@ def _solve_sampled(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, K0, 
     b_idx = torch.arange(B, device=best_it.device)
     R, t = R_step[best_it, b_idx], t_step[best_it, b_idx]
     X_best, Y_best = X[best_it, b_idx], Y[best_it, b_idx]  # (B, S, 3)
+    idx_best = outer_idx[best_it, b_idx]  # (B, S) flat match indices
+    idx0, idx1 = idx_best // n1, idx_best % n1
 
     inliers_pre = torch.full((B,), float(num_corr), device=R.device)
     inliers_ref = torch.zeros((B, S), device=R.device)
@@ -113,6 +137,7 @@ def _solve_sampled(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, K0, 
         t = torch.where(do_ref[:, None, None], ref.t, t)
 
     confidence = soft_inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)[..., 0]
+    inlier_mask = inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)
     valid = (
         row_ok
         & torch.isfinite(R).flatten(1).all(-1)
@@ -122,7 +147,42 @@ def _solve_sampled(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, K0, 
     R = torch.where(valid[:, None, None], R, torch.zeros_like(R))
     t = torch.where(valid[:, None, None], t, torch.zeros_like(t))
     confidence = torch.where(valid, confidence, torch.zeros_like(confidence))
-    return PoseEstimate(R=R, t=t, confidence=confidence, valid=valid)
+    return PoseEstimate(
+        R=R, t=t, confidence=confidence, valid=valid,
+        cor0=_rows(kps0, idx0), cor1=_rows(kps1, idx1), d0=_rows(depth0, idx0), d1=_rows(depth1, idx1),
+        weights=torch.gather(w_table, 1, outer_local[best_it, b_idx]), inlier_mask=inlier_mask,
+    )
+
+
+def estimate_pose(final_scores, kps0, depth0, kps1, depth1, K0, K1, *,
+                  it_matches: int = 20, it_ransac: int = 100, num_samples: int = 2048,
+                  num_corr: int = 3, num_refinements: int = 4, th_inlier: float = 0.15,
+                  th_soft_inlier: float = 0.3, prefilter: int = 0,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Draws] = None) -> PoseEstimate:
+    """Metric relative pose from dense (B, N0, N1) final scores.
+
+    ``prefilter`` > 0 (and below N0 * N1) samples from the exact top-
+    ``prefilter`` entries of each flat score matrix, sorted descending;
+    otherwise the draws sample the whole flat matrix. ``draws`` injects the
+    sample indices (positions in that table); otherwise they are drawn from
+    ``generator``."""
+    B, N0, N1 = final_scores.shape
+    scores_flat = final_scores.reshape(B, N0 * N1).float()
+    # validity of the sampling distribution: finite, nonnegative, positive mass
+    row_ok = (torch.isfinite(scores_flat).all(-1) & (scores_flat >= 0).all(-1)
+              & (scores_flat.sum(-1) > 0))
+    if prefilter and prefilter < N0 * N1:
+        w_table, remap = torch.topk(scores_flat, prefilter, dim=-1, sorted=True)
+    else:
+        w_table, remap = scores_flat, None
+    if draws is None:
+        draws = draw_samples(generator, w_table, it_matches, it_ransac, num_samples, num_corr)
+    return _solve_sampled(
+        w_table, remap, row_ok, kps0, depth0, kps1, depth1, K0, K1, draws,
+        n1=N1, num_corr=num_corr, num_refinements=num_refinements,
+        th_inlier=th_inlier, th_soft_inlier=th_soft_inlier,
+    )
 
 
 def estimate_pose_topk(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, K0, K1, *,
@@ -143,15 +203,43 @@ def estimate_pose_topk(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, 
     )
 
 
+def _solver_kw(cfg) -> dict:
+    pc = cfg.PROCRUSTES
+    return dict(it_matches=pc.IT_MATCHES, it_ransac=pc.IT_RANSAC, num_samples=pc.NUM_SAMPLED_MATCHES,
+                num_corr=pc.NUM_CORR_3D_3D, num_refinements=pc.NUM_REFINEMENTS, th_inlier=pc.TH_INLIER,
+                th_soft_inlier=pc.TH_SOFT_INLIER)
+
+
 def estimate_pose_topk_from_cfg(tcorr, K0, K1, cfg, generator=None, draws=None) -> PoseEstimate:
     """``estimate_pose_topk`` with the PROCRUSTES.* settings of ``cfg``;
     ``tcorr`` is a ``nn.extractor.TopKCorrespondences``."""
-    pc = cfg.PROCRUSTES
     return estimate_pose_topk(
         tcorr.top_scores, tcorr.top_idx, tcorr.row_ok,
         tcorr.kps0, tcorr.depth0, tcorr.kps1, tcorr.depth1, K0, K1,
-        n1=tcorr.kps1.shape[1], it_matches=pc.IT_MATCHES, it_ransac=pc.IT_RANSAC,
-        num_samples=pc.NUM_SAMPLED_MATCHES, num_corr=pc.NUM_CORR_3D_3D,
-        num_refinements=pc.NUM_REFINEMENTS, th_inlier=pc.TH_INLIER,
-        th_soft_inlier=pc.TH_SOFT_INLIER, generator=generator, draws=draws,
+        n1=tcorr.kps1.shape[1], generator=generator, draws=draws, **_solver_kw(cfg),
     )
+
+
+def estimate_pose_from_cfg(corr, K0, K1, cfg, generator=None, draws=None, final_scores=None) -> PoseEstimate:
+    """``estimate_pose`` with the PROCRUSTES.* settings and
+    ``TPU.SAMPLING_PREFILTER`` of ``cfg``; ``corr`` is a
+    ``nn.extractor.Correspondences``, and ``final_scores`` (default
+    ``corr.final_scores``) the matrix sampled."""
+    fs = corr.final_scores if final_scores is None else final_scores
+    return estimate_pose(
+        fs, corr.kps0, corr.depth0, corr.kps1, corr.depth1, K0, K1,
+        prefilter=int(cfg.TPU.get("SAMPLING_PREFILTER", 0) or 0), generator=generator, draws=draws,
+        **_solver_kw(cfg),
+    )
+
+
+def extract_inliers(est: PoseEstimate, batch_index: int = 0) -> np.ndarray:
+    """Host-side inlier list of one pair, sorted by score descending: rows
+    [x0, y0, x1, y1, score, d0, d1]."""
+    a = {f: getattr(est, f)[batch_index].detach().cpu().numpy()
+         for f in ("inlier_mask", "cor0", "cor1", "d0", "d1", "weights")}
+    m = a["inlier_mask"] == 1.0
+    w = a["weights"][m]
+    order = np.argsort(-w)
+    return np.concatenate([a["cor0"][m][order], a["cor1"][m][order], w[order, None],
+                           a["d0"][m][order], a["d1"][m][order]], axis=1)

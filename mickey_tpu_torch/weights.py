@@ -130,7 +130,8 @@ def _head_init(rng, cin, block_dims, last_dim, bn, out_channels):
 def init_params_numpy(cfg, seed: int = 0):
     """Random parameters in ``mickey_tpu``'s pytree layout, from ``seed``:
     trunc-normal(0.02) ViT, kaiming-uniform convs, xavier transformer
-    linears, identity BatchNorm, dustbin 1.0."""
+    linears, identity BatchNorm, dustbin 1.0 (Sinkhorn: its
+    ``DUSTBIN_SCORE_INIT``)."""
     rng = np.random.default_rng(seed)
     mk = cfg.MICKEY
     cin, bd, bn = mk.DINOV2.CHANNEL_DIM, mk.KP_HEADS.BLOCKS_DIM, mk.KP_HEADS.BN
@@ -142,7 +143,10 @@ def init_params_numpy(cfg, seed: int = 0):
         "dinov2": _vit_init(rng, mk.DINOV2.get("VARIANT", "vit_large")),
         "matcher": {},
     }
-    if cfg.FEATURE_MATCHER.DUAL_SOFTMAX.USE_DUSTBIN:
+    fm = cfg.FEATURE_MATCHER
+    if fm.TYPE != "DualSoftmax":  # Sinkhorn always has a dustbin
+        p["matcher"]["dustbin_score"] = np.float32(fm.SINKHORN.DUSTBIN_SCORE_INIT)
+    elif fm.DUAL_SOFTMAX.USE_DUSTBIN:
         p["matcher"]["dustbin_score"] = np.float32(1.0)
     return p
 

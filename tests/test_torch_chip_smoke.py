@@ -46,11 +46,16 @@ def _tiny_params(cfg, depth=2):
     return p
 
 
+def _tiny_kernel_inputs():
+    return chip_smoke.kernel_inputs("cpu", images=2, seq=37, heads=2, kpts=40, desc=16, topl=4, prefilter=64,
+                                    samples=50, hyps=7, old_images=2, old_seq=48, old_len=37)
+
+
 def test_kernel_phase_rehearsal():
-    inp = chip_smoke.kernel_inputs("cpu", images=2, seq=37, heads=2, kpts=40, desc=16, topl=4,
-                                   prefilter=64, samples=50, hyps=7)
+    inp = _tiny_kernel_inputs()
     errs = chip_smoke.check_kernels(inp)
-    assert set(errs) == set(chip_smoke.SERVING_KERNELS) | {"flash_attention"}
+    assert set(errs) == set(chip_smoke.SERVING_KERNELS) | {"flash_attention", "flash_attention_packed_f32",
+                                                             "flash_attention_f32", "flash_attention_packed_upcast"}
     # plain against plain: exact, except K1 / K1b where the bf16 output is held against fp32
     assert errs.pop("flash_attention_packed") < chip_smoke.ATTN_TOL
     assert errs.pop("flash_attention") < chip_smoke.ATTN_TOL
@@ -74,7 +79,7 @@ def test_slice_phase_rehearsal():
     ims = chip_smoke.slice_inputs("cpu", pairs=2, height=112, width=140)
     outs = chip_smoke.run_slice(model_u, *ims, layouts=("general",))
     assert set(outs) == {"general"}
-    unpacked = chip_smoke.check_unpacked_backbone(model, model_u, *ims[:2])
+    unpacked = chip_smoke.compare_backbones(model, model_u, *ims[:2], "unpacked backbone")
     assert unpacked["backbone_cos"] > 0.999999 and unpacked["backbone_max_abs"] < 1e-5
 
 
@@ -101,7 +106,8 @@ def test_train_kernel_phase_rehearsal():
     tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
     errs = chip_smoke.check_train_kernels(tin)
     errs.update(chip_smoke.check_topk_train_kernels(tin, prefilter=64, topl=4))
-    serving = set(chip_smoke.SERVING_KERNELS) | set(chip_smoke.UNPACKED_SERVING_KERNELS)
+    serving = (set(chip_smoke.SERVING_KERNELS) | set(chip_smoke.UNPACKED_SERVING_KERNELS)
+               | set(chip_smoke.EXACT_KERNELS) | set(chip_smoke.ABLATION_KERNELS) | {"flash_attention_f32"})
     assert set(errs) | serving == {name for name, _, _ in chip_smoke.KERNELS}
     assert all(e == 0.0 for e in errs.values())  # plain against plain
 
@@ -161,8 +167,7 @@ def test_run_train_rejects_unchanged_parameters():
 def test_bounds_and_library_call():
     """The bounds follow from the shapes; the library call beside K1 computes
     the function of K1's plain version."""
-    inp = chip_smoke.kernel_inputs("cpu", images=2, seq=37, heads=2, kpts=40, desc=16, topl=4,
-                                   prefilter=64, samples=50, hyps=7)
+    inp = _tiny_kernel_inputs()
     tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
     bounds = chip_smoke.kernel_bounds(inp, tin)
     assert set(bounds) == {name for name, _, _ in chip_smoke.KERNELS}
@@ -173,3 +178,50 @@ def test_bounds_and_library_call():
     ref = attention_packed_plain(inp["qkv"].float(), inp["heads"])
     b, h, s_, d = out.shape
     torch.testing.assert_close(out.float().permute(0, 2, 1, 3).reshape(b, s_, h * d), ref, atol=2e-2, rtol=0)
+
+
+def test_exact_phase_rehearsal(monkeypatch):
+    """Phase 3's exact path and its checks at a tiny size, plain against
+    plain: the full output's shapes, the dense route's lite outputs, the
+    backbone agreements, the dense/fused table cross-check, the checkpoint
+    round trip, the small-input stages; and the exact stage timing and the
+    K1-old A/B's plumbing."""
+    cfg = _tiny_cfg()
+    params = _tiny_params(cfg)
+    model = build_model(cfg, params, device="cpu")
+    cfg_x = cfg.clone()
+    cfg_x.MICKEY.DINOV2.FLOAT16 = False
+    cfg_xd = cfg_x.clone()
+    cfg_xd.TPU.FUSED_TOPK = False
+    model_x = MickeyRelativePose(cfg_x, model.params, device="cpu")
+    ims = chip_smoke.slice_inputs("cpu", pairs=2, height=112, width=140)
+    full = chip_smoke.run_full(model_x, *ims)
+    assert full.corr.final_scores.shape == (2, 80, 80) and full.estimate.inlier_mask.shape == (2, 32)
+    outs = chip_smoke.run_slice(MickeyRelativePose(cfg_xd, model.params, device="cpu"), *ims)
+    assert outs["general"].estimate is None and outs["shared"].R.shape == (2, 3, 3)
+    cfg_xu = cfg_x.clone()
+    cfg_xu.TPU.PACKED_ATTENTION = False
+    agree = chip_smoke.compare_backbones(model_x, MickeyRelativePose(cfg_xu, model.params, device="cpu"), *ims[:2],
+                                         "unpacked", max_rel=1e-5)
+    assert agree["backbone_rel"] < 1e-6
+    assert chip_smoke.compare_backbones(model_x, model, *ims[:2], "bf16")["backbone_cos"] > 0.999
+    table = chip_smoke.check_dense_table(model, *ims)
+    # two formulas of the same scores (softmax products; the fused route's closed form)
+    assert table["table_max_abs"] < 1e-6 and all(0.0 < r <= 1.0 for r in table["global_topP_recall"])
+    assert chip_smoke.check_checkpoint(cfg, params, torch.device("cpu"), *ims)["bitwise"]
+    small = chip_smoke.check_exact_against_plain(model_x, MickeyRelativePose(cfg_x, model.params, device="cpu"),
+                                                 *chip_smoke.slice_inputs("cpu", pairs=2, height=56, width=70))
+    assert all(v == 0.0 for v in small.values())
+    monkeypatch.setattr(chip_smoke, "_elapsed_ms", _wall_ms)  # CUDA events need the card
+    stages = chip_smoke._stage_times(model_x, *ims, fused=False)
+    assert set(stages) == {"backbone", "heads", "matcher", "solver"}
+    assert set(chip_smoke.ablation_times(_tiny_kernel_inputs(), iters=1)) == {"k1_bf16", "k1_old_f32"}
+
+
+def test_within_bf16_ulp():
+    ref = torch.tensor([1.0, 0.99609375, -3.0, 1e-3]).to(torch.bfloat16)
+    up = torch.nextafter(ref.float(), torch.full((4,), 1e9)).to(torch.bfloat16)  # one bf16 step away
+    chip_smoke._within_bf16_ulp(ref, ref, "same")
+    chip_smoke._within_bf16_ulp(up, ref, "one ulp")
+    with pytest.raises(chip_smoke.SmokeError):
+        chip_smoke._within_bf16_ulp((ref.float() * 1.02).to(torch.bfloat16), ref, "two percent")

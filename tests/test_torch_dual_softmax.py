@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from mickey_tpu.ops.fused_matcher import fused_dual_softmax_vjp as jax_vjp
-from mickey_tpu_torch.nn.matcher import dual_softmax, match_scores
+from mickey_tpu_torch.nn.matcher import dual_softmax, match_scores, sinkhorn
 from mickey_tpu_torch.ops import fused_matcher as fm
 from mickey_tpu_torch.config import default_config
 
@@ -112,9 +112,9 @@ def test_match_scores_routes_cpu_tensors_to_the_dense_path():
     params = {"dustbin_score": torch.tensor(1.0)}
     for train in (False, True):
         torch.testing.assert_close(match_scores(params, t0, t1, cfg, train=train), dual_softmax(t0, t1, 1.0))
-    cfg.FEATURE_MATCHER.TYPE = "Sinkhorn"
-    with pytest.raises(NotImplementedError):
-        match_scores(params, t0, t1, cfg)
+    cfg.FEATURE_MATCHER.TYPE = "Sinkhorn"  # every other matcher type takes Sinkhorn, as in the JAX package
+    torch.testing.assert_close(match_scores(params, t0, t1, cfg),
+                               sinkhorn(t0, t1, params["dustbin_score"], cfg.FEATURE_MATCHER.SINKHORN.NUM_IT))
 
 
 def test_kernel_wrappers_refuse_deep_descriptors():

@@ -1,12 +1,18 @@
-"""K1 (packed head-major attention) and K1b (attention on (B, H, S, D)):
-the port against mickey_tpu.
+"""K1 (packed head-major attention), K1b (attention on (B, H, S, D)) and
+K1f (their fp32-operand counterparts, and the tools' K1-old): the port
+against mickey_tpu.
 
 On the CPU the port's wrappers take their plain versions; they are held
 against the JAX Pallas kernels run in interpret mode on the sequence the JAX
 backbone gives them (padded to a block multiple, padded keys masked), fp32,
-at 1e-5. The CUDA kernels themselves are held against the plain versions on
-the card (bf16 operands against fp32, |diff| < 2e-2), and K1b against K1,
-which runs the same kernel body: bitwise.
+at 1e-5 of the largest output. K1-old's plain version (bf16 in, fp32 math,
+bf16 out) is held against JAX's ``attention_reference`` on the same bf16
+input, K1-old's arithmetic (the tool's kernel body is local to its
+``main()``), to one bf16 ulp. The CUDA kernels themselves are held against
+the plain versions on the card: bf16 K1 / K1b at |diff| < 2e-2 (bf16
+operands against fp32), K1f at 1e-5 of the largest output, K1-old to one
+bf16 ulp; K1b against K1 and K1f strided against K1f packed, each pair one
+kernel body: bitwise.
 """
 
 import jax.numpy as jnp
@@ -14,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from mickey_tpu.ops.flash_attention import attention_reference
 from mickey_tpu.ops.flash_attention import flash_attention as jax_flash
 from mickey_tpu.ops.flash_attention import flash_attention_packed as jax_flash_packed
 from mickey_tpu_torch.ops import _cuda
@@ -21,7 +28,10 @@ from mickey_tpu_torch.ops.flash_attention import (
     attention_packed_plain,
     attention_plain,
     flash_attention,
+    flash_attention_f32,
     flash_attention_packed,
+    flash_attention_packed_f32,
+    flash_attention_packed_upcast,
     qkv_heads,
 )
 
@@ -95,7 +105,7 @@ def test_kernel_matches_plain(cuda, seq):
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
-        flash_attention_packed(torch.zeros(1, 8, 3 * 64, device=cuda), 1)  # fp32
+        flash_attention_packed(torch.zeros(1, 8, 3 * 64, device=cuda, dtype=torch.float16), 1)  # neither bf16 nor fp32
     with pytest.raises(ValueError):
         flash_attention_packed(torch.zeros(1, 8, 3 * 64, device=cuda, dtype=torch.bfloat16), 2)  # D = 32
 
@@ -130,10 +140,114 @@ def test_unpacked_kernel_masks_keys_past_seq_len(cuda):
 def test_unpacked_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        flash_attention(x.float(), x, x, 8)
+        flash_attention(x.float(), x, x, 8)  # fp32 q goes to K1f, which takes k and v in fp32 too
+    with pytest.raises(TypeError):
+        flash_attention(x.half(), x.half(), x.half(), 8)
     with pytest.raises(ValueError):
         flash_attention(x, x, x, 9)  # seq_len > S
     with pytest.raises(ValueError):
         flash_attention(x[..., :32], x[..., :32], x[..., :32], 8)  # D = 32
     with pytest.raises(ValueError):
         flash_attention(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, 8)  # D not unit-stride
+
+
+def _bf16_close(out: np.ndarray, ref: np.ndarray) -> bool:
+    """Two bf16 roundings of fp32 results that agree to 1e-5 max|ref|: one
+    bf16 ulp at the larger of the two (2^(e-8) for |x| in [2^(e-1), 2^e)),
+    plus 1e-5 max|ref| (near zero the ulp is below the fp32 difference)."""
+    ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(out), np.abs(ref)))[1] - 8)
+    return bool((np.abs(out - ref) <= ulp + 1e-5 * np.abs(ref).max()).all())
+
+
+@pytest.mark.parametrize("heads,seq,padded", [(2, 100, 128), (3, 37, 64)])
+def test_fp32_plain_matches_jax_interpret_on_padded_input(heads, seq, padded):
+    """K1f's packed and strided plain versions, given the padded sequence
+    with ``seq_len`` < S, against the JAX kernels in interpret mode on fp32
+    input: every row, padded ones included, at 1e-5 of the largest output;
+    and the packed entry on the unpadded sequence, on the real rows."""
+    rng = np.random.default_rng(20 + heads)
+    qkv = rng.standard_normal((2, padded, 3 * heads * 64)).astype(np.float32)
+    qkv[:, seq:] = 0.0  # the JAX backbone's zero padding
+    ref = np.asarray(jax_flash_packed(jnp.asarray(qkv), seq, heads, block_q=padded, block_k=padded, interpret=True))
+    tol = 1e-5 * np.abs(ref).max()
+    out = attention_packed_plain(torch.from_numpy(qkv), heads, seq).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+    real = flash_attention_packed_f32(torch.from_numpy(qkv[:, :seq]), heads).numpy()
+    np.testing.assert_allclose(real, ref[:, :seq], rtol=0, atol=tol)
+    q, k, v = (np.ascontiguousarray(x) for x in qkv_heads(torch.from_numpy(qkv), heads))
+    ref_u = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)), seq, block_q=padded, block_k=padded, interpret=True))
+    out_u = flash_attention_f32(*(torch.from_numpy(x) for x in (q, k, v)), seq).numpy()
+    np.testing.assert_allclose(out_u, ref_u, rtol=0, atol=1e-5 * np.abs(ref_u).max())
+
+
+def test_upcast_plain_matches_jax_reference():
+    """K1-old's plain version on bf16 packed input with keys past ``seq_len``
+    masked, against ``attention_reference`` (upcast, fp32 math, bf16 out) on
+    the same views: within one bf16 ulp (``_bf16_close``), on every row."""
+    rng = np.random.default_rng(30)
+    heads, seq, s = 4, 150, 192
+    qkv = torch.from_numpy(0.05 * rng.standard_normal((2, s, 3 * heads * 64)).astype(np.float32)).to(torch.bfloat16)
+    out = flash_attention_packed_upcast(qkv, heads, seq)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, s, heads * 64)
+    views = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in qkv_heads(qkv, heads)]
+    ref = np.asarray(attention_reference(*views, seq).astype(jnp.float32))
+    ref = ref.transpose(0, 2, 1, 3).reshape(2, s, heads * 64)
+    assert _bf16_close(out.float().numpy(), ref)
+
+
+def test_fp32_cpu_wrappers_launch_nothing():
+    before = dict(_cuda.LAUNCHES)
+    flash_attention_packed(torch.zeros(1, 5, 3 * 64), 1)  # fp32 on the CPU: the plain version, not K1f
+    flash_attention_packed_f32(torch.zeros(1, 5, 3 * 64), 1)
+    flash_attention_f32(*(torch.zeros(1, 1, 5, 64) for _ in range(3)), 5)
+    flash_attention_packed_upcast(torch.zeros(1, 8, 3 * 64, dtype=torch.bfloat16), 1, 5)
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [1939, 65, 64])
+def test_f32_kernels_match_plain(cuda, seq):
+    """K1f packed and strided on fp32 (the ``FLOAT16=False`` backbone's
+    input), dispatched from the bf16 entries by dtype: 1e-5 of the largest
+    output against the plain versions; strided bitwise packed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(2, seq, 3 * 16 * 64, device=cuda, generator=g)
+    before = dict(_cuda.LAUNCHES)
+    out = flash_attention_packed(qkv, 16)
+    views = qkv_heads(qkv, 16)
+    out_u = flash_attention(*views, seq)
+    ref = attention_packed_plain(qkv, 16)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_packed_f32"] == before["flash_attention_packed_f32"] + 1
+    assert _cuda.LAUNCHES["flash_attention_f32"] == before["flash_attention_f32"] + 1
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(out_u.transpose(1, 2).reshape(2, seq, 16 * 64), out)
+
+
+@pytest.mark.cuda
+def test_upcast_kernel_matches_plain(cuda):
+    """K1-old's counterpart at the tool's layout (S padded to 2048 here cut to
+    256, ``seq_len`` masking the tail): rows below ``seq_len`` within one
+    bf16 ulp of the plain version's rounded output."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = (0.05 * torch.randn(2, 256, 3 * 16 * 64, device=cuda, generator=g)).to(torch.bfloat16)
+    out = flash_attention_packed_upcast(qkv, 16, 200)[:, :200].float().cpu().numpy()
+    ref = attention_packed_plain(qkv, 16, 200)[:, :200].float().cpu().numpy()
+    assert _bf16_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_f32(x, x.to(torch.bfloat16), x, 8)
+    with pytest.raises(ValueError):
+        flash_attention_f32(x[..., :32], x[..., :32], x[..., :32], 8)  # D = 32
+    with pytest.raises(ValueError):
+        flash_attention_f32(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, 8)  # D not unit-stride
+    with pytest.raises(TypeError):
+        flash_attention_packed_upcast(torch.zeros(1, 8, 3 * 64, device=cuda), 1, 8)  # fp32 input
+    with pytest.raises(ValueError):
+        flash_attention_packed_upcast(torch.zeros(1, 8, 3 * 64, device=cuda, dtype=torch.bfloat16), 1, 9)

@@ -132,7 +132,7 @@ def test_slice_fp32_matches_jax_with_injected_draws(jax_params):
     ref_feats = model.extract_feats(t(im0))
     for ref, out in (
         (jmodel(jnp.asarray(im0), jnp.asarray(im1), K0, K1, key=key, lite=True),
-         model(t(im0), t(im1), t(K0), t(K1), draws=draws)),
+         model(t(im0), t(im1), t(K0), t(K1), draws=draws, lite=True)),
         (jmodel.call_with_ref_feats(ref_feats_j, jnp.asarray(im1), K0, K1, key=key),
          model.call_with_ref_feats(ref_feats, t(im1), t(K0), t(K1), draws=draws)),
     ):
@@ -165,7 +165,7 @@ def test_slice_bf16_against_jax(jax_params):
     for b in range(B):
         assert len(set(ours.top_idx[b].tolist()) & set(np.asarray(tcorr.top_idx[b]).tolist())) >= 0.95 * P
     np.testing.assert_allclose(ours.top_scores.numpy(), np.asarray(tcorr.top_scores), rtol=5e-2)
-    out = model(t(im0), t(im1), t(K0), t(K1), draws=_remap(draws, tcorr.top_idx, ours.top_idx, True))
+    out = model(t(im0), t(im1), t(K0), t(K1), draws=_remap(draws, tcorr.top_idx, ours.top_idx, True), lite=True)
     np.testing.assert_array_equal(out.valid.numpy(), np.asarray(ref.valid))
     assert np.abs(out.t.numpy() - np.asarray(ref.t)).max() < 0.05
     np.testing.assert_allclose(out.inliers.numpy(), np.asarray(ref.inliers), rtol=0.15)
