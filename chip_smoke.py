@@ -47,8 +47,14 @@ Phases, one line each, any failure exits non-zero:
              config's full output, of the train step and its stages on both
              routes, of each kernel beside its plain version, its bound on
              the card and, where one PyTorch call computes the same function,
-             that call; and the tools' K1-old A/B (K1's bf16 body against
-             K1-old's counterpart at (16, 2048, 3072)).
+             that call (these three per call of 10 enqueued back to back, so
+             that the host's launch work hides behind the queue as it does
+             inside a model); and the tools' K1-old A/B (K1's bf16 body
+             against K1-old's counterpart at (16, 2048, 3072)).
+
+``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
+(``attention_report``): its checks, its times beside the library call, single
+calls and back to back, and its timing ablations, as one JSON line.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 results before the last line, and ``{"ok": true, "device": ...}`` last. There
@@ -283,14 +289,7 @@ def check_kernels(inp) -> dict:
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     calls = kernel_calls(inp)
-    res = {}
-    for name in ("flash_attention_packed", "flash_attention"):
-        out, ref = (f() for f in calls[name])
-        _sync(out)
-        err = (out.float() - ref).abs().max().item()
-        if not err < ATTN_TOL:
-            raise SmokeError(f"{name}: max |diff| {err:.3e} >= {ATTN_TOL}")
-        res[name] = err
+    res = check_attention_kernels(inp, calls)
     for name in ("flash_attention_packed_f32", "flash_attention_f32"):
         res[name] = _close_to_max(*(f() for f in calls[name]), name, F32_ATTN_TOL)
     out, ref = (f()[:, :inp["old_len"]] for f in calls["flash_attention_packed_upcast"])
@@ -317,6 +316,79 @@ def check_kernels(inp) -> dict:
         raise SmokeError("fused_topk_scores: row_ok differs from the dense oracle")
     res["hypothesis_scores"] = _close(*(f() for f in calls["hypothesis_scores"]), "hypothesis_scores")
     return res
+
+
+def _attn_err(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    _sync(out)
+    err = (out.float() - ref).abs().max().item()
+    if not err < ATTN_TOL:
+        raise SmokeError(f"{what}: max |diff| {err:.3e} >= {ATTN_TOL}")
+    return err
+
+
+def check_attention_kernels(inp, calls=None) -> dict:
+    """K1 and K1b (bf16) against their plain versions at the serving shape;
+    K1b bitwise K1 on the same input (one kernel body on two addressings);
+    two launches of each bitwise equal (no atomics, a fixed summation order);
+    and K1b with ``seq_len`` < S, on the views of the first 4 images of
+    K1-old's padded input (scaled to unit variance) with the keys from
+    ``old_len`` on masked, every row against the plain version. Returns
+    name -> max |diff|."""
+    from mickey_tpu_torch.ops.flash_attention import attention_plain, flash_attention, qkv_heads
+
+    calls = kernel_calls(inp) if calls is None else calls
+    res, outs = {}, {}
+    for name in ("flash_attention_packed", "flash_attention"):
+        outs[name], ref = (f() for f in calls[name])
+        res[name] = _attn_err(outs[name], ref, name)
+        del ref
+    b, s, c3 = inp["qkv"].shape
+    if not torch.equal(outs["flash_attention"].transpose(1, 2).reshape(b, s, c3 // 3), outs["flash_attention_packed"]):
+        raise SmokeError("flash_attention on the views of a packed qkv differs from flash_attention_packed")
+    for name, out in outs.items():
+        if not torch.equal(calls[name][0](), out):
+            raise SmokeError(f"{name}: two launches on the same input differ")
+    # scaled to N(0, 1) like qkv: at K1-old's 0.05 the outputs are far below the tolerance
+    views = qkv_heads((inp["qkv_old"][:4].float() * 20.0).to(torch.bfloat16), inp["heads"])
+    masked = _attn_err(flash_attention(*views, inp["old_len"]),
+                       attention_plain(*(x.float() for x in views), inp["old_len"]),
+                       f"flash_attention, seq_len {inp['old_len']} < S {views[0].shape[2]}")
+    res["flash_attention"] = max(res["flash_attention"], masked)
+    return res
+
+
+ATTN_SEQS = (1939, 129, 128, 127, 65, 64, 1)  # whole tiles, one key over, one under, a single key
+
+
+def check_attention_shapes(device, seqs=ATTN_SEQS, heads: int = 16, seed: int = SEED) -> float:
+    """K1 and K1b (bf16) on ragged sequences: for each length in ``seqs`` a
+    seeded (2, seq, 3 heads 64) qkv (16 images at the second length) through
+    both entries against the plain version, K1b bitwise K1; then ``seq_len``
+    < S on contiguous q, k, v (130 of 200 keys; 1 of 64). Returns the largest
+    max |diff|."""
+    from mickey_tpu_torch.ops.flash_attention import (
+        attention_packed_plain,
+        attention_plain,
+        flash_attention,
+        flash_attention_packed,
+        qkv_heads,
+    )
+
+    rng = np.random.default_rng(seed + 7)
+    bf16 = lambda shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device).to(torch.bfloat16)  # noqa: E731
+    worst = 0.0
+    for i, seq in enumerate(seqs):
+        qkv = bf16((16 if i == 1 else 2, seq, 3 * heads * 64))
+        out = flash_attention_packed(qkv, heads)
+        worst = max(worst, _attn_err(out, attention_packed_plain(qkv.float(), heads), f"flash_attention_packed, S = {seq}"))
+        out_u = flash_attention(*qkv_heads(qkv, heads), seq)
+        if not torch.equal(out_u.transpose(1, 2).reshape(out.shape), out):
+            raise SmokeError(f"flash_attention differs from flash_attention_packed at S = {seq}")
+    for s, seq_len in ((200, 130), (64, 1)):
+        q, k, v = (bf16((1, 2, s, 64)) for _ in range(3))
+        worst = max(worst, _attn_err(flash_attention(q, k, v, seq_len), attention_plain(q.float(), k.float(), v.float(), seq_len),
+                                     f"flash_attention, seq_len {seq_len} < S {s}"))
+    return worst
 
 
 def train_kernel_inputs(device, *, pairs: int, kpts: int, desc: int, seed: int = SEED):
@@ -1003,6 +1075,16 @@ def _bound(flops: float, nbytes: float, peak: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _attention_bound(qkv: torch.Tensor, heads: int, peak: float):
+    """The bound of attention on a packed (images, seq, 3C) qkv: the two
+    products' 4 S^2 D flops per head at ``peak``, against qkv read and the
+    (images, seq, C) output written once."""
+    imgs, seq, three_c = qkv.shape
+    d = three_c // 3 // heads
+    return _bound(4.0 * imgs * heads * seq * seq * d, (imgs * seq * three_c + imgs * seq * heads * d) * qkv.element_size(),
+                  peak)
+
+
 def kernel_bounds(inp, tin) -> dict:
     """name -> (bound_ms, bound_by) at this run's kernel inputs. Operations
     counted: the matrix products (2 flops per multiply-add; K1's two products
@@ -1021,10 +1103,8 @@ def kernel_bounds(inp, tin) -> dict:
     hr = inp["R"].shape[1]
     corr_t = 2.0 * Bt * Mt * Nt * Ct
     descs_t = (Bt * Mt * Ct + Bt * Nt * Ct) * f32
-    attn_flops = 4.0 * imgs * heads * seq * seq * d
-    attn_bytes = imgs * seq * three_c + imgs * seq * heads * d  # elements: qkv read, output written
-    attn = _bound(attn_flops, attn_bytes * 2, PEAK_BF16)
-    attn32 = _bound(attn_flops, attn_bytes * f32, PEAK_FP32)
+    attn = _attention_bound(inp["qkv"], heads, PEAK_BF16)
+    attn32 = _attention_bound(inp["qkv32"], heads, PEAK_FP32)
     # K1-old: every query row of the padded sequence against the keys before old_len, fp32 FFMA
     o_imgs, o_seq, o_three_c = inp["qkv_old"].shape
     old = _bound(4.0 * o_imgs * heads * o_seq * inp["old_len"] * d, (o_imgs * o_seq * (o_three_c + o_three_c // 3)) * 2,
@@ -1097,7 +1177,7 @@ def main() -> int:
 
     # 1. build
     lib, log = _cuda.build()
-    ptx = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+    ptx = [ln.strip() for ln in log.splitlines() if any(w in ln for w in ("registers", "Compiling entry", "spill", "arning"))]
     print("build: ok | " + " | ".join(ptx), flush=True)
 
     # 2. kernels vs plain, at the main paths' shapes: serving (ViT-L 714x532,
@@ -1107,12 +1187,16 @@ def main() -> int:
     cfg = default_config()
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=16,
                         prefilter=4096, samples=2048, hyps=100, old_images=16, old_seq=2048, old_len=1939)
+    if "--attention" in sys.argv[1:]:
+        return attention_report(inp, card)
     errs = check_kernels(inp)
+    ragged = check_attention_shapes(dev)
     tin = train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128)
     errs.update(check_train_kernels(tin))
     errs.update(check_topk_train_kernels(tin, prefilter=int(cfg.TPU.SAMPLING_PREFILTER),
                                          topl=int(cfg.TPU.MATCHER_TOPL)))
-    print("kernels: ok | " + " ".join(f"{k} max|diff|={v:.3e}" for k, v in errs.items()), flush=True)
+    print("kernels: ok | " + " ".join(f"{k} max|diff|={v:.3e}" for k, v in errs.items())
+          + f" | bf16 attention at S in {ATTN_SEQS} and seq_len < S: max|diff|={ragged:.3e}", flush=True)
 
     # 3a. serving slice at full width in both layouts, the general layout on
     #     unpacked attention, then a small input against the plain CPU path
@@ -1197,8 +1281,9 @@ def main() -> int:
     exact_stages = _stage_times(model_x, image0, image1, K0, K1, fused=False)
     train_stages = {route: _train_stage_times(tr, batch) for route, tr in trainers.items()}
     calls = {**kernel_calls(inp), **train_kernel_calls(tin)}
-    kt = {name: (time_ms(k, iters=20), time_ms(p, iters=20)) for name, (k, p) in calls.items()}
-    lib_ms = {name: time_ms(f, iters=20) for name, f in library_calls(inp).items()}
+    # kernels, plain versions and library calls alike: per call of 10 enqueued back to back
+    kt = {name: (time_many_ms(k, reps=10), time_many_ms(p, reps=10)) for name, (k, p) in calls.items()}
+    lib_ms = {name: time_many_ms(f, reps=10) for name, f in library_calls(inp).items()}
     bounds = kernel_bounds(inp, tin)
     # the tools' K1-old A/B at its shape: K1's body in bf16 (through K1b, the
     # entry with seq_len) against K1-old's counterpart, in turns
@@ -1224,6 +1309,88 @@ def main() -> int:
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def time_many_ms(fn, reps: int = 20, iters: int = 5) -> float:
+    """Median CUDA-event time per call of ``reps`` calls of ``fn()`` enqueued
+    back to back: the device's time, with the host's launch work hidden
+    behind the queue as it is inside the backbone."""
+    def run():
+        for _ in range(reps):
+            fn()
+    run()
+    return statistics.median(_elapsed_ms(run) for _ in range(iters)) / reps
+
+
+def clocks_under(fn, launches: int = 3000) -> str:
+    """The card's SM clock and power draw (``nvidia-smi``) read while
+    ``launches`` calls of ``fn()`` are queued and running."""
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    return out
+
+
+ATTN_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOADS",),
+                  "no_exp_no_loads": ("MK_ABLATE_EXP", "MK_ABLATE_LOADS"), "products_only": ("MK_ABLATE_SOFTMAX",),
+                  "products_only_no_loads": ("MK_ABLATE_SOFTMAX", "MK_ABLATE_LOADS")}
+
+
+def attention_report(inp, card: str) -> int:
+    """``python3 chip_smoke.py --attention``: the bf16 attention kernel alone.
+    K1 and K1b against their plain versions (serving shape, ragged lengths,
+    ``seq_len`` < S, bitwise equal to each other and from launch to launch);
+    CUDA-event medians of single calls in turns (library, K1, K1b, K1b, K1,
+    library) at the serving shape (4 images), as the ``kernels`` line times
+    them; the same three and K1 at the training shape (16 images) enqueued
+    back to back (``time_many_ms``); and the kernel's timing ablations
+    (``ATTN_ABLATIONS``: builds of the same source whose results are wrong)
+    back to back on the serving input. One JSON line; no ``ok`` line, which
+    belongs to the whole run."""
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.ops import flash_attention as fa
+
+    errs = check_attention_kernels(inp)
+    ragged = check_attention_shapes(inp["qkv"].device)
+    calls, lib = kernel_calls(inp), library_calls(inp)
+    fns = {"library": lib["flash_attention_packed"], "flash_attention_packed": calls["flash_attention_packed"][0],
+           "flash_attention": calls["flash_attention"][0]}
+    t = {k: [] for k in fns}
+    for name in ("library", "flash_attention_packed", "flash_attention", "flash_attention", "flash_attention_packed",
+                 "library"):
+        t[name].append(time_ms(fns[name], iters=50, warmup=5))
+    many = {k: time_many_ms(f) for k, f in fns.items()}
+    qkv, heads = inp["qkv"], inp["heads"]
+    qkv16 = inp["qkv_old"][:, :qkv.shape[1]].contiguous()  # (16, 1939, 3072): the training step's backbone
+    q, k, v = (x.contiguous() for x in fa.qkv_heads(qkv16, heads))
+    many16 = {"flash_attention_packed": time_many_ms(lambda: fa.flash_attention_packed(qkv16, heads)),
+              "library": time_many_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))}
+
+    b, s, c3 = qkv.shape
+    shape, strides, offsets = fa.packed_heads_layout(b, s, heads)
+    geom = fa._launch_geometry(shape, strides, strides, strides, qkv.element_size(), (s * c3 // 3, 64, c3 // 3))
+    ptrs = [qkv.data_ptr() + o * qkv.element_size() for o in offsets]
+    out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    ablated = {}
+    clocks = {"flash_attention_packed": clocks_under(fns["flash_attention_packed"]), "library": clocks_under(fns["library"])}
+    for name, defines in ATTN_ABLATIONS.items():
+        entry = _cuda.build_variant("flash_attention_packed.cu", defines).mk_flash_attention_bf16
+
+        def launch():
+            _cuda.check(entry(*ptrs, out.data_ptr(), geom, s, 0.125, _cuda.stream_ptr(qkv)), name)
+        ablated[name] = time_many_ms(launch)
+        if name == "products_only":
+            clocks[name] = clocks_under(launch)
+    bound = _attention_bound(qkv, heads, PEAK_BF16)
+    r4 = lambda d: {k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4)) for k, v in d.items()}  # noqa: E731
+    print(json.dumps({"card": card, "max_abs_err": errs, "ragged_max_abs_err": ragged,
+                      "single_call_ms_4_images": r4(t), "back_to_back_ms_4_images": r4(many),
+                      "back_to_back_ms_16_images": r4(many16), "ablated_back_to_back_ms_4_images": r4(ablated),
+                      "sm_clock_and_power_under_load": clocks,
+                      "bound_ms_4_images": bound[0], "bound_by": bound[1]}))
     return 0
 
 

@@ -1,5 +1,5 @@
-// Addressing shared by the attention kernels (flash_attention_packed.cu,
-// flash_attention_f32.cu).
+// Addressing of the fp32-math attention kernels (flash_attention_f32.cu); the
+// bf16 kernel (flash_attention_packed.cu) reads through TMA tensor maps.
 //
 // Where image b, head h of q, k, v and the output start (element offsets
 // b * x_b + h * x_h from each base) and the element stride between their

@@ -33,6 +33,7 @@ SOURCES = ("flash_attention_packed.cu", "flash_attention_f32.cu", "fused_topk.cu
 HEADERS = ("attention_layout.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_LIBS = ("-ldl",)  # dlsym of the tensor-map encoder (flash_attention_packed.cu)
 
 LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "flash_attention_packed_f32": 0,
             "flash_attention_f32": 0, "flash_attention_packed_upcast": 0, "col_lse": 0, "pair_topk": 0,
@@ -42,8 +43,7 @@ LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "flash_attention_
 _P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 _LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "mk_flash_attention_packed_bf16": [_P, _P, _I, _I, _I, _F, _P],
-    "mk_flash_attention_bf16": [_P] * 4 + [_LLP] + [_I] * 4 + [_F, _P],
+    "mk_flash_attention_bf16": [_P] * 4 + [_LLP, _I, _F, _P],
     "mk_flash_attention_packed_f32": [_P, _P, _I, _I, _I, _F, _P],
     "mk_flash_attention_f32": [_P] * 4 + [_LLP] + [_I] * 4 + [_F, _P],
     "mk_flash_attention_packed_upcast_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
@@ -99,7 +99,7 @@ def _compile(so: Path) -> str:
                 raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{out}{err}")
             logs.append(err)
         lib = Path(tmp) / so.name
-        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs)],
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs), *LINK_LIBS],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
@@ -131,6 +131,27 @@ def build() -> tuple:
 
 def lib():
     return build()[0]
+
+
+def build_variant(source: str, defines: tuple):
+    """``source`` compiled alone with ``-D`` ``defines`` into a library of
+    its own, loaded with the entries' signatures set: the timing ablations
+    of ``chip_smoke.py --attention``. The port itself loads only ``lib()``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256((_source_hash() + " ".join(defines)).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{Path(source).stem}_{tag}.so"
+    if not so.exists():
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared", "-o", str(so),
+                               str(CSRC / source), *LINK_LIBS], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} with {defines} ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    variant = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(variant, name):
+            fn = getattr(variant, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return variant
 
 
 def check(rc: int, name: str) -> None:

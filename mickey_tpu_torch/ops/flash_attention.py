@@ -25,11 +25,20 @@ On a CUDA tensor each wrapper launches its hand-written kernel (D = 64) or
 raises; on a CPU tensor it takes the plain version, which upcasts to fp32
 like ``attention_reference``. The sequence is never padded: the kernels mask
 their ragged last key tile themselves.
+
+The bf16 kernel reads q, k and v through TMA tensor maps, one 4-D map
+(D, S, H, B) each: ``map_geometry`` turns a (B, H, S, D) layout into the dims,
+byte strides and box that the C entry encodes, so K1 is K1b on the
+``qkv_heads`` views of its packed input (``packed_heads_layout``) with a
+head-concat output.
+``attention_tiled_plain`` repeats that kernel's arithmetic tile by tile (the
+online softmax in the exp2 domain, bf16-rounded probabilities) for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -55,11 +64,10 @@ def attention_packed_plain(qkv: torch.Tensor, num_heads: int, seq_len: int | Non
     return attention_plain(*qkv_heads(qkv, num_heads), seq_len).transpose(1, 2).reshape(b, s, c3 // 3)
 
 
-def _packed_launch(entry: str, name: str, qkv: torch.Tensor, num_heads: int, dtype: torch.dtype,
-                   *seq_len: int) -> torch.Tensor:
-    """Check a (B, S, 3C) head-major packed qkv on the card (D = 64, the
-    dtype, contiguous, 16-byte aligned for the kernels' vector loads), launch
-    ``entry`` and count it under ``name``; (B, S, C) out in qkv's dtype."""
+def _packed_checks(name: str, qkv: torch.Tensor, num_heads: int, dtype: torch.dtype):
+    """Check a (B, S, 3C) head-major packed qkv on the card: D = 64, the
+    dtype, contiguous, 16-byte aligned (the kernels' 16-byte vector and TMA
+    loads). Returns (B, S, C)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     if c % num_heads or c // num_heads != 64:
@@ -67,9 +75,73 @@ def _packed_launch(entry: str, name: str, qkv: torch.Tensor, num_heads: int, dty
     _cuda.require(qkv, "qkv", dtype, (b, s, c3), qkv.device)
     if qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be 16-byte aligned (16-byte vector loads)")
+    return b, s, c
+
+
+def _packed_launch(entry: str, name: str, qkv: torch.Tensor, num_heads: int, dtype: torch.dtype,
+                   *seq_len: int) -> torch.Tensor:
+    """Launch the fp32-math packed entry ``entry`` on a checked qkv and count
+    it under ``name``; (B, S, C) out in qkv's dtype."""
+    b, s, c = _packed_checks(name, qkv, num_heads, dtype)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)
     rc = getattr(_cuda.lib(), entry)(qkv.data_ptr(), out.data_ptr(), b, s, num_heads, *seq_len, 1.0 / math.sqrt(64),
                                      _cuda.stream_ptr(qkv))
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+    return out
+
+
+TMA_BOX_ROWS = 64  # sequence rows per TMA box: the Q tile, half a K or V tile
+
+
+def map_geometry(shape, strides, item: int, box_rows: int = TMA_BOX_ROWS):
+    """What the bf16 kernel's tensor map of a (B, H, S, D) array encodes,
+    from its ``shape``, element ``strides`` and element size, innermost
+    dimension first: ``dims`` (D, S, H, B), the byte strides of S, H and B
+    (D's is the element size), and the ``box`` (D, box_rows, 1, 1) one TMA
+    load copies. The sequence is a dimension of its own, so a box that runs
+    past S is zero-filled and never reads the next head or image. TMA takes
+    unit stride over D and strides in multiples of 16 bytes; a dimension of
+    size 1 gets the stride a contiguous array would have, whatever stride
+    the view reports for it."""
+    b, h, s, d = shape
+    if strides[3] != 1:
+        raise ValueError(f"tensor map: D must have unit stride, got strides {tuple(strides)}")
+    out, dense = [], d * item
+    for size, stride in ((s, strides[2]), (h, strides[1]), (b, strides[0])):
+        out.append(dense if size == 1 else stride * item)
+        dense *= size
+    if any(st % 16 for st in out):
+        raise ValueError(f"tensor map: strides must be multiples of 16 bytes, got byte strides {tuple(out)}")
+    return (d, s, h, b), tuple(out), (d, box_rows, 1, 1)
+
+
+def packed_heads_layout(b: int, s: int, num_heads: int, d: int = 64):
+    """Shape, element strides and the element offsets of q, k and v of the
+    ``qkv_heads`` views of a contiguous head-major packed (B, S, 3 H D) qkv,
+    computed without making the views."""
+    row = 3 * num_heads * d
+    return (b, num_heads, s, d), (s * row, 3 * d, row, 1), (0, d, 2 * d)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_geometry(shape, q_strides, k_strides, v_strides, item: int, out_strides):
+    """The C entry's ``geom`` argument: dims, the three maps' byte strides,
+    the box, out's element strides over (B, H, S). Kept per layout, so a
+    backbone's 24 blocks compute it once."""
+    geoms = [map_geometry(shape, st, item) for st in (q_strides, k_strides, v_strides)]
+    dims, _, box = geoms[0]
+    return (ctypes.c_longlong * 20)(*dims, *(st for g in geoms for st in g[1]), *box, *out_strides)
+
+
+def _bf16_launch(name: str, like: torch.Tensor, ptrs, shape, strides, seq_len: int, out: torch.Tensor,
+                 out_strides) -> torch.Tensor:
+    """Launch the bf16 kernel on checked (B, H, S, D) arrays at ``ptrs`` with
+    the element ``strides`` of q, k and v, on ``like``'s stream, and count it
+    under ``name``. ``out_strides``: out's element strides over (B, H, S)."""
+    geom = _launch_geometry(shape, *strides, like.element_size(), out_strides)
+    rc = _cuda.lib().mk_flash_attention_bf16(*ptrs, out.data_ptr(), geom, seq_len, 1.0 / math.sqrt(64),
+                                             _cuda.stream_ptr(like))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return out
@@ -82,7 +154,12 @@ def flash_attention_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         return attention_packed_plain(qkv, num_heads)
     if qkv.dtype == torch.float32:
         return flash_attention_packed_f32(qkv, num_heads)
-    return _packed_launch("mk_flash_attention_packed_bf16", "flash_attention_packed", qkv, num_heads, torch.bfloat16)
+    b, s, c = _packed_checks("flash_attention_packed", qkv, num_heads, torch.bfloat16)
+    shape, strides, offsets = packed_heads_layout(b, s, num_heads)
+    base, item = qkv.data_ptr(), qkv.element_size()
+    out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)  # head-concat: head h at columns [64 h, 64 h + 64)
+    return _bf16_launch("flash_attention_packed", qkv, [base + o * item for o in offsets], shape, (strides,) * 3, s,
+                        out, (s * c, 64, c))
 
 
 def flash_attention_packed_f32(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -113,6 +190,33 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: 
     masked = torch.arange(k.shape[2], device=q.device) >= seq_len
     logits = logits.masked_fill(masked, NEG_INF)
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+
+
+def attention_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: int,
+                          block_k: int = 128) -> torch.Tensor:
+    """The bf16 kernel's arithmetic in plain PyTorch, key tile by key tile:
+    fp32 scores, the online softmax in the exp2 domain with
+    ``scale * log2(e)`` folded into the exponent, the running max kept on the
+    raw scores, probabilities rounded to v's dtype before the PV product (the
+    sums take them unrounded), tiles from ``seq_len`` on skipped and only the
+    ragged last tile masked. (B, H, S, D) in, (B, H, S, D) out in q's dtype."""
+    b, h, s, d = q.shape
+    c = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, h, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, seq_len, block_k):
+        scores = torch.matmul(qf, kf[:, :, k0:k0 + block_k].transpose(-1, -2))
+        if k0 + block_k > seq_len:
+            scores[..., seq_len - k0:] = NEG_INF
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        p = torch.exp2(scores * c - m_new * c)
+        alpha = torch.exp2((m - m_new) * c)
+        denom = alpha * denom + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.matmul(p.to(v.dtype).float(), vf[:, :, k0:k0 + block_k])
+        m = m_new
+    return (acc / denom.clamp_min(1e-30)).to(q.dtype)
 
 
 def _views_checks(name: str, q, k, v, seq_len: int, dtype: torch.dtype):
@@ -159,7 +263,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: 
         return attention_plain(q, k, v, seq_len)
     if q.dtype == torch.float32:
         return flash_attention_f32(q, k, v, seq_len)
-    return _strided_launch("mk_flash_attention_bf16", "flash_attention", q, k, v, seq_len, torch.bfloat16)
+    b, h, s, d = _views_checks("flash_attention", q, k, v, seq_len, torch.bfloat16)
+    out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    return _bf16_launch("flash_attention", q, [t.data_ptr() for t in (q, k, v)], (b, h, s, d),
+                        tuple(t.stride() for t in (q, k, v)), seq_len, out, (h * s * d, s * d, d))
 
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: int) -> torch.Tensor:

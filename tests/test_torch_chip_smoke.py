@@ -225,3 +225,34 @@ def test_within_bf16_ulp():
     chip_smoke._within_bf16_ulp(up, ref, "one ulp")
     with pytest.raises(chip_smoke.SmokeError):
         chip_smoke._within_bf16_ulp((ref.float() * 1.02).to(torch.bfloat16), ref, "two percent")
+
+
+def test_attention_checks_rehearsal(monkeypatch):
+    """The bf16 attention checks at a tiny size, plain against plain: the
+    serving-shape check with its bitwise comparisons and the ``seq_len`` < S
+    case, the ragged lengths, and the back-to-back timer's plumbing."""
+    inp = _tiny_kernel_inputs()
+    errs = chip_smoke.check_attention_kernels(inp)
+    assert set(errs) == {"flash_attention_packed", "flash_attention"}
+    assert all(e < chip_smoke.ATTN_TOL for e in errs.values())
+    assert chip_smoke.check_attention_shapes("cpu", seqs=(37, 65, 64, 1), heads=2) < chip_smoke.ATTN_TOL
+    monkeypatch.setattr(chip_smoke, "_elapsed_ms", _wall_ms)  # CUDA events need the card
+    calls = []
+    assert chip_smoke.time_many_ms(lambda: calls.append(0), reps=3, iters=2) >= 0.0
+    assert len(calls) == 9  # one warm-up run and two timed ones, three calls each
+
+
+def test_attention_checks_catch_a_wrong_kernel(monkeypatch):
+    """A kernel that ignores ``seq_len`` passes at seq_len = S and fails the
+    masked case; one that differs between its two entries fails the bitwise
+    comparison."""
+    from mickey_tpu_torch.ops import flash_attention as fa
+
+    inp = _tiny_kernel_inputs()
+    unmasked = lambda q, k, v, seq_len: fa.attention_plain(q, k, v, q.shape[2])  # noqa: E731
+    monkeypatch.setattr(fa, "flash_attention", unmasked)
+    with pytest.raises(chip_smoke.SmokeError, match="seq_len"):
+        chip_smoke.check_attention_kernels(inp)
+    monkeypatch.setattr(fa, "flash_attention", lambda q, k, v, seq_len: fa.attention_plain(q, k, v, seq_len) + 0.01)
+    with pytest.raises(chip_smoke.SmokeError, match="differs"):
+        chip_smoke.check_attention_kernels(inp)

@@ -13,6 +13,11 @@ the plain versions on the card: bf16 K1 / K1b at |diff| < 2e-2 (bf16
 operands against fp32), K1f at 1e-5 of the largest output, K1-old to one
 bf16 ulp; K1b against K1 and K1f strided against K1f packed, each pair one
 kernel body: bitwise.
+
+The bf16 kernel's arithmetic (key tiles, exp2 with a folded scale,
+bf16-rounded probabilities) is repeated by ``attention_tiled_plain``, held
+here against ``attention_plain`` and the JAX kernels in interpret mode; the
+geometry of its TMA tensor maps (``map_geometry``) against numpy's strides.
 """
 
 import jax.numpy as jnp
@@ -25,13 +30,17 @@ from mickey_tpu.ops.flash_attention import flash_attention as jax_flash
 from mickey_tpu.ops.flash_attention import flash_attention_packed as jax_flash_packed
 from mickey_tpu_torch.ops import _cuda
 from mickey_tpu_torch.ops.flash_attention import (
+    TMA_BOX_ROWS,
     attention_packed_plain,
     attention_plain,
+    attention_tiled_plain,
     flash_attention,
     flash_attention_f32,
     flash_attention_packed,
     flash_attention_packed_f32,
     flash_attention_packed_upcast,
+    map_geometry,
+    packed_heads_layout,
     qkv_heads,
 )
 
@@ -91,15 +100,22 @@ def test_cpu_wrapper_launches_nothing():
     assert _cuda.LAUNCHES == before
 
 
+ATTN_SEQS = [1939, 129, 128, 127, 65, 64, 1]  # whole key tiles, one key over, one under, a single key
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seq", [1939, 65, 64])
-def test_kernel_matches_plain(cuda, seq):
+@pytest.mark.parametrize("batch,seq", [(2, s) for s in ATTN_SEQS] + [(16, 129)])
+def test_kernel_matches_plain(cuda, batch, seq):
+    """K1 within the bf16 bound of its plain version, and two launches on the
+    same input bitwise equal (a fixed summation order, no atomics)."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    qkv = torch.randn(2, seq, 3 * 16 * 64, device=cuda, generator=g).to(torch.bfloat16)
+    qkv = torch.randn(batch, seq, 3 * 16 * 64, device=cuda, generator=g).to(torch.bfloat16)
     out = flash_attention_packed(qkv, 16)
     ref = attention_packed_plain(qkv.float(), 16)
+    again = flash_attention_packed(qkv, 16)
     torch.cuda.synchronize()
     assert (out.float() - ref).abs().max().item() < 2e-2
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
@@ -111,7 +127,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seq", [1939, 65, 64])
+@pytest.mark.parametrize("seq", ATTN_SEQS)
 def test_unpacked_kernel_matches_plain_and_packed(cuda, seq):
     """K1b on the strided views of a packed qkv: within the bf16 bound of its
     plain version, and bitwise K1's output (one kernel body)."""
@@ -124,14 +140,18 @@ def test_unpacked_kernel_matches_plain_and_packed(cuda, seq):
     torch.cuda.synchronize()
     assert (out.float() - ref).abs().max().item() < 2e-2
     assert torch.equal(out.transpose(1, 2).reshape(2, seq, 16 * 64), packed)
+    assert torch.equal(flash_attention(q, k, v, seq), out)
 
 
 @pytest.mark.cuda
-def test_unpacked_kernel_masks_keys_past_seq_len(cuda):
+@pytest.mark.parametrize("s,seq_len", [(200, 130), (2048, 1939), (256, 128), (64, 1)])
+def test_unpacked_kernel_masks_keys_past_seq_len(cuda, s, seq_len):
+    """``seq_len`` < S: every query row is computed, the keys from
+    ``seq_len`` on are masked and their tiles never loaded."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    q, k, v = (torch.randn(1, 2, 200, 64, device=cuda, generator=g).to(torch.bfloat16) for _ in range(3))
-    out = flash_attention(q, k, v, 130)
-    ref = attention_plain(q.float(), k.float(), v.float(), 130)
+    q, k, v = (torch.randn(1, 2, s, 64, device=cuda, generator=g).to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v, seq_len)
+    ref = attention_plain(q.float(), k.float(), v.float(), seq_len)
     torch.cuda.synchronize()
     assert (out.float() - ref).abs().max().item() < 2e-2
 
@@ -149,6 +169,102 @@ def test_unpacked_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(x[..., :32], x[..., :32], x[..., :32], 8)  # D = 32
     with pytest.raises(ValueError):
         flash_attention(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, 8)  # D not unit-stride
+
+
+TILED_CASES = [(100, 100, 64), (37, 37, 64), (128, 100, 64), (192, 65, 128), (64, 1, 64)]  # (S, seq_len, block_k)
+
+
+def _tiled_inputs(s, seed, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((2, 3, s, 64)).astype(np.float32)).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("s,seq_len,block_k", TILED_CASES)
+def test_tiled_plain_matches_plain_bf16(s, seq_len, block_k):
+    """The kernel's arithmetic on bf16 inputs (probabilities rounded to
+    bf16) against the fp32 plain version of the same values: the kernels'
+    bound, 2e-2 on O(1) outputs."""
+    q, k, v = _tiled_inputs(s, 40 + s, torch.bfloat16)
+    out = attention_tiled_plain(q, k, v, seq_len, block_k)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 3, s, 64)
+    ref = attention_plain(q.float(), k.float(), v.float(), seq_len)
+    assert (out.float() - ref).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("s,seq_len,block_k", TILED_CASES)
+def test_tiled_plain_matches_plain_fp32(s, seq_len, block_k):
+    """On fp32 inputs nothing is rounded, so the tiles, the exp2 domain and
+    the folded scale alone move the result: 1e-5 of the largest output."""
+    q, k, v = _tiled_inputs(s, 50 + s, torch.float32)
+    out = attention_tiled_plain(q, k, v, seq_len, block_k)
+    ref = attention_plain(q, k, v, seq_len)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("s,seq_len,block_k", TILED_CASES)
+def test_tiled_plain_matches_jax_interpret(s, seq_len, block_k):
+    """Against the JAX kernels in interpret mode on the same bf16 values,
+    with the same key tile: K1b on (B, H, S, D) padded to a tile multiple
+    (every row of the padded sequence), and K1 on the packed layout. Both
+    round the probabilities to bf16; exp against exp2 and the bf16 output
+    rounding remain: 2e-2."""
+    q, k, v = _tiled_inputs(s, 60 + s, torch.bfloat16)
+    pad = -s % block_k
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+    out = attention_tiled_plain(qp, kp, vp, seq_len, block_k).float().numpy()
+    as_jax = lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)  # noqa: E731
+    ref = jax_flash(as_jax(qp), as_jax(kp), as_jax(vp), seq_len, block_q=block_k, block_k=block_k, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.abs(out - ref).max() < 2e-2
+    packed = torch.stack([qp, kp, vp], dim=3).permute(0, 2, 1, 3, 4).reshape(2, s + pad, 3 * 3 * 64)  # (B, S, H, 3, D)
+    ref_p = jax_flash_packed(as_jax(packed), seq_len, 3, block_q=block_k, block_k=block_k, interpret=True)
+    ref_p = np.asarray(ref_p.astype(jnp.float32)).reshape(2, s + pad, 3, 64).transpose(0, 2, 1, 3)
+    assert np.abs(out - ref_p).max() < 2e-2
+
+
+def _geometry(t: torch.Tensor):
+    return map_geometry(tuple(t.shape), t.stride(), t.element_size())
+
+
+@pytest.mark.parametrize("b,s,heads", [(2, 37, 4), (1, 64, 1), (4, 1939, 16)])
+def test_map_geometry_of_packed_layout_matches_numpy(b, s, heads):
+    """The tensor maps of q, k and v of a packed qkv: dims innermost first,
+    byte strides equal to numpy's for the same views, bases 128 bytes apart,
+    and ``packed_heads_layout`` equal to what ``qkv_heads`` gives."""
+    qkv = np.zeros((b, s, 3 * heads * 64), np.float16)  # two bytes an element, as bf16
+    views = [qkv.reshape(b, s, heads, 3, 64)[:, :, :, i].transpose(0, 2, 1, 3) for i in range(3)]
+    t_views = qkv_heads(torch.from_numpy(qkv), heads)
+    shape, strides, offsets = packed_heads_layout(b, s, heads)
+    for view, t, off in zip(views, t_views, offsets):
+        assert tuple(t.shape) == shape and (t.stride() == strides or 1 in shape[:3])
+        assert t.data_ptr() - t_views[0].data_ptr() == 2 * off
+        dims, byte_strides, box = _geometry(t)
+        assert (dims, box) == ((64, s, heads, b), (64, TMA_BOX_ROWS, 1, 1))
+        assert map_geometry(shape, strides, 2) == (dims, byte_strides, box)
+        want = (view.strides[2], view.strides[1], view.strides[0])
+        for size, got, ref in zip((s, heads, b), byte_strides, want):
+            assert got == ref or size == 1  # a size-1 dimension takes the dense stride
+    if heads > 1 and b > 1:
+        assert byte_strides == (3 * heads * 128, 3 * 128, s * 3 * heads * 128)
+
+
+def test_map_geometry_of_contiguous_and_sliced_views():
+    x = torch.zeros(2, 3, 80, 64, dtype=torch.bfloat16)
+    assert map_geometry(tuple(x.shape), x.stride(), 2) == ((64, 80, 3, 2), (128, 80 * 128, 3 * 80 * 128), (64, 64, 1, 1))
+    sliced = x[:, :, :50]  # the sequence cut short: the strides stay, S shrinks
+    assert _geometry(sliced) == ((64, 50, 3, 2), (128, 80 * 128, 3 * 80 * 128), (64, 64, 1, 1))
+    one = torch.zeros(1, 1, 5, 64, dtype=torch.bfloat16)  # size-1 dimensions: dense strides
+    assert _geometry(one)[1] == (128, 5 * 128, 5 * 128)
+
+
+def test_map_geometry_refuses_what_tma_does_not_take():
+    with pytest.raises(ValueError):  # a row stride of 68 elements is 136 bytes
+        map_geometry((1, 2, 8, 64), (2 * 8 * 68, 8 * 68, 68, 1), 2)
+    with pytest.raises(ValueError):  # D not unit-stride
+        map_geometry((1, 2, 8, 64), (1024, 512, 1, 8), 2)
+    x = torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16)[..., :64]  # the same, from a sliced tensor
+    with pytest.raises(ValueError):
+        _geometry(x)
 
 
 def _bf16_close(out: np.ndarray, ref: np.ndarray) -> bool:
