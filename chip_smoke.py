@@ -10,7 +10,9 @@ Phases, one line each, any failure exits non-zero:
 2. kernels - every kernel against its plain PyTorch version at the shapes
              its main path gives it (serving: B = 2 pairs; training: B = 8
              pairs, 1938 keypoints; K1-old: the tools' (16, 2048, 3072)
-             bf16 ablation input), with the tolerances stated below; the
+             bf16 ablation input), with the tolerances stated below, and
+             the attention kernels (bf16 K1 / K1b, fp32 K1f) on ragged
+             lengths and with seq_len < S; the
              training matcher's whole forward and backward against
              torch.autograd of the dense dual-softmax, and the fused top-K
              training route's against the dense table and torch.autograd of
@@ -55,6 +57,9 @@ Phases, one line each, any failure exits non-zero:
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
+``python3 chip_smoke.py --attention-f32`` does the same for the fp32 one, K1f
+(``attention_f32_report``): its checks, its three entries back to back
+beside SDPA fp32 with TF32 off, and its timing ablations.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 results before the last line, and ``{"ok": true, "device": ...}`` last. There
@@ -112,9 +117,11 @@ ABLATION_KERNELS = ("flash_attention", "flash_attention_packed_upcast")
 # Tolerances (kernel vs plain, same inputs):
 #  K1, K1b: bf16 operands and bf16-rounded probabilities against the fp32
 #      plain version: |diff| < 2e-2 on O(1) outputs.
-#  K1f (fp32 packed and strided): fp32 FFMA against the plain version's fp32
-#      cuBLAS products (TF32 off); only the summation order differs:
-#      |diff| <= 1e-5 max|ref|. K1-old (bf16 in, fp32 math, bf16 out): within
+#  K1f (fp32 packed and strided): 3xTF32 products (each term within ~2^-21
+#      of fp32's) against the plain version's fp32 cuBLAS products (TF32
+#      off): |diff| <= 1e-5 max|ref|, at the serving shape, on ragged S and
+#      with seq_len < S; two launches bitwise equal; strided bitwise packed.
+#      K1-old (bf16 in, fp32-accurate math, bf16 out): within
 #      one bf16 ulp of the plain version's rounded output (at the larger of
 #      the two), plus K1f's 1e-5 max|ref| for the fp32 results' own
 #      difference, on rows below seq_len (the rows past it are the TPU's
@@ -290,8 +297,7 @@ def check_kernels(inp) -> dict:
 
     calls = kernel_calls(inp)
     res = check_attention_kernels(inp, calls)
-    for name in ("flash_attention_packed_f32", "flash_attention_f32"):
-        res[name] = _close_to_max(*(f() for f in calls[name]), name, F32_ATTN_TOL)
+    res.update(check_f32_attention_kernels(inp, calls))
     out, ref = (f()[:, :inp["old_len"]] for f in calls["flash_attention_packed_upcast"])
     res["flash_attention_packed_upcast"] = _within_bf16_ulp(out, ref, "flash_attention_packed_upcast")
     res["col_lse"] = _close(*(f() for f in calls["col_lse"]), "col_lse")
@@ -357,6 +363,26 @@ def check_attention_kernels(inp, calls=None) -> dict:
     return res
 
 
+def check_f32_attention_kernels(inp, calls=None) -> dict:
+    """K1f packed and strided (fp32) against their plain versions at the
+    serving shape, F32_ATTN_TOL of the largest output; strided on the views
+    of the packed qkv bitwise packed (one body, one scratch layout); two
+    launches of each bitwise equal. Returns name -> max |diff|."""
+    calls = kernel_calls(inp) if calls is None else calls
+    res, outs = {}, {}
+    for name in ("flash_attention_packed_f32", "flash_attention_f32"):
+        outs[name], ref = (f() for f in calls[name])
+        res[name] = _close_to_max(outs[name], ref, name, F32_ATTN_TOL)
+        del ref
+        if not torch.equal(calls[name][0](), outs[name]):
+            raise SmokeError(f"{name}: two launches on the same input differ")
+    b, s, c3 = inp["qkv32"].shape
+    if not torch.equal(outs["flash_attention_f32"].transpose(1, 2).reshape(b, s, c3 // 3),
+                       outs["flash_attention_packed_f32"]):
+        raise SmokeError("flash_attention_f32 on the views of a packed qkv differs from flash_attention_packed_f32")
+    return res
+
+
 ATTN_SEQS = (1939, 129, 128, 127, 65, 64, 1)  # whole tiles, one key over, one under, a single key
 
 
@@ -388,6 +414,41 @@ def check_attention_shapes(device, seqs=ATTN_SEQS, heads: int = 16, seed: int = 
         q, k, v = (bf16((1, 2, s, 64)) for _ in range(3))
         worst = max(worst, _attn_err(flash_attention(q, k, v, seq_len), attention_plain(q.float(), k.float(), v.float(), seq_len),
                                      f"flash_attention, seq_len {seq_len} < S {s}"))
+    return worst
+
+
+def check_f32_attention_shapes(device, seqs=ATTN_SEQS, heads: int = 16, seed: int = SEED) -> float:
+    """K1f (fp32) on ragged sequences, as ``check_attention_shapes`` does for
+    bf16: each length in ``seqs`` through the packed and the strided entry
+    against the plain version at F32_ATTN_TOL of the largest output, strided
+    bitwise packed; then ``seq_len`` < S on contiguous q, k, v. Returns the
+    largest max |diff| relative to its max|ref|."""
+    from mickey_tpu_torch.ops.flash_attention import (
+        attention_packed_plain,
+        attention_plain,
+        flash_attention_f32,
+        flash_attention_packed_f32,
+        qkv_heads,
+    )
+
+    rng = np.random.default_rng(seed + 8)
+    f32 = lambda shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)  # noqa: E731
+    worst = 0.0
+
+    def rel(out, ref, what):
+        return _close_to_max(out, ref, what, F32_ATTN_TOL) / ref.abs().max().item()
+
+    for i, seq in enumerate(seqs):
+        qkv = f32((16 if i == 1 else 2, seq, 3 * heads * 64))
+        out = flash_attention_packed_f32(qkv, heads)
+        worst = max(worst, rel(out, attention_packed_plain(qkv, heads), f"flash_attention_packed_f32, S = {seq}"))
+        out_u = flash_attention_f32(*qkv_heads(qkv, heads), seq)
+        if not torch.equal(out_u.transpose(1, 2).reshape(out.shape), out):
+            raise SmokeError(f"flash_attention_f32 differs from flash_attention_packed_f32 at S = {seq}")
+    for s, seq_len in ((200, 130), (64, 1)):
+        q, k, v = (f32((1, 2, s, 64)) for _ in range(3))
+        worst = max(worst, rel(flash_attention_f32(q, k, v, seq_len), attention_plain(q, k, v, seq_len),
+                               f"flash_attention_f32, seq_len {seq_len} < S {s}"))
     return worst
 
 
@@ -1063,6 +1124,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at its 700 W limit).
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -1075,20 +1137,24 @@ def _bound(flops: float, nbytes: float, peak: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _attention_bound(qkv: torch.Tensor, heads: int, peak: float):
+def _attention_bound(qkv: torch.Tensor, heads: int, peak: float, passes: float = 1.0, keys: int | None = None):
     """The bound of attention on a packed (images, seq, 3C) qkv: the two
-    products' 4 S^2 D flops per head at ``peak``, against qkv read and the
-    (images, seq, C) output written once."""
+    products' 4 S^2 D flops per head (S keys, or ``keys``) at ``peak``, times
+    ``passes`` (3xTF32: three TF32 products for one fp32-accurate one),
+    against qkv read and the (images, seq, C) output written once."""
     imgs, seq, three_c = qkv.shape
     d = three_c // 3 // heads
-    return _bound(4.0 * imgs * heads * seq * seq * d, (imgs * seq * three_c + imgs * seq * heads * d) * qkv.element_size(),
-                  peak)
+    keys = seq if keys is None else keys
+    return _bound(passes * 4.0 * imgs * heads * seq * keys * d,
+                  (imgs * seq * three_c + imgs * seq * heads * d) * qkv.element_size(), peak)
 
 
 def kernel_bounds(inp, tin) -> dict:
     """name -> (bound_ms, bound_by) at this run's kernel inputs. Operations
     counted: the matrix products (2 flops per multiply-add; K1's two products
-    on bf16 tensor cores, the others fp32 FMA) and, for K3, the ~30 fp32
+    on bf16 tensor cores; K1f's at fp32 accuracy as 3xTF32, three TF32
+    passes each; K1-old's, on bf16 operands exact in TF32, one pass for
+    Q K^T and two for P V; the others fp32 FMA) and, for K3, the ~30 fp32
     operations of one soft-inlier term; exponentials are left out."""
     f32 = 4
     imgs, seq, three_c = inp["qkv"].shape
@@ -1104,11 +1170,9 @@ def kernel_bounds(inp, tin) -> dict:
     corr_t = 2.0 * Bt * Mt * Nt * Ct
     descs_t = (Bt * Mt * Ct + Bt * Nt * Ct) * f32
     attn = _attention_bound(inp["qkv"], heads, PEAK_BF16)
-    attn32 = _attention_bound(inp["qkv32"], heads, PEAK_FP32)
-    # K1-old: every query row of the padded sequence against the keys before old_len, fp32 FFMA
-    o_imgs, o_seq, o_three_c = inp["qkv_old"].shape
-    old = _bound(4.0 * o_imgs * heads * o_seq * inp["old_len"] * d, (o_imgs * o_seq * (o_three_c + o_three_c // 3)) * 2,
-                 PEAK_FP32)
+    attn32 = _attention_bound(inp["qkv32"], heads, PEAK_TF32, passes=3)
+    # K1-old: every query row of the padded sequence against the keys before old_len
+    old = _attention_bound(inp["qkv_old"], heads, PEAK_TF32, passes=1.5, keys=inp["old_len"])
     return {
         "flash_attention_packed": attn,
         "flash_attention": attn,  # the same q, k, v read and output written, on another layout
@@ -1189,14 +1253,18 @@ def main() -> int:
                         prefilter=4096, samples=2048, hyps=100, old_images=16, old_seq=2048, old_len=1939)
     if "--attention" in sys.argv[1:]:
         return attention_report(inp, card)
+    if "--attention-f32" in sys.argv[1:]:
+        return attention_f32_report(inp, card)
     errs = check_kernels(inp)
     ragged = check_attention_shapes(dev)
+    ragged32 = check_f32_attention_shapes(dev)
     tin = train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128)
     errs.update(check_train_kernels(tin))
     errs.update(check_topk_train_kernels(tin, prefilter=int(cfg.TPU.SAMPLING_PREFILTER),
                                          topl=int(cfg.TPU.MATCHER_TOPL)))
     print("kernels: ok | " + " ".join(f"{k} max|diff|={v:.3e}" for k, v in errs.items())
-          + f" | bf16 attention at S in {ATTN_SEQS} and seq_len < S: max|diff|={ragged:.3e}", flush=True)
+          + f" | bf16 attention at S in {ATTN_SEQS} and seq_len < S: max|diff|={ragged:.3e}"
+          + f" | fp32 attention there: max|diff| / max|ref| = {ragged32:.3e}", flush=True)
 
     # 3a. serving slice at full width in both layouts, the general layout on
     #     unpacked attention, then a small input against the plain CPU path
@@ -1394,6 +1462,71 @@ def attention_report(inp, card: str) -> int:
     return 0
 
 
+# the fp32 kernel's timing builds: -D defines and the key tile they build with
+ATTN_F32_ABLATIONS = {"no_exp": (("MK_ABLATE_EXP",), 32), "no_loads": (("MK_ABLATE_LOADS",), 32),
+                      "products_only": (("MK_ABLATE_SOFTMAX",), 32), "one_tf32_pass": (("MK_ABLATE_1XTF32",), 32),
+                      "no_prep": (("MK_ABLATE_PREP",), 32), "two_stages": (("MK_STAGES=2",), 32),
+                      "key_tile_64": (("MK_BK=64", "MK_STAGES=2"), 64)}
+
+
+def attention_f32_report(inp, card: str) -> int:
+    """``python3 chip_smoke.py --attention-f32``: the fp32 attention kernel
+    K1f alone. K1f packed and strided against their plain versions (serving
+    shape, ragged lengths, ``seq_len`` < S, strided bitwise packed, two
+    launches bitwise equal) and K1-old within one bf16 ulp; CUDA-event
+    medians per call of 20 enqueued back to back (``time_many_ms``), in turns
+    (SDPA fp32 with TF32 off, K1f packed, K1f strided, K1f strided, K1f
+    packed, SDPA), of K1-old at its shape, and of the kernel's timing
+    ablations (``ATTN_F32_ABLATIONS``: builds of the same source whose
+    results are wrong, on the packed serving input); the SM clock and power
+    under load. One JSON line; no ``ok`` line, which belongs to the whole
+    run."""
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.ops import flash_attention as fa
+
+    calls, lib = kernel_calls(inp), library_calls(inp)
+    errs = check_f32_attention_kernels(inp, calls)
+    out, ref = (f()[:, :inp["old_len"]] for f in calls["flash_attention_packed_upcast"])
+    errs["flash_attention_packed_upcast"] = _within_bf16_ulp(out, ref, "flash_attention_packed_upcast")
+    del out, ref
+    ragged = check_f32_attention_shapes(inp["qkv32"].device)
+    fns = {"library": lib["flash_attention_packed_f32"], "flash_attention_packed_f32": calls["flash_attention_packed_f32"][0],
+           "flash_attention_f32": calls["flash_attention_f32"][0]}
+    t = {k: [] for k in fns}
+    for name in ("library", "flash_attention_packed_f32", "flash_attention_f32", "flash_attention_f32",
+                 "flash_attention_packed_f32", "library"):
+        t[name].append(time_many_ms(fns[name]))
+    old_ms = time_many_ms(calls["flash_attention_packed_upcast"][0], reps=10)
+
+    qkv, heads = inp["qkv32"], inp["heads"]
+    b, s, c3 = qkv.shape
+    out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    ablated = {}
+    clocks = {"flash_attention_packed_f32": clocks_under(fns["flash_attention_packed_f32"], 300),
+              "library": clocks_under(fns["library"], 300)}
+    for name, (defines, key_tile) in ATTN_F32_ABLATIONS.items():
+        entry = _cuda.build_variant("flash_attention_f32.cu", defines).mk_flash_attention_packed_f32
+        scratch, geom = fa._f32_scratch(b, heads, s, True, qkv.device, key_tile)
+
+        def launch():
+            _cuda.check(entry(qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), geom, b, s, heads, 0.125,
+                              _cuda.stream_ptr(qkv)), name)
+        ablated[name] = time_many_ms(launch)
+        if name == "key_tile_64":  # a key tile of 64 is also a whole kernel: hold it to the same tolerance
+            ablated["key_tile_64_max_abs_err"] = _close_to_max(out, calls["flash_attention_packed_f32"][1](),
+                                                               "key_tile_64", F32_ATTN_TOL)
+    bound = _attention_bound(qkv, heads, PEAK_TF32, passes=3)
+    old_bound = _attention_bound(inp["qkv_old"], heads, PEAK_TF32, passes=1.5, keys=inp["old_len"])
+    r4 = lambda d: {k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4)) for k, v in d.items()}  # noqa: E731
+    print(json.dumps({"card": card, "max_abs_err": errs, "ragged_max_rel_err": ragged,
+                      "back_to_back_ms_4_images": r4(t), "k1_old_back_to_back_ms": round(old_ms, 4),
+                      "ablated_back_to_back_ms_4_images": {k: (v if k.endswith("err") else round(v, 4))
+                                                           for k, v in ablated.items()},
+                      "sm_clock_and_power_under_load": clocks, "bound_ms_4_images": bound[0], "bound_by": bound[1],
+                      "k1_old_bound_ms": old_bound[0], "ffma_bound_ms_4_images": _attention_bound(qkv, heads, PEAK_FP32)[0]}))
+    return 0
+
+
 def _stage_times(model, image0, image1, K0, K1, fused: bool = True) -> dict:
     """Per-layer medians on the general layout's 2B stacked images, on the
     fused matcher route or (``fused=False``) the dense one, whose solver
@@ -1496,7 +1629,7 @@ def _train_stage_times(trainer, batch, iters: int = 5) -> dict:
         "matcher_fwd": time_ms(matcher, iters, 1),
         "loss_fwd": time_ms(loss, iters, 1),
         "backward": statistics.median(bwd),
-        "optimizer": time_ms(lambda: step.optimizer.update(leaves, grads, st.opt_state, st.step), iters, 1),
+        "optimizer": time_ms(lambda: step.optimizer.update(leaves, grads, st.opt_state), iters, 1),
         "step": time_ms(lambda: step(st, trainer.backbone, db, gen, topk), iters, 1),
     }
     if fmap.is_cuda:  # the peak device memory of one whole step

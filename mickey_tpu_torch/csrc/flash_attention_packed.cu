@@ -63,11 +63,9 @@
 //  - the output is staged through the Q tile (free by then) with an XOR
 //    swizzle and written as 16 bytes a thread, whole 128-byte rows a time.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -86,7 +84,6 @@ constexpr uint32_t BAR_OFFSET = BOX_BYTES + 2 * STAGES * KV_BYTES;  // Q, the K 
 // the tiles to the swizzle's 1024-byte period
 constexpr size_t SMEM_BYTES = 1024 + BAR_OFFSET + 8 * (1 + 2 * STAGES);
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
-constexpr int ERR_ENCODE = 100000; // added to a CUresult of the tensor-map encoder
 
 // Timing ablations for `chip_smoke.py --attention` (wrong results, never in
 // the library the port loads): MK_ABLATE_EXP replaces every ex2 by a
@@ -104,33 +101,6 @@ struct OutLayout {
   long long o_b, o_h, o_s;  // element strides over image, head, row
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // One (64, BOX_ROWS, 1, 1) box of a (D, S, H, B) tensor map into shared memory.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int h, int b) {
   asm volatile(
@@ -146,27 +116,6 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map, uint32_t bar, 
   mbar_expect_tx(bar, KV_BYTES);
   tma_load(dst, map, bar, row, h, b);
   tma_load(dst + BOX_BYTES, map, bar, row + BOX_ROWS, h, b);
-}
-
-// Shared-memory matrix descriptor of a tile of 128-byte rows under the
-// 128-byte swizzle: 8-row groups 1024 bytes apart (SBO); the leading offset
-// is not used at this width. Serves the K-major Q and K tiles and the
-// MN-major V tile alike.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products' issue and wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d (64 x 128 fp32) = or += A (64 x 16, K-major) B^T (128 x 16, K-major), both from shared memory.
@@ -452,38 +401,9 @@ flash_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda (which the CUDA runtime has
-// loaded by the time a tensor lives on the card), so the library links
-// against nothing but cudart and libdl.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// A bf16 (D, S, H, B) map with byte strides (row, head, image), 128-byte
-// swizzle, zero fill out of bounds.
+// A bf16 (D, S, H, B) map with byte strides (row, head, image).
 int encode(CUtensorMap* map, const void* ptr, const long long* dims, const long long* strides, const long long* box) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return ERR_ENCODE;
-  cuuint64_t gdim[4], gstr[3];
-  cuuint32_t bx[4], estr[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 4; ++i) {
-    gdim[i] = static_cast<cuuint64_t>(dims[i]);
-    bx[i] = static_cast<cuuint32_t>(box[i]);
-  }
-  for (int i = 0; i < 3; ++i) gstr[i] = static_cast<cuuint64_t>(strides[i]);
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim, gstr, bx, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(r);
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box);
 }
 
 }  // namespace

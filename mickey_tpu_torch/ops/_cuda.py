@@ -30,10 +30,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("flash_attention_packed.cu", "flash_attention_f32.cu", "fused_topk.cu", "hypothesis_scoring.cu",
            "dual_softmax.cu")
-HEADERS = ("attention_layout.cuh",)
+HEADERS = ("hopper.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_LIBS = ("-ldl",)  # dlsym of the tensor-map encoder (flash_attention_packed.cu)
+LINK_LIBS = ("-ldl",)  # dlsym of the tensor-map encoder (hopper.cuh)
 
 LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "flash_attention_packed_f32": 0,
             "flash_attention_f32": 0, "flash_attention_packed_upcast": 0, "col_lse": 0, "pair_topk": 0,
@@ -44,9 +44,9 @@ _P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 _LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "mk_flash_attention_bf16": [_P] * 4 + [_LLP, _I, _F, _P],
-    "mk_flash_attention_packed_f32": [_P, _P, _I, _I, _I, _F, _P],
-    "mk_flash_attention_f32": [_P] * 4 + [_LLP] + [_I] * 4 + [_F, _P],
-    "mk_flash_attention_packed_upcast_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "mk_flash_attention_packed_f32": [_P, _P, _P, _LLP, _I, _I, _I, _F, _P],
+    "mk_flash_attention_f32": [_P] * 4 + [_LLP, _P, _LLP] + [_I] * 4 + [_F, _P],
+    "mk_flash_attention_packed_upcast_bf16": [_P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "mk_col_lse_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "mk_pair_topk_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
@@ -136,7 +136,8 @@ def lib():
 def build_variant(source: str, defines: tuple):
     """``source`` compiled alone with ``-D`` ``defines`` into a library of
     its own, loaded with the entries' signatures set: the timing ablations
-    of ``chip_smoke.py --attention``. The port itself loads only ``lib()``."""
+    of ``chip_smoke.py --attention`` and ``--attention-f32``. The port
+    itself loads only ``lib()``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = hashlib.sha256((_source_hash() + " ".join(defines)).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{Path(source).stem}_{tag}.so"

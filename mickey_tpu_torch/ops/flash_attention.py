@@ -13,26 +13,31 @@ Counterparts of ``mickey_tpu/ops/flash_attention.py``:
 strides over (B, H, S), so the permuted views of the qkv output need no copy.
 
 Both dispatch on the dtype, as the JAX kernels run in the stored dtype: bf16
-(``MICKEY.DINOV2.FLOAT16``, the default) goes to the tensor-core kernels of
+(``MICKEY.DINOV2.FLOAT16``, the default) goes to the tensor-core kernel of
 ``csrc/flash_attention_packed.cu``; fp32 (the exact mode, ``FLOAT16=False``)
-to K1f in ``csrc/flash_attention_f32.cu``, fp32 FFMA throughout
-(``flash_attention_packed_f32``, ``flash_attention_f32``). K1f's third entry,
-``flash_attention_packed_upcast``, is the tools' K1-old
-(``tools/bench_backbone_profile.py::old_packed_kernel``): packed bf16 qkv
-upcast at load, fp32 math, bf16 out, keys at or past ``seq_len`` masked.
+to K1f in ``csrc/flash_attention_f32.cu`` (``flash_attention_packed_f32``,
+``flash_attention_f32``), whose products are 3xTF32 on the tensor cores:
+each fp32 operand split into two TF32 parts, three passes a product, fp32
+accuracy. K1f's third entry, ``flash_attention_packed_upcast``, is the tools'
+K1-old (``tools/bench_backbone_profile.py::old_packed_kernel``): packed bf16
+qkv upcast, fp32-accurate math, bf16 out, keys at or past ``seq_len`` masked.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (D = 64) or
 raises; on a CPU tensor it takes the plain version, which upcasts to fp32
 like ``attention_reference``. The sequence is never padded: the kernels mask
 their ragged last key tile themselves.
 
-The bf16 kernel reads q, k and v through TMA tensor maps, one 4-D map
-(D, S, H, B) each: ``map_geometry`` turns a (B, H, S, D) layout into the dims,
-byte strides and box that the C entry encodes, so K1 is K1b on the
-``qkv_heads`` views of its packed input (``packed_heads_layout``) with a
-head-concat output.
-``attention_tiled_plain`` repeats that kernel's arithmetic tile by tile (the
-online softmax in the exp2 domain, bf16-rounded probabilities) for the tests.
+Both kernels read their tiles through TMA tensor maps: ``map_geometry``
+turns a (B, H, S, D) layout into the dims, byte strides and box that a C
+entry encodes. The bf16 kernel maps q, k and v themselves, so K1 is K1b on
+the ``qkv_heads`` views of its packed input (``packed_heads_layout``) with a
+head-concat output. K1f first splits K and V into a scratch buffer (K hi / lo
+as (B, H, S_kv, D), V^T hi / lo as (B, H, D, S_kv), S_kv = ``seq_len``
+rounded up to 64) and maps that (``_f32_geometry``).
+``attention_tiled_plain`` repeats the bf16 kernel's arithmetic tile by tile
+(the online softmax in the exp2 domain, bf16-rounded probabilities) and
+``attention_3xtf32_plain`` K1f's (the TF32 split, the three passes), for the
+tests.
 """
 
 from __future__ import annotations
@@ -79,31 +84,45 @@ def _packed_checks(name: str, qkv: torch.Tensor, num_heads: int, dtype: torch.dt
 
 
 def _packed_launch(entry: str, name: str, qkv: torch.Tensor, num_heads: int, dtype: torch.dtype,
-                   *seq_len: int) -> torch.Tensor:
-    """Launch the fp32-math packed entry ``entry`` on a checked qkv and count
-    it under ``name``; (B, S, C) out in qkv's dtype."""
+                   seq_len: int | None = None) -> torch.Tensor:
+    """Launch K1f's packed entry ``entry`` on a checked qkv and count it
+    under ``name``; (B, S, C) out in qkv's dtype. K1-old's entry takes
+    ``seq_len``; K1 at fp32 attends to every key."""
     b, s, c = _packed_checks(name, qkv, num_heads, dtype)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)
-    rc = getattr(_cuda.lib(), entry)(qkv.data_ptr(), out.data_ptr(), b, s, num_heads, *seq_len, 1.0 / math.sqrt(64),
-                                     _cuda.stream_ptr(qkv))
+    scratch, geom = _f32_scratch(b, num_heads, s if seq_len is None else seq_len, dtype == torch.float32, qkv.device)
+    extra = () if seq_len is None else (seq_len,)
+    rc = getattr(_cuda.lib(), entry)(qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), geom, b, s, num_heads, *extra,
+                                     1.0 / math.sqrt(64), _cuda.stream_ptr(qkv))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return out
 
 
-TMA_BOX_ROWS = 64  # sequence rows per TMA box: the Q tile, half a K or V tile
+TMA_BOX_ROWS = 64  # sequence rows per TMA box: the bf16 Q tile, half a K or V tile
+SWIZZLE_BYTES = 128  # one row of the 128-byte swizzle: the widest box row a map may have
 
 
-def map_geometry(shape, strides, item: int, box_rows: int = TMA_BOX_ROWS):
-    """What the bf16 kernel's tensor map of a (B, H, S, D) array encodes,
-    from its ``shape``, element ``strides`` and element size, innermost
-    dimension first: ``dims`` (D, S, H, B), the byte strides of S, H and B
-    (D's is the element size), and the ``box`` (D, box_rows, 1, 1) one TMA
-    load copies. The sequence is a dimension of its own, so a box that runs
-    past S is zero-filled and never reads the next head or image. TMA takes
-    unit stride over D and strides in multiples of 16 bytes; a dimension of
-    size 1 gets the stride a contiguous array would have, whatever stride
-    the view reports for it."""
+def map_geometry(shape, strides, item: int, box_rows: int = TMA_BOX_ROWS, box_cols: int | None = None):
+    """What a TMA tensor map of a (B, H, S, D) array encodes, from its
+    ``shape``, element ``strides`` and element size, innermost dimension
+    first: ``dims``, the byte strides of every dimension but the innermost
+    (whose stride is the element size), and the ``box`` one TMA load copies.
+
+    Where a row of D values fits one 128-byte swizzle row (bf16, D = 64):
+    dims (D, S, H, B), strides of S, H and B, box (D, box_rows, 1, 1). Where
+    it does not (fp32, D = 64 is 256 bytes), D is split as (w, D / w) with
+    w = 128 / item values a swizzle row, the second part placed after S:
+    dims (w, S, D / w, H, B), strides of S, of the w-blocks (128 bytes), of H
+    and B, box (w, box_rows, box_cols / w, 1, 1) with ``box_cols`` (default
+    D) values of each row; the box lands in shared memory as box_cols / w
+    blocks of box_rows 128-byte rows.
+
+    The sequence is a dimension of its own, so a box that runs past S is
+    zero-filled and never reads the next head or image. TMA takes unit stride
+    over D and strides in multiples of 16 bytes; a dimension of size 1 gets
+    the stride a contiguous array would have, whatever stride the view
+    reports for it."""
     b, h, s, d = shape
     if strides[3] != 1:
         raise ValueError(f"tensor map: D must have unit stride, got strides {tuple(strides)}")
@@ -113,7 +132,42 @@ def map_geometry(shape, strides, item: int, box_rows: int = TMA_BOX_ROWS):
         dense *= size
     if any(st % 16 for st in out):
         raise ValueError(f"tensor map: strides must be multiples of 16 bytes, got byte strides {tuple(out)}")
-    return (d, s, h, b), tuple(out), (d, box_rows, 1, 1)
+    if d * item <= SWIZZLE_BYTES:
+        return (d, s, h, b), tuple(out), (d, box_rows, 1, 1)
+    w = SWIZZLE_BYTES // item
+    cols = d if box_cols is None else box_cols
+    if d % w or cols % w:
+        raise ValueError(f"tensor map: D = {d} and box_cols = {cols} must be multiples of {w}")
+    return (w, s, d // w, h, b), (out[0], SWIZZLE_BYTES, out[1], out[2]), (w, box_rows, cols // w, 1, 1)
+
+
+F32_KEY_TILE = 32  # K1f's keys per tile (csrc/flash_attention_f32.cu BK)
+F32_KEY_PAD = 64  # K1f's scratch keys are padded to a multiple of this
+
+
+def _contiguous_strides(shape):
+    return tuple(int(math.prod(shape[i + 1:])) for i in range(len(shape)))
+
+
+@functools.lru_cache(maxsize=64)
+def _f32_geometry(b: int, h: int, s_kv: int, key_tile: int = F32_KEY_TILE):
+    """K1f's ``geom`` argument: the tensor maps of its scratch, K (hi or lo)
+    as a contiguous (B, H, S_kv, 64) array read ``key_tile`` rows a box, then
+    V^T as a contiguous (B, H, 64, S_kv) array read ``key_tile`` columns of
+    all 64 rows a box; each dims, strides, box (``map_geometry``)."""
+    k = map_geometry((b, h, s_kv, 64), _contiguous_strides((b, h, s_kv, 64)), 4, key_tile)
+    v = map_geometry((b, h, 64, s_kv), _contiguous_strides((b, h, 64, s_kv)), 4, 64, key_tile)
+    return (ctypes.c_longlong * 28)(*(x for g in (k, v) for part in g for x in part))
+
+
+def _f32_scratch(b: int, h: int, seq_len: int, split_kv: bool, device, key_tile: int = F32_KEY_TILE):
+    """K1f's scratch (K hi, [K lo,] V^T hi, [V^T lo], fp32, keys up to
+    ``seq_len`` rounded up to 64) and its geometry. bf16 operands (K1-old)
+    are exact in TF32 and have no lo parts."""
+    s_kv = -(-seq_len // F32_KEY_PAD) * F32_KEY_PAD
+    parts = 4 if split_kv else 2
+    scratch = torch.empty(parts * b * h * s_kv * 64, dtype=torch.float32, device=device)
+    return scratch, _f32_geometry(b, h, s_kv, key_tile)
 
 
 def packed_heads_layout(b: int, s: int, num_heads: int, d: int = 64):
@@ -171,8 +225,8 @@ def flash_attention_packed_f32(qkv: torch.Tensor, num_heads: int) -> torch.Tenso
 
 
 def flash_attention_packed_upcast(qkv: torch.Tensor, num_heads: int, seq_len: int) -> torch.Tensor:
-    """K1-old: (B, S, 3C) bf16 head-major packed qkv, upcast to fp32 at load,
-    fp32 products and softmax -> (B, S, C) bf16; keys at positions
+    """K1-old: (B, S, 3C) bf16 head-major packed qkv, upcast to fp32,
+    fp32-accurate products and softmax -> (B, S, C) bf16; keys at positions
     >= ``seq_len`` are masked, and rows at or past it are computed like any
     other (the TPU's padded rows)."""
     if qkv.device.type == "cpu":
@@ -219,6 +273,53 @@ def attention_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq
     return (acc / denom.clamp_min(1e-30)).to(q.dtype)
 
 
+def tf32_split(x: torch.Tensor):
+    """fp32 ``x`` -> (hi, lo), both TF32 values (10 mantissa bits) in fp32:
+    hi = x rounded to nearest TF32, ties away from zero (``cvt.rna.tf32.f32``,
+    done here on the bits), lo = the same rounding of x - hi (exact in fp32).
+    x - hi - lo is within 2^-22 |x|."""
+    def rna(y):
+        return ((y.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def attention_3xtf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: int,
+                           block_k: int = F32_KEY_TILE, passes: int = 3) -> torch.Tensor:
+    """K1f's arithmetic in plain PyTorch, key tile by key tile: q, k, v and
+    the probabilities split by ``tf32_split``; each product as lo*hi + hi*lo
+    + hi*hi (``passes=3``; ``passes=1``: hi*hi alone, one TF32 product) with
+    every term exact in fp32 and the sums in fp32; the online softmax in the
+    exp2 domain as in ``attention_tiled_plain``, its sums on the unsplit
+    probabilities; tiles from ``seq_len`` on skipped and only the ragged last
+    tile masked. bf16 inputs have lo = 0, which is K1-old's arithmetic.
+    (B, H, S, D) in, (B, H, S, D) out in q's dtype."""
+    b, h, s, d = q.shape
+    c = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    (qh, ql), (kh, kl), (vh, vl) = (tf32_split(x.float()) for x in (q, k, v))
+
+    def product(ah, al, bh, bl):
+        return torch.matmul(ah, bh) if passes == 1 else (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+    m = torch.full((b, h, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, seq_len, block_k):
+        tile = slice(k0, k0 + block_k)
+        scores = product(qh, ql, kh[:, :, tile].transpose(-1, -2), kl[:, :, tile].transpose(-1, -2))
+        if k0 + block_k > seq_len:
+            scores[..., seq_len - k0:] = NEG_INF
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        p = torch.exp2(scores * c - m_new * c)
+        alpha = torch.exp2((m - m_new) * c)
+        denom = alpha * denom + p.sum(-1, keepdim=True)
+        ph, pl = tf32_split(p)
+        acc = alpha * acc + product(ph, pl, vh[:, :, tile], vl[:, :, tile])
+        m = m_new
+    return (acc / denom.clamp_min(1e-30)).to(q.dtype)
+
+
 def _views_checks(name: str, q, k, v, seq_len: int, dtype: torch.dtype):
     """The checks of the strided entries: D = 64, 1 <= seq_len <= S, one
     device and dtype, one shape, unit stride over D and 16-byte aligned rows
@@ -246,8 +347,9 @@ def _strided_launch(entry: str, name: str, q, k, v, seq_len: int, dtype: torch.d
     b, h, s, d = _views_checks(name, q, k, v, seq_len, dtype)
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    scratch, geom = _f32_scratch(b, h, seq_len, True, q.device)
     rc = getattr(_cuda.lib(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s, seq_len,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, scratch.data_ptr(), geom, b, h, s, seq_len,
         1.0 / math.sqrt(64), _cuda.stream_ptr(q),
     )
     _cuda.check(rc, name)

@@ -20,7 +20,14 @@ The optimizer has optax's semantics, not torch.optim's:
   (``torch.nn.utils.clip_grad_norm_`` divides by ||g|| + 1e-6 instead);
 - Adam with bias correction and ``eps`` outside the square root;
 - a gradient that is not finite skips the whole step: parameters, both
-  moments and the step count stay as they were.
+  moments and the step count stay as they were;
+- the learning-rate schedule reads that count (applied steps), as
+  ``optax.adam(schedule)`` does inside ``apply_if_finite``, so a skipped step
+  does not advance the staircase.
+
+``apply_if_finite(..., max_consecutive_errors=10000)`` has no counterpart:
+optax applies an update after 10000 non-finite steps in a row, the port
+never does.
 
 The step updates the state in place (parameters and moments), where the JAX
 package returns a new state.
@@ -55,7 +62,8 @@ class TrainState:
 
 
 def make_lr_fn(cfg):
-    """step -> learning rate: constant, or StepLR-like staircase decay."""
+    """step (an int, or an int tensor such as Adam's count) -> learning
+    rate: constant, or StepLR-like staircase decay."""
     t = cfg.TRAINING
     if t.LR_STEP_INTERVAL:
         return lambda step: t.LR * float(t.LR_STEP_GAMMA) ** (step // int(t.LR_STEP_INTERVAL))
@@ -77,17 +85,19 @@ class Optimizer:
                          [torch.zeros_like(p).detach() for p in leaves])
 
     @torch.no_grad()
-    def update(self, leaves, grads, state: AdamState, step: int) -> torch.Tensor:
-        """Apply one step in place; returns the global grad norm."""
+    def update(self, leaves, grads, state: AdamState) -> torch.Tensor:
+        """Apply one step in place; returns the global grad norm. The
+        learning rate is the schedule's at ``state.count`` before this step:
+        the steps applied so far, skipped ones not counted."""
         gnorm = global_norm(grads)
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         if self.clip:
             trigger = gnorm < self.clip
             grads = [torch.where(trigger, g, (g / gnorm) * self.clip) for g in grads]
+        lr = self.lr_fn(state.count)
         count = state.count + 1
         c1 = 1 - torch.tensor(self.b1, dtype=torch.float32, device=count.device) ** count.float()
         c2 = 1 - torch.tensor(self.b2, dtype=torch.float32, device=count.device) ** count.float()
-        lr = self.lr_fn(step)
         for p, g, m, v in zip(leaves, grads, state.mu, state.nu):
             m_new = (1 - self.b1) * g + self.b1 * m
             v_new = (1 - self.b2) * (g * g) + self.b2 * v
@@ -199,7 +209,7 @@ class StagedTrainStep:
         _, aux, fwd_params, grads = loss_and_grads(state.params, fmap, batch, self.cfg, self.lc, topk_pct,
                                                    generator, sample_override)
         flat = [g for path, g in tree_leaves(grads) if not is_bn_stat(path)]
-        gnorm = self.optimizer.update(state.trainable(), flat, state.opt_state, state.step)
+        gnorm = self.optimizer.update(state.trainable(), flat, state.opt_state)
         with torch.no_grad():
             copy_bn_stats(state.params, fwd_params)
         state.step += 1

@@ -18,6 +18,11 @@ The bf16 kernel's arithmetic (key tiles, exp2 with a folded scale,
 bf16-rounded probabilities) is repeated by ``attention_tiled_plain``, held
 here against ``attention_plain`` and the JAX kernels in interpret mode; the
 geometry of its TMA tensor maps (``map_geometry``) against numpy's strides.
+K1f's (3xTF32 products on operands split by ``tf32_split``) is repeated by
+``attention_3xtf32_plain``, held against JAX's ``attention_reference`` at 1e-5
+of the largest output, with one TF32 pass as the negative control that
+misses it; its scratch's tensor maps (``map_geometry``'s fp32 case) against
+the strides.
 """
 
 import jax.numpy as jnp
@@ -33,6 +38,7 @@ from mickey_tpu_torch.ops.flash_attention import (
     TMA_BOX_ROWS,
     attention_packed_plain,
     attention_plain,
+    attention_3xtf32_plain,
     attention_tiled_plain,
     flash_attention,
     flash_attention_f32,
@@ -42,7 +48,9 @@ from mickey_tpu_torch.ops.flash_attention import (
     map_geometry,
     packed_heads_layout,
     qkv_heads,
+    tf32_split,
 )
+from mickey_tpu_torch.ops.flash_attention import _f32_geometry, _f32_scratch
 
 
 @pytest.fixture
@@ -367,3 +375,111 @@ def test_f32_kernels_reject_what_they_do_not_take(cuda):
         flash_attention_packed_upcast(torch.zeros(1, 8, 3 * 64, device=cuda), 1, 8)  # fp32 input
     with pytest.raises(ValueError):
         flash_attention_packed_upcast(torch.zeros(1, 8, 3 * 64, device=cuda, dtype=torch.bfloat16), 1, 9)
+
+
+# -- K1f's arithmetic: 3xTF32 ------------------------------------------------------------
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """hi keeps 10 mantissa bits (the low 13 of the fp32 pattern are zero),
+    rounded to nearest with ties away from zero (``cvt.rna``); x - hi is
+    exact and lo is its own rounding, so x - hi - lo is within 2^-22 |x|."""
+    rng = np.random.default_rng(70)
+    x = torch.from_numpy((rng.standard_normal(4096) * 10.0 ** rng.integers(-3, 4, 4096)).astype(np.float32))
+    hi, lo = tf32_split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    xd, hd, ld = (t.double() for t in (x, hi, lo))
+    assert ((xd - hd).abs() <= xd.abs() * 2.0 ** -11).all()
+    assert ((xd - hd - ld).abs() <= xd.abs() * 2.0 ** -22).all()
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11], dtype=torch.float32)  # halfway cases
+    assert tf32_split(tie)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 * 2 ** -10]
+
+
+# (layout, images, heads, S, seq_len, block_k): ragged S, seq_len < S, a single key
+TF32_CASES = [("packed", 2, 2, 100, 100, 32), ("strided", 2, 3, 37, 37, 32), ("packed", 1, 2, 129, 129, 64),
+              ("strided", 2, 2, 200, 130, 32), ("strided", 1, 2, 64, 1, 32)]
+
+
+def _tf32_inputs(layout, images, heads, s, seed):
+    """Seeded N(0, 1) q, k, v (B, H, S, D): the views of a packed (B, S, 3C)
+    qkv, or three contiguous arrays."""
+    rng = np.random.default_rng(seed)
+    if layout == "packed":
+        return qkv_heads(torch.from_numpy(rng.standard_normal((images, s, 3 * heads * 64)).astype(np.float32)), heads)
+    return [torch.from_numpy(rng.standard_normal((images, heads, s, 64)).astype(np.float32)) for _ in range(3)]
+
+
+def _jax_reference(q, k, v, seq_len):
+    return np.asarray(attention_reference(*(jnp.asarray(np.ascontiguousarray(x.numpy())) for x in (q, k, v)), seq_len))
+
+
+@pytest.mark.parametrize("layout,images,heads,s,seq_len,block_k", TF32_CASES)
+def test_3xtf32_plain_matches_jax_reference(layout, images, heads, s, seq_len, block_k):
+    """K1f's arithmetic against JAX's fp32 ``attention_reference`` on the
+    same values: every row, at 1e-5 of the largest output (the kernels'
+    F32_ATTN_TOL)."""
+    q, k, v = _tf32_inputs(layout, images, heads, s, 80 + s)
+    out = attention_3xtf32_plain(q, k, v, seq_len, block_k).numpy()
+    ref = _jax_reference(q, k, v, seq_len)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("layout,images,heads,s,seq_len,block_k", [c for c in TF32_CASES if c[4] > 1])
+def test_one_tf32_pass_misses_the_tolerance(layout, images, heads, s, seq_len, block_k):
+    """The negative control: hi*hi alone (one TF32 product, 10 mantissa bits
+    an operand) is more than 1e-5 of the largest output away, so the test
+    above tells 3xTF32 from 1xTF32. (With a single key the output is v
+    itself, which no product touches.)"""
+    q, k, v = _tf32_inputs(layout, images, heads, s, 80 + s)
+    out = attention_3xtf32_plain(q, k, v, seq_len, block_k, passes=1).numpy()
+    ref = _jax_reference(q, k, v, seq_len)
+    assert np.abs(out - ref).max() > 1e-5 * np.abs(ref).max()
+
+
+def test_3xtf32_plain_on_bf16_is_k1_old():
+    """On bf16 operands (exact in TF32, no lo parts) the same arithmetic is
+    K1-old's: within one bf16 ulp of ``attention_reference`` on the same
+    bf16 views, keys past ``seq_len`` masked, every row."""
+    rng = np.random.default_rng(90)
+    heads, seq, s = 3, 150, 192
+    qkv = torch.from_numpy(0.05 * rng.standard_normal((2, s, 3 * heads * 64)).astype(np.float32)).to(torch.bfloat16)
+    views = qkv_heads(qkv, heads)
+    out = attention_3xtf32_plain(*views, seq)
+    assert out.dtype == torch.bfloat16
+    ref = attention_reference(*(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in views), seq)
+    assert _bf16_close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+def test_map_geometry_of_fp32_splits_the_row():
+    """fp32 rows of 64 values are 256 bytes, two 128-byte swizzle rows: D is
+    split as (32, 2) after S, the blocks 128 bytes apart. K1f's scratch maps:
+    K (B, H, S_kv, 64) read a key tile of rows at a time, V^T (B, H, 64,
+    S_kv) read a key tile of columns (of 32-key blocks) of all 64 rows."""
+    b, h, s_kv = 2, 3, 128
+    k = torch.zeros(b, h, s_kv, 64)
+    assert map_geometry(tuple(k.shape), k.stride(), 4, 32) == (
+        (32, s_kv, 2, h, b), (256, 128, s_kv * 256, h * s_kv * 256), (32, 32, 2, 1, 1))
+    vt = torch.zeros(b, h, 64, s_kv)
+    assert map_geometry(tuple(vt.shape), vt.stride(), 4, 64, 64) == (
+        (32, 64, s_kv // 32, h, b), (s_kv * 4, 128, 64 * s_kv * 4, h * 64 * s_kv * 4), (32, 64, 2, 1, 1))
+    q, _, _ = qkv_heads(torch.zeros(b, 37, 3 * h * 64), h)  # a strided fp32 view: the packed layout's q
+    assert map_geometry(tuple(q.shape), q.stride(), 4, 32) == (
+        (32, 37, 2, h, b), (3 * h * 256, 128, 3 * 256, 37 * 3 * h * 256), (32, 32, 2, 1, 1))
+    with pytest.raises(ValueError):  # 48 fp32 values: not a whole number of 128-byte rows
+        map_geometry((1, 1, 8, 48), (384, 384, 48, 1), 4)
+    with pytest.raises(ValueError):  # a box of 16 columns: not a whole block
+        map_geometry((1, 1, 64, 128), (8192, 8192, 128, 1), 4, 64, 16)
+
+
+def test_f32_scratch_and_geometry():
+    """K1f's scratch: keys up to ``seq_len`` rounded up to 64, four parts (K
+    hi, lo, V^T hi, lo) for fp32 operands and two for bf16; its ``geom`` is
+    K's map then V^T's, 14 numbers each."""
+    scratch, geom = _f32_scratch(2, 3, 1939, True, "cpu")
+    assert scratch.numel() == 4 * 2 * 3 * 1984 * 64 and scratch.dtype == torch.float32
+    k = map_geometry((2, 3, 1984, 64), (3 * 1984 * 64, 1984 * 64, 64, 1), 4, 32)
+    v = map_geometry((2, 3, 64, 1984), (3 * 64 * 1984, 64 * 1984, 1984, 1), 4, 64, 32)
+    assert list(geom) == [x for g in (k, v) for part in g for x in part]
+    assert _f32_scratch(2, 3, 64, False, "cpu")[0].numel() == 2 * 2 * 3 * 64 * 64
+    assert list(_f32_geometry(1, 1, 64, 64))[9:14] == [32, 64, 2, 1, 1]

@@ -37,9 +37,11 @@ from mickey_tpu.nn.extractor import compute_correspondences as jax_corr
 from mickey_tpu.training import loss as jloss
 from mickey_tpu.training import loss_utils as jlu
 from mickey_tpu.training.train_step import _copy_bn_stats, make_optimizer
+from mickey_tpu.training.train_step import make_lr_fn as jax_make_lr_fn
 from mickey_tpu_torch.config import default_config
 from mickey_tpu_torch.geometry import kabsch, projection
 from mickey_tpu_torch.models import MicKeyTrainer
+from mickey_tpu_torch.models import training_model
 from mickey_tpu_torch.nn import common
 from mickey_tpu_torch.training import loss as tloss
 from mickey_tpu_torch.training import loss_utils as tlu
@@ -49,7 +51,7 @@ from mickey_tpu_torch.training.train_step import (
     init_train_state,
     loss_and_grads,
 )
-from mickey_tpu_torch.weights import init_params_numpy, params_to_numpy, params_to_torch
+from mickey_tpu_torch.weights import init_params_numpy, params_to_numpy, params_to_torch, tree_leaves
 
 B, HW = 4, 126
 
@@ -304,7 +306,7 @@ def test_optimizer_matches_optax(scale):
         grads = [np.asarray(rng.standard_normal(p.shape) * scale, np.float32) for p in params]
         upd, st = opt_j.update([jnp.asarray(g) for g in grads], st, pj)
         pj = optax.apply_updates(pj, upd)
-        gnorm = opt_t.update(pt, [torch.from_numpy(g) for g in grads], st_t, step)
+        gnorm = opt_t.update(pt, [torch.from_numpy(g) for g in grads], st_t)
         np.testing.assert_allclose(gnorm.item(), float(optax.global_norm(grads)), rtol=1e-6)
         for a, b in zip(pt, pj):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-9)
@@ -315,13 +317,96 @@ def test_non_finite_gradient_skips_the_whole_step():
     pt = [torch.ones(3), torch.zeros(2)]
     opt = Optimizer(cfg)
     st = opt.init(pt)
-    opt.update(pt, [torch.ones(3), torch.ones(2)], st, 0)
+    opt.update(pt, [torch.ones(3), torch.ones(2)], st)
     before = [p.clone() for p in pt], [m.clone() for m in st.mu], [v.clone() for v in st.nu], st.count.clone()
-    gnorm = opt.update(pt, [torch.tensor([1.0, float("nan"), 1.0]), torch.ones(2)], st, 1)
+    gnorm = opt.update(pt, [torch.tensor([1.0, float("nan"), 1.0]), torch.ones(2)], st)
     assert not torch.isfinite(gnorm)
     for a, b in zip(before[0] + before[1] + before[2], pt + st.mu + st.nu):
         assert torch.equal(a, b)
     assert int(st.count) == int(before[3]) == 1
+
+
+def _schedule_count(opt_state) -> int:
+    """The step optax's learning-rate schedule reads: the count of the
+    ``ScaleByScheduleState`` inside ``apply_if_finite``'s inner chain."""
+    found = [x for x in jax.tree.leaves(opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByScheduleState))
+             if isinstance(x, optax.ScaleByScheduleState)]
+    assert len(found) == 1
+    return int(found[0].count)
+
+
+def test_lr_staircase_skips_non_finite_steps():
+    """A StepLR staircase (interval 2, gamma 0.5) over six steps, the second
+    with a non-finite gradient: the port's learning rate and parameters step
+    by step against optax's ``make_optimizer`` on the same gradients. The
+    skipped step advances neither schedule: lr index 0, 0, 0, 1, 1, 2."""
+    cfg, cfg_j = default_config(), jax_default_config()
+    for c in (cfg, cfg_j):
+        c.TRAINING.LR_STEP_INTERVAL, c.TRAINING.LR_STEP_GAMMA = 2, 0.5
+    rng = np.random.default_rng(13)
+    params = [np.asarray(rng.standard_normal(s), np.float32) for s in ((3, 4), (5,))]
+    opt_j, lr_j = make_optimizer(cfg_j), jax_make_lr_fn(cfg_j)
+    pj = [jnp.asarray(p) for p in params]
+    st = opt_j.init(pj)
+    pt = [torch.from_numpy(p.copy()) for p in params]
+    opt_t = Optimizer(cfg)
+    st_t = opt_t.init(pt)
+    lrs = []
+    for step in range(6):
+        grads = [np.asarray(rng.standard_normal(p.shape) * 1e-3, np.float32) for p in params]
+        if step == 1:
+            grads[0][1, 2] = np.nan
+        lr = float(opt_t.lr_fn(st_t.count))
+        np.testing.assert_allclose(lr, float(lr_j(_schedule_count(st))), rtol=1e-6)
+        lrs.append(lr)
+        upd, st = opt_j.update([jnp.asarray(g) for g in grads], st, pj)
+        pj = optax.apply_updates(pj, upd)
+        opt_t.update(pt, [torch.from_numpy(g) for g in grads], st_t)
+        for a, b in zip(pt, pj):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-9)
+    base = cfg.TRAINING.LR
+    np.testing.assert_allclose(lrs, [base, base, base, base / 2, base / 2, base / 4], rtol=1e-6)
+
+
+def test_trainer_bootstraps_the_dinov2_backbone(monkeypatch, tmp_path):
+    """``MicKeyTrainer(params=None)`` with the ViT-L variant converts the
+    DINOv2 file that ``resolve_dinov2_weights`` finds (given the
+    ``dinov2_path`` argument) into its frozen backbone, bitwise; without a
+    file it keeps the random one, and another variant never looks. At a
+    small size: the random init is the small config's ViT-S tree, and the
+    file a synthetic ViT-S state dict (``chip_smoke.upstream_state_dicts``)
+    of other weights."""
+    import chip_smoke
+
+    cfg = small_cfg(default_config())
+    small = init_params_numpy(cfg, 0)
+    other = init_params_numpy(cfg, 1)
+    _, dino = chip_smoke.upstream_state_dicts(other)
+    pth = tmp_path / "dinov2_vitl14_pretrain.pth"
+    torch.save(dino, pth)
+    asked = []
+
+    def resolve(path=None):
+        asked.append(path)
+        return str(pth) if path == "given" else None
+
+    monkeypatch.setattr(training_model, "init_params_numpy", lambda c, seed: dict(small))
+    monkeypatch.setattr(training_model, "resolve_dinov2_weights", resolve)
+
+    def backbone_leaves(params):
+        return [t for _, t in tree_leaves(init_train_state(cfg, params_to_torch(params, cfg, "cpu"))[1])]
+
+    cfg.MICKEY.DINOV2.VARIANT = "vit_large"  # the variant the trainer bootstraps
+    loaded = MicKeyTrainer(cfg, device="cpu", dinov2_path="given")
+    want = backbone_leaves(dict(small, dinov2=other["dinov2"]))
+    got = [t for _, t in tree_leaves(loaded.backbone)]
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    fallback = MicKeyTrainer(cfg, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip((t for _, t in tree_leaves(fallback.backbone)), backbone_leaves(small)))
+    assert asked == ["given", None]
+    cfg.MICKEY.DINOV2.VARIANT = "vit_small"
+    MicKeyTrainer(cfg, device="cpu", dinov2_path="given")
+    assert asked == ["given", None]
 
 
 # -- one whole staged step -------------------------------------------------------------
