@@ -386,69 +386,38 @@ def check_f32_attention_kernels(inp, calls=None) -> dict:
 ATTN_SEQS = (1939, 129, 128, 127, 65, 64, 1)  # whole tiles, one key over, one under, a single key
 
 
-def check_attention_shapes(device, seqs=ATTN_SEQS, heads: int = 16, seed: int = SEED) -> float:
-    """K1 and K1b (bf16) on ragged sequences: for each length in ``seqs`` a
+def check_attention_shapes(device, dtype=torch.bfloat16, seqs=ATTN_SEQS, heads: int = 16, seed: int = SEED) -> float:
+    """The attention kernels on ragged sequences: K1 and K1b for bf16, K1f's
+    packed and strided entries for fp32. For each length in ``seqs`` a
     seeded (2, seq, 3 heads 64) qkv (16 images at the second length) through
-    both entries against the plain version, K1b bitwise K1; then ``seq_len``
-    < S on contiguous q, k, v (130 of 200 keys; 1 of 64). Returns the largest
-    max |diff|."""
-    from mickey_tpu_torch.ops.flash_attention import (
-        attention_packed_plain,
-        attention_plain,
-        flash_attention,
-        flash_attention_packed,
-        qkv_heads,
-    )
+    both entries against the plain version, the strided entry bitwise the
+    packed one; then ``seq_len`` < S on contiguous q, k, v (130 of 200 keys;
+    1 of 64). bf16 within ATTN_TOL, fp32 within F32_ATTN_TOL of max|ref|.
+    Returns the largest max |diff| (fp32: relative to its max|ref|)."""
+    from mickey_tpu_torch.ops import flash_attention as fa
 
-    rng = np.random.default_rng(seed + 7)
-    bf16 = lambda shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device).to(torch.bfloat16)  # noqa: E731
+    if dtype == torch.bfloat16:
+        packed, strided, rng = fa.flash_attention_packed, fa.flash_attention, np.random.default_rng(seed + 7)
+        err = _attn_err
+    else:
+        packed, strided, rng = fa.flash_attention_packed_f32, fa.flash_attention_f32, np.random.default_rng(seed + 8)
+
+        def err(out, ref, what):
+            return _close_to_max(out, ref, what, F32_ATTN_TOL) / ref.abs().max().item()
+
+    make = lambda shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device).to(dtype)  # noqa: E731
     worst = 0.0
     for i, seq in enumerate(seqs):
-        qkv = bf16((16 if i == 1 else 2, seq, 3 * heads * 64))
-        out = flash_attention_packed(qkv, heads)
-        worst = max(worst, _attn_err(out, attention_packed_plain(qkv.float(), heads), f"flash_attention_packed, S = {seq}"))
-        out_u = flash_attention(*qkv_heads(qkv, heads), seq)
+        qkv = make((16 if i == 1 else 2, seq, 3 * heads * 64))
+        out = packed(qkv, heads)
+        worst = max(worst, err(out, fa.attention_packed_plain(qkv.float(), heads), f"{packed.__name__}, S = {seq}"))
+        out_u = strided(*fa.qkv_heads(qkv, heads), seq)
         if not torch.equal(out_u.transpose(1, 2).reshape(out.shape), out):
-            raise SmokeError(f"flash_attention differs from flash_attention_packed at S = {seq}")
+            raise SmokeError(f"{strided.__name__} differs from {packed.__name__} at S = {seq}")
     for s, seq_len in ((200, 130), (64, 1)):
-        q, k, v = (bf16((1, 2, s, 64)) for _ in range(3))
-        worst = max(worst, _attn_err(flash_attention(q, k, v, seq_len), attention_plain(q.float(), k.float(), v.float(), seq_len),
-                                     f"flash_attention, seq_len {seq_len} < S {s}"))
-    return worst
-
-
-def check_f32_attention_shapes(device, seqs=ATTN_SEQS, heads: int = 16, seed: int = SEED) -> float:
-    """K1f (fp32) on ragged sequences, as ``check_attention_shapes`` does for
-    bf16: each length in ``seqs`` through the packed and the strided entry
-    against the plain version at F32_ATTN_TOL of the largest output, strided
-    bitwise packed; then ``seq_len`` < S on contiguous q, k, v. Returns the
-    largest max |diff| relative to its max|ref|."""
-    from mickey_tpu_torch.ops.flash_attention import (
-        attention_packed_plain,
-        attention_plain,
-        flash_attention_f32,
-        flash_attention_packed_f32,
-        qkv_heads,
-    )
-
-    rng = np.random.default_rng(seed + 8)
-    f32 = lambda shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)  # noqa: E731
-    worst = 0.0
-
-    def rel(out, ref, what):
-        return _close_to_max(out, ref, what, F32_ATTN_TOL) / ref.abs().max().item()
-
-    for i, seq in enumerate(seqs):
-        qkv = f32((16 if i == 1 else 2, seq, 3 * heads * 64))
-        out = flash_attention_packed_f32(qkv, heads)
-        worst = max(worst, rel(out, attention_packed_plain(qkv, heads), f"flash_attention_packed_f32, S = {seq}"))
-        out_u = flash_attention_f32(*qkv_heads(qkv, heads), seq)
-        if not torch.equal(out_u.transpose(1, 2).reshape(out.shape), out):
-            raise SmokeError(f"flash_attention_f32 differs from flash_attention_packed_f32 at S = {seq}")
-    for s, seq_len in ((200, 130), (64, 1)):
-        q, k, v = (f32((1, 2, s, 64)) for _ in range(3))
-        worst = max(worst, rel(flash_attention_f32(q, k, v, seq_len), attention_plain(q, k, v, seq_len),
-                               f"flash_attention_f32, seq_len {seq_len} < S {s}"))
+        q, k, v = (make((1, 2, s, 64)) for _ in range(3))
+        worst = max(worst, err(strided(q, k, v, seq_len), fa.attention_plain(q.float(), k.float(), v.float(), seq_len),
+                               f"{strided.__name__}, seq_len {seq_len} < S {s}"))
     return worst
 
 
@@ -1149,13 +1118,24 @@ def _attention_bound(qkv: torch.Tensor, heads: int, peak: float, passes: float =
                   (imgs * seq * three_c + imgs * seq * heads * d) * qkv.element_size(), peak)
 
 
+def k1_old_bound(inp):
+    """K1-old's bound: every query row of its padded sequence against the
+    keys before ``old_len``. Its operands are bf16: Q K^T is exact in fp32 at
+    one bf16 pass; P V at fp32 accuracy on a bf16 V is cheapest with P split
+    into three bf16 parts (three bf16 passes take less than two TF32 ones).
+    Each product is half the flops: (1 + 3) / 2 bf16 passes of both."""
+    pv_passes = min(3.0, 2.0 * PEAK_BF16 / PEAK_TF32)
+    return _attention_bound(inp["qkv_old"], inp["heads"], PEAK_BF16, passes=(1.0 + pv_passes) / 2,
+                            keys=inp["old_len"])
+
+
 def kernel_bounds(inp, tin) -> dict:
     """name -> (bound_ms, bound_by) at this run's kernel inputs. Operations
     counted: the matrix products (2 flops per multiply-add; K1's two products
     on bf16 tensor cores; K1f's at fp32 accuracy as 3xTF32, three TF32
-    passes each; K1-old's, on bf16 operands exact in TF32, one pass for
-    Q K^T and two for P V; the others fp32 FMA) and, for K3, the ~30 fp32
-    operations of one soft-inlier term; exponentials are left out."""
+    passes each; K1-old's on bf16 tensor cores, ``k1_old_bound``; the others
+    fp32 FMA) and, for K3, the ~30 fp32 operations of one soft-inlier term;
+    exponentials are left out."""
     f32 = 4
     imgs, seq, three_c = inp["qkv"].shape
     heads = inp["heads"]
@@ -1171,14 +1151,12 @@ def kernel_bounds(inp, tin) -> dict:
     descs_t = (Bt * Mt * Ct + Bt * Nt * Ct) * f32
     attn = _attention_bound(inp["qkv"], heads, PEAK_BF16)
     attn32 = _attention_bound(inp["qkv32"], heads, PEAK_TF32, passes=3)
-    # K1-old: every query row of the padded sequence against the keys before old_len
-    old = _attention_bound(inp["qkv_old"], heads, PEAK_TF32, passes=1.5, keys=inp["old_len"])
     return {
         "flash_attention_packed": attn,
         "flash_attention": attn,  # the same q, k, v read and output written, on another layout
         "flash_attention_packed_f32": attn32,
         "flash_attention_f32": attn32,
-        "flash_attention_packed_upcast": old,
+        "flash_attention_packed_upcast": k1_old_bound(inp),
         "col_lse": _bound(2.0 * B * M * N * C, (B * M * C + B * N * C + B * N) * f32, PEAK_FP32),
         "pair_topk": _bound(2.0 * B * M * N * C,
                             (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * L * M + 4 * B * M) * f32, PEAK_FP32),
@@ -1257,7 +1235,7 @@ def main() -> int:
         return attention_f32_report(inp, card)
     errs = check_kernels(inp)
     ragged = check_attention_shapes(dev)
-    ragged32 = check_f32_attention_shapes(dev)
+    ragged32 = check_attention_shapes(dev, torch.float32)
     tin = train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128)
     errs.update(check_train_kernels(tin))
     errs.update(check_topk_train_kernels(tin, prefilter=int(cfg.TPU.SAMPLING_PREFILTER),
@@ -1402,71 +1380,83 @@ def clocks_under(fn, launches: int = 3000) -> str:
     return out
 
 
+# timing builds of the attention kernels (-D defines; results wrong): csrc/flash_attention_packed.cu (bf16)
 ATTN_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOADS",),
                   "no_exp_no_loads": ("MK_ABLATE_EXP", "MK_ABLATE_LOADS"), "products_only": ("MK_ABLATE_SOFTMAX",),
                   "products_only_no_loads": ("MK_ABLATE_SOFTMAX", "MK_ABLATE_LOADS")}
+# csrc/flash_attention_f32.cu (fp32, K1f)
+ATTN_F32_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOADS",),
+                      "products_only": ("MK_ABLATE_SOFTMAX",), "one_tf32_pass": ("MK_ABLATE_1XTF32",),
+                      "no_prep": ("MK_ABLATE_PREP",)}
+
+
+def _attention_loop(card, checks: dict, fns: dict, timer, clock_launches: int, source: str, ablations: dict, launch,
+                    extra: dict) -> int:
+    """The body of both attention loops. ``fns`` (the library call, then the
+    kernel's entries) timed with ``timer`` in turns, forward then backward
+    (library, packed, strided, strided, packed, library); the SM clock and
+    power under ``clock_launches`` calls of the library and the packed entry
+    and, with the softmax ablated, of the products alone; each of
+    ``ablations`` (name -> -D defines) built from ``source`` and its entry
+    ``launch(variant, name)`` timed back to back. Prints one JSON line with
+    ``checks`` and ``extra``; no ``ok`` line, which belongs to the whole
+    run."""
+    from mickey_tpu_torch.ops import _cuda
+
+    t = {k: [] for k in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        t[name].append(timer(fns[name]))
+    clocks = {k: clocks_under(fns[k], clock_launches) for k in list(fns)[:2]}
+    ablated = {}
+    for name, defines in ablations.items():
+        fn = launch(_cuda.build_variant(source, defines), name)
+        ablated[name] = time_many_ms(fn)
+        if name == "products_only":
+            clocks[name] = clocks_under(fn, clock_launches)
+    r4 = lambda d: {k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4)) for k, v in d.items()}  # noqa: E731
+    print(json.dumps({"card": card, **checks, "in_turns_ms_4_images": r4(t),
+                      "ablated_back_to_back_ms_4_images": r4(ablated), "sm_clock_and_power_under_load": clocks,
+                      **extra}))
+    return 0
 
 
 def attention_report(inp, card: str) -> int:
     """``python3 chip_smoke.py --attention``: the bf16 attention kernel alone.
     K1 and K1b against their plain versions (serving shape, ragged lengths,
     ``seq_len`` < S, bitwise equal to each other and from launch to launch);
-    CUDA-event medians of single calls in turns (library, K1, K1b, K1b, K1,
-    library) at the serving shape (4 images), as the ``kernels`` line times
-    them; the same three and K1 at the training shape (16 images) enqueued
-    back to back (``time_many_ms``); and the kernel's timing ablations
-    (``ATTN_ABLATIONS``: builds of the same source whose results are wrong)
-    back to back on the serving input. One JSON line; no ``ok`` line, which
-    belongs to the whole run."""
+    CUDA-event medians of single calls in turns at the serving shape (4
+    images), as the ``kernels`` line times them; the same three enqueued back
+    to back (``time_many_ms``), and K1 and SDPA at the training shape (16
+    images); the timing ablations (``ATTN_ABLATIONS``) on the serving input
+    (``_attention_loop``)."""
     from mickey_tpu_torch.ops import _cuda
     from mickey_tpu_torch.ops import flash_attention as fa
 
-    errs = check_attention_kernels(inp)
-    ragged = check_attention_shapes(inp["qkv"].device)
+    checks = {"max_abs_err": check_attention_kernels(inp),
+              "ragged_max_abs_err": check_attention_shapes(inp["qkv"].device)}
     calls, lib = kernel_calls(inp), library_calls(inp)
     fns = {"library": lib["flash_attention_packed"], "flash_attention_packed": calls["flash_attention_packed"][0],
            "flash_attention": calls["flash_attention"][0]}
-    t = {k: [] for k in fns}
-    for name in ("library", "flash_attention_packed", "flash_attention", "flash_attention", "flash_attention_packed",
-                 "library"):
-        t[name].append(time_ms(fns[name], iters=50, warmup=5))
-    many = {k: time_many_ms(f) for k, f in fns.items()}
     qkv, heads = inp["qkv"], inp["heads"]
     qkv16 = inp["qkv_old"][:, :qkv.shape[1]].contiguous()  # (16, 1939, 3072): the training step's backbone
     q, k, v = (x.contiguous() for x in fa.qkv_heads(qkv16, heads))
-    many16 = {"flash_attention_packed": time_many_ms(lambda: fa.flash_attention_packed(qkv16, heads)),
-              "library": time_many_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))}
+    extra = {"back_to_back_ms_4_images": {k: round(time_many_ms(f), 4) for k, f in fns.items()},
+             "back_to_back_ms_16_images": {
+                 "flash_attention_packed": round(time_many_ms(lambda: fa.flash_attention_packed(qkv16, heads)), 4),
+                 "library": round(time_many_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)), 4)}}
+    extra["bound_ms_4_images"], extra["bound_by"] = _attention_bound(qkv, heads, PEAK_BF16)
 
     b, s, c3 = qkv.shape
     shape, strides, offsets = fa.packed_heads_layout(b, s, heads)
     geom = fa._launch_geometry(shape, strides, strides, strides, qkv.element_size(), (s * c3 // 3, 64, c3 // 3))
     ptrs = [qkv.data_ptr() + o * qkv.element_size() for o in offsets]
     out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    ablated = {}
-    clocks = {"flash_attention_packed": clocks_under(fns["flash_attention_packed"]), "library": clocks_under(fns["library"])}
-    for name, defines in ATTN_ABLATIONS.items():
-        entry = _cuda.build_variant("flash_attention_packed.cu", defines).mk_flash_attention_bf16
 
-        def launch():
-            _cuda.check(entry(*ptrs, out.data_ptr(), geom, s, 0.125, _cuda.stream_ptr(qkv)), name)
-        ablated[name] = time_many_ms(launch)
-        if name == "products_only":
-            clocks[name] = clocks_under(launch)
-    bound = _attention_bound(qkv, heads, PEAK_BF16)
-    r4 = lambda d: {k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4)) for k, v in d.items()}  # noqa: E731
-    print(json.dumps({"card": card, "max_abs_err": errs, "ragged_max_abs_err": ragged,
-                      "single_call_ms_4_images": r4(t), "back_to_back_ms_4_images": r4(many),
-                      "back_to_back_ms_16_images": r4(many16), "ablated_back_to_back_ms_4_images": r4(ablated),
-                      "sm_clock_and_power_under_load": clocks,
-                      "bound_ms_4_images": bound[0], "bound_by": bound[1]}))
-    return 0
-
-
-# the fp32 kernel's timing builds: -D defines and the key tile they build with
-ATTN_F32_ABLATIONS = {"no_exp": (("MK_ABLATE_EXP",), 32), "no_loads": (("MK_ABLATE_LOADS",), 32),
-                      "products_only": (("MK_ABLATE_SOFTMAX",), 32), "one_tf32_pass": (("MK_ABLATE_1XTF32",), 32),
-                      "no_prep": (("MK_ABLATE_PREP",), 32), "two_stages": (("MK_STAGES=2",), 32),
-                      "key_tile_64": (("MK_BK=64", "MK_STAGES=2"), 64)}
+    def launch(variant, name):
+        entry = variant.mk_flash_attention_bf16
+        return lambda: _cuda.check(entry(*ptrs, out.data_ptr(), geom, s, 0.125, _cuda.stream_ptr(qkv)), name)
+    return _attention_loop(card, checks, fns, lambda f: time_ms(f, iters=50, warmup=5), 3000,
+                           "flash_attention_packed.cu", ATTN_ABLATIONS, launch, extra)
 
 
 def attention_f32_report(inp, card: str) -> int:
@@ -1474,13 +1464,11 @@ def attention_f32_report(inp, card: str) -> int:
     K1f alone. K1f packed and strided against their plain versions (serving
     shape, ragged lengths, ``seq_len`` < S, strided bitwise packed, two
     launches bitwise equal) and K1-old within one bf16 ulp; CUDA-event
-    medians per call of 20 enqueued back to back (``time_many_ms``), in turns
-    (SDPA fp32 with TF32 off, K1f packed, K1f strided, K1f strided, K1f
-    packed, SDPA), of K1-old at its shape, and of the kernel's timing
-    ablations (``ATTN_F32_ABLATIONS``: builds of the same source whose
-    results are wrong, on the packed serving input); the SM clock and power
-    under load. One JSON line; no ``ok`` line, which belongs to the whole
-    run."""
+    medians per call of 20 enqueued back to back (``time_many_ms``) in turns
+    (SDPA fp32 with TF32 off, K1f packed, K1f strided), of K1-old at its
+    shape, and of the timing ablations (``ATTN_F32_ABLATIONS``) on the
+    packed serving input (``_attention_loop``); the bounds: 3xTF32, K1-old's
+    (``k1_old_bound``) and the fp32 FMA one of the body K1f replaced."""
     from mickey_tpu_torch.ops import _cuda
     from mickey_tpu_torch.ops import flash_attention as fa
 
@@ -1489,42 +1477,25 @@ def attention_f32_report(inp, card: str) -> int:
     out, ref = (f()[:, :inp["old_len"]] for f in calls["flash_attention_packed_upcast"])
     errs["flash_attention_packed_upcast"] = _within_bf16_ulp(out, ref, "flash_attention_packed_upcast")
     del out, ref
-    ragged = check_f32_attention_shapes(inp["qkv32"].device)
+    checks = {"max_abs_err": errs, "ragged_max_rel_err": check_attention_shapes(inp["qkv32"].device, torch.float32)}
     fns = {"library": lib["flash_attention_packed_f32"], "flash_attention_packed_f32": calls["flash_attention_packed_f32"][0],
            "flash_attention_f32": calls["flash_attention_f32"][0]}
-    t = {k: [] for k in fns}
-    for name in ("library", "flash_attention_packed_f32", "flash_attention_f32", "flash_attention_f32",
-                 "flash_attention_packed_f32", "library"):
-        t[name].append(time_many_ms(fns[name]))
-    old_ms = time_many_ms(calls["flash_attention_packed_upcast"][0], reps=10)
-
     qkv, heads = inp["qkv32"], inp["heads"]
+    extra = {"k1_old_back_to_back_ms": round(time_many_ms(calls["flash_attention_packed_upcast"][0], reps=10), 4),
+             "k1_old_bound_ms": k1_old_bound(inp)[0],
+             "ffma_bound_ms_4_images": _attention_bound(qkv, heads, PEAK_FP32)[0]}
+    extra["bound_ms_4_images"], extra["bound_by"] = _attention_bound(qkv, heads, PEAK_TF32, passes=3)
+
     b, s, c3 = qkv.shape
     out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    ablated = {}
-    clocks = {"flash_attention_packed_f32": clocks_under(fns["flash_attention_packed_f32"], 300),
-              "library": clocks_under(fns["library"], 300)}
-    for name, (defines, key_tile) in ATTN_F32_ABLATIONS.items():
-        entry = _cuda.build_variant("flash_attention_f32.cu", defines).mk_flash_attention_packed_f32
-        scratch, geom = fa._f32_scratch(b, heads, s, True, qkv.device, key_tile)
+    scratch, geom = fa._f32_scratch(b, heads, s, True, qkv.device)
 
-        def launch():
-            _cuda.check(entry(qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), geom, b, s, heads, 0.125,
-                              _cuda.stream_ptr(qkv)), name)
-        ablated[name] = time_many_ms(launch)
-        if name == "key_tile_64":  # a key tile of 64 is also a whole kernel: hold it to the same tolerance
-            ablated["key_tile_64_max_abs_err"] = _close_to_max(out, calls["flash_attention_packed_f32"][1](),
-                                                               "key_tile_64", F32_ATTN_TOL)
-    bound = _attention_bound(qkv, heads, PEAK_TF32, passes=3)
-    old_bound = _attention_bound(inp["qkv_old"], heads, PEAK_TF32, passes=1.5, keys=inp["old_len"])
-    r4 = lambda d: {k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4)) for k, v in d.items()}  # noqa: E731
-    print(json.dumps({"card": card, "max_abs_err": errs, "ragged_max_rel_err": ragged,
-                      "back_to_back_ms_4_images": r4(t), "k1_old_back_to_back_ms": round(old_ms, 4),
-                      "ablated_back_to_back_ms_4_images": {k: (v if k.endswith("err") else round(v, 4))
-                                                           for k, v in ablated.items()},
-                      "sm_clock_and_power_under_load": clocks, "bound_ms_4_images": bound[0], "bound_by": bound[1],
-                      "k1_old_bound_ms": old_bound[0], "ffma_bound_ms_4_images": _attention_bound(qkv, heads, PEAK_FP32)[0]}))
-    return 0
+    def launch(variant, name):
+        entry = variant.mk_flash_attention_packed_f32
+        return lambda: _cuda.check(entry(qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), geom, b, s, heads, 0.125,
+                                         _cuda.stream_ptr(qkv)), name)
+    return _attention_loop(card, checks, fns, time_many_ms, 300, "flash_attention_f32.cu", ATTN_F32_ABLATIONS, launch,
+                           extra)
 
 
 def _stage_times(model, image0, image1, K0, K1, fused: bool = True) -> dict:

@@ -48,7 +48,7 @@
 //    operand of the PV product with no shuffle;
 //  - one warpgroup owns 64 query rows; its Q fragment is loaded from the
 //    caller's layout once and split in registers (hi, lo: 64 registers), the
-//    register A operand of the score product S = Q K^T (m64n{BK}k8, K from
+//    register A operand of the score product S = Q K^T (m64n32k8, K from
 //    shared memory); P is the register A operand of P V (m64n64k8, V^T
 //    from shared memory), so neither product reads A from shared memory;
 //  - each tile's P V goes into a fresh accumulator and is added to O in
@@ -92,27 +92,19 @@ struct AttnLayout {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
 };
 
-#ifndef MK_BK
-#define MK_BK 32
-#endif
-#ifndef MK_STAGES
-#define MK_STAGES 3
-#endif
 constexpr int D = 64;          // head dim (ViT-S/B/L all use 64)
 constexpr int BQ = 64;         // queries per CTA: one warpgroup's wgmma M
-constexpr int BK = MK_BK;      // keys per tile: the score product's wgmma N
-constexpr int STAGES = MK_STAGES;
+constexpr int BK = 32;         // keys per tile: the score product's wgmma N, one 128-byte swizzle row of V^T
+constexpr int STAGES = 3;
 constexpr int NT = 128;        // one warpgroup
 constexpr int KEY_PAD = 64;    // scratch keys are padded to a multiple of this (the prep kernel's chunk)
 constexpr int SPAN = 32;       // fp32 values in one 128-byte swizzle row
 constexpr uint32_t TILE_BYTES = BK * D * 4;      // one operand tile: K hi, K lo, V^T hi or V^T lo
 constexpr uint32_t K_BLOCK = BK * SPAN * 4;      // a K tile's 32-wide d block: BK rows of 128 bytes
-constexpr uint32_t V_BLOCK = D * SPAN * 4;       // a V^T tile's 32-key block: 64 rows of 128 bytes
 constexpr uint32_t STAGE_BYTES = 4 * TILE_BYTES;
 constexpr size_t SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 8 * STAGES;  // aligned tiles, one barrier a stage
-constexpr int MIN_BLOCKS = 2 * (SMEM_BYTES + 1024) <= 228 * 1024 ? 2 : 1;
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
-static_assert(BK % SPAN == 0 && KEY_PAD % BK == 0, "BK: a multiple of 32 that divides 64");
+static_assert(2 * (SMEM_BYTES + 1024) <= 228 * 1024, "two CTAs an SM");
 
 // Timing ablations for `chip_smoke.py --attention-f32` (wrong results, never
 // in the library the port loads): MK_ABLATE_EXP replaces every ex2 by a
@@ -224,21 +216,11 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t* a, uint64_t desc_b, int accumulate) {
-  if constexpr (N == 32) {
-    wgmma_n32(d, a[0], a[1], a[2], a[3], desc_b, accumulate);
-  } else {
-    static_assert(N == 64, "score tiles of 32 or 64 keys");
-    wgmma_n64(d, a[0], a[1], a[2], a[3], desc_b, accumulate);
-  }
-}
-
-// s (64 x BK) = Q K^T over eight k8 slices of d: slice kk lies in the tile's
+// s (64 x 32) = Q K^T over eight k8 slices of d: slice kk lies in the tile's
 // 32-wide d block kk / 4, 32 bytes a slice into its 128-byte rows. With a lo
 // part: lo*hi, hi*lo, hi*hi a slice. Issues and commits; the caller waits.
 template <bool kSplit>
-__device__ __forceinline__ void issue_scores(float (&s)[BK / 2], const uint32_t (&qh)[32], const uint32_t (&ql)[32],
+__device__ __forceinline__ void issue_scores(float (&s)[16], const uint32_t (&qh)[32], const uint32_t (&ql)[32],
                                              uint32_t k_hi, uint32_t k_lo) {
   wgmma_fence();
 #pragma unroll
@@ -246,38 +228,38 @@ __device__ __forceinline__ void issue_scores(float (&s)[BK / 2], const uint32_t 
     const uint32_t off = (kk / 4) * K_BLOCK;
     const uint64_t step = 2 * (kk % 4);
     const uint64_t dh = smem_desc(k_hi + off) + step;
+    const uint32_t *h = &qh[4 * kk], *l = &ql[4 * kk];
     if (kSplit && !ONE_PASS) {
-      wgmma_tf32<BK>(s, &ql[4 * kk], dh, kk != 0);
-      wgmma_tf32<BK>(s, &qh[4 * kk], smem_desc(k_lo + off) + step, 1);
-      wgmma_tf32<BK>(s, &qh[4 * kk], dh, 1);
+      wgmma_n32(s, l[0], l[1], l[2], l[3], dh, kk != 0);
+      wgmma_n32(s, h[0], h[1], h[2], h[3], smem_desc(k_lo + off) + step, 1);
+      wgmma_n32(s, h[0], h[1], h[2], h[3], dh, 1);
     } else {
-      wgmma_tf32<BK>(s, &qh[4 * kk], dh, kk != 0);
+      wgmma_n32(s, h[0], h[1], h[2], h[3], dh, kk != 0);
     }
   }
   wgmma_commit();
 }
 
-// pv (64 x 64) = this tile's P V over BK / 8 k8 slices of keys: slice kk
-// lies in the V^T tile's 32-key block kk / 4, 32 bytes a slice into its rows.
-// P's lo part always exists; V's only with kSplit. Issues and commits; the
-// caller waits. A fresh accumulator a tile: the tensor cores' fp32 sums are
-// not rounded to nearest (their error grows with the chain of accumulating
-// products), so the caller adds each tile's 3 BK / 8 products into O in
-// registers.
+// pv (64 x 64) = this tile's P V over four k8 slices of keys, 32 bytes a
+// slice into the V^T tile's 128-byte rows. P's lo part always exists; V's
+// only with kSplit. Issues and commits; the caller waits. A fresh accumulator
+// a tile: the tensor cores' fp32 sums are not rounded to nearest (their error
+// grows with the chain of accumulating products), so the caller adds each
+// tile's 12 products into O in registers.
 template <bool kSplit>
-__device__ __forceinline__ void issue_pv(float (&pv)[32], const uint32_t (&ph)[BK / 2], const uint32_t (&pl)[BK / 2],
+__device__ __forceinline__ void issue_pv(float (&pv)[32], const uint32_t (&ph)[16], const uint32_t (&pl)[16],
                                          uint32_t v_hi, uint32_t v_lo) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk) {
-    const uint32_t off = (kk / 4) * V_BLOCK;
-    const uint64_t step = 2 * (kk % 4);
-    const uint64_t dh = smem_desc(v_hi + off) + step;
+    const uint64_t step = 2 * kk;
+    const uint64_t dh = smem_desc(v_hi) + step;
+    const uint32_t *h = &ph[4 * kk], *l = &pl[4 * kk];
     if (!ONE_PASS) {
-      wgmma_tf32<64>(pv, &pl[4 * kk], dh, kk != 0);
-      if (kSplit) wgmma_tf32<64>(pv, &ph[4 * kk], smem_desc(v_lo + off) + step, 1);
+      wgmma_n64(pv, l[0], l[1], l[2], l[3], dh, kk != 0);
+      if (kSplit) wgmma_n64(pv, h[0], h[1], h[2], h[3], smem_desc(v_lo) + step, 1);
     }
-    wgmma_tf32<64>(pv, &ph[4 * kk], dh, ONE_PASS ? kk != 0 : 1);
+    wgmma_n64(pv, h[0], h[1], h[2], h[3], dh, ONE_PASS ? kk != 0 : 1);
   }
   wgmma_commit();
 }
@@ -296,15 +278,15 @@ struct Maps {
 };
 
 // Tile t into the stage at `stage`: K rows [t BK, t BK + BK) (both d blocks)
-// and V^T's key blocks [t BK / 32, ...) (all 64 d rows), hi and (kSplit) lo.
+// and V^T's key block t (all 64 d rows), hi and (kSplit) lo.
 template <bool kSplit>
 __device__ __forceinline__ void load_stage(const Maps& m, uint32_t bar, uint32_t stage, int t, int h, int b) {
   mbar_expect_tx(bar, (kSplit ? 4 : 2) * TILE_BYTES);
   tma_load5(stage, &m.k_hi, bar, t * BK, 0, h, b);
-  tma_load5(stage + 2 * TILE_BYTES, &m.v_hi, bar, 0, t * (BK / SPAN), h, b);
+  tma_load5(stage + 2 * TILE_BYTES, &m.v_hi, bar, 0, t, h, b);
   if (kSplit) {
     tma_load5(stage + TILE_BYTES, &m.k_lo, bar, t * BK, 0, h, b);
-    tma_load5(stage + 3 * TILE_BYTES, &m.v_lo, bar, 0, t * (BK / SPAN), h, b);
+    tma_load5(stage + 3 * TILE_BYTES, &m.v_lo, bar, 0, t, h, b);
   }
 }
 
@@ -317,7 +299,7 @@ __device__ __forceinline__ void load_stage(const Maps& m, uint32_t bar, uint32_t
 // (4 j + 2, 4 j + 3), and Q / P fragment registers 4 kk + {0, 1, 2, 3} =
 // (row g, k t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4) of k-slice kk.
 template <typename In, typename Out, bool kSplit>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+__global__ void __launch_bounds__(NT, 2)
 flash_tf32_kernel(const __grid_constant__ Maps maps, const AttnLayout<In, Out> L, int S, int seq_len, float c) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -353,8 +335,8 @@ flash_tf32_kernel(const __grid_constant__ Maps maps, const AttnLayout<In, Out> L
 
   float m0 = NEG_INF, m1 = NEG_INF;  // running max of the raw scores, rows g and g + 8
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the running sums
-  float s[BK / 2], o[32], pv[32];
-  uint32_t ph[BK / 2], pl[BK / 2];
+  float s[16], o[32], pv[32];
+  uint32_t ph[16], pl[16];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
 
@@ -369,17 +351,17 @@ flash_tf32_kernel(const __grid_constant__ Maps maps, const AttnLayout<In, Out> L
     float alpha0 = 1.f, alpha1 = 1.f;
 #ifdef MK_ABLATE_SOFTMAX
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) split(s[i], ph[i], pl[i]);
+    for (int i = 0; i < 16; ++i) split(s[i], ph[i], pl[i]);
 #else
     const int valid = seq_len - t * BK;
     if (valid < BK) {  // only the last tile can hold keys at or past seq_len
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i)
+      for (int i = 0; i < 16; ++i)
         if (8 * (i >> 2) + 2 * t4 + (i & 1) >= valid) s[i] = NEG_INF;
     }
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
+    for (int i = 0; i < 16; ++i) {
       if (i & 2) {
         mx1 = fmaxf(mx1, s[i]);
       } else {
@@ -400,7 +382,7 @@ flash_tf32_kernel(const __grid_constant__ Maps maps, const AttnLayout<In, Out> L
     // P enters the A fragment as (p0, p2, p1, p3) of each group of four:
     // key 2 t4 is k-index t4, key 2 t4 + 1 is t4 + 4 (V^T is permuted alike)
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
+    for (int i = 0; i < 16; ++i) {
       const float p = ex2(fmaf(s[i], c, (i & 2) ? -mc1 : -mc0));
       if (i & 2) {
         sum1 += p;
@@ -493,8 +475,8 @@ split_kv_kernel(const AttnLayout<In, float> L, float* k_hi, float* k_lo, float* 
 
 // geom: K's map then V^T's, each dims (5), byte strides (4), box (5),
 // innermost first (ops/flash_attention.py::map_geometry): K (32, s_kv, 2, H,
-// B), box (32, BK, 2, 1, 1); V^T (32, 64, s_kv / 32, H, B), box (32, 64,
-// BK / 32, 1, 1). scratch: K hi, [K lo,] V^T hi, [V^T lo,] each B H s_kv 64
+// B), box (32, 32, 2, 1, 1); V^T (32, 64, s_kv / 32, H, B), box (32, 64,
+// 1, 1, 1). scratch: K hi, [K lo,] V^T hi, [V^T lo,] each B H s_kv 64
 // floats.
 template <typename In, typename Out, bool kSplit>
 int launch(const AttnLayout<In, Out>& L, float* scratch, const long long* geom, int B, int H, int S, int seq_len,
@@ -503,7 +485,7 @@ int launch(const AttnLayout<In, Out>& L, float* scratch, const long long* geom, 
   const long long s_kv = kd[1];
   if (kd[0] != SPAN || kd[2] != D / SPAN || kd[3] != H || kd[4] != B || kbox[0] != SPAN || kbox[1] != BK ||
       kbox[2] != D / SPAN || vd[0] != SPAN || vd[1] != D || vd[2] * SPAN != s_kv || vbox[1] != D ||
-      vbox[2] * SPAN != BK || s_kv % KEY_PAD || s_kv < seq_len || seq_len < 1 || seq_len > S)
+      vbox[2] != 1 || s_kv % KEY_PAD || s_kv < seq_len || seq_len < 1 || seq_len > S)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(B) * H * s_kv * D;
   float* k_hi = scratch;

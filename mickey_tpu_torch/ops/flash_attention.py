@@ -150,24 +150,24 @@ def _contiguous_strides(shape):
 
 
 @functools.lru_cache(maxsize=64)
-def _f32_geometry(b: int, h: int, s_kv: int, key_tile: int = F32_KEY_TILE):
+def _f32_geometry(b: int, h: int, s_kv: int):
     """K1f's ``geom`` argument: the tensor maps of its scratch, K (hi or lo)
-    as a contiguous (B, H, S_kv, 64) array read ``key_tile`` rows a box, then
-    V^T as a contiguous (B, H, 64, S_kv) array read ``key_tile`` columns of
-    all 64 rows a box; each dims, strides, box (``map_geometry``)."""
-    k = map_geometry((b, h, s_kv, 64), _contiguous_strides((b, h, s_kv, 64)), 4, key_tile)
-    v = map_geometry((b, h, 64, s_kv), _contiguous_strides((b, h, 64, s_kv)), 4, 64, key_tile)
+    as a contiguous (B, H, S_kv, 64) array read ``F32_KEY_TILE`` rows a box,
+    then V^T as a contiguous (B, H, 64, S_kv) array read ``F32_KEY_TILE``
+    columns of all 64 rows a box; each dims, strides, box (``map_geometry``)."""
+    k = map_geometry((b, h, s_kv, 64), _contiguous_strides((b, h, s_kv, 64)), 4, F32_KEY_TILE)
+    v = map_geometry((b, h, 64, s_kv), _contiguous_strides((b, h, 64, s_kv)), 4, 64, F32_KEY_TILE)
     return (ctypes.c_longlong * 28)(*(x for g in (k, v) for part in g for x in part))
 
 
-def _f32_scratch(b: int, h: int, seq_len: int, split_kv: bool, device, key_tile: int = F32_KEY_TILE):
+def _f32_scratch(b: int, h: int, seq_len: int, split_kv: bool, device):
     """K1f's scratch (K hi, [K lo,] V^T hi, [V^T lo], fp32, keys up to
     ``seq_len`` rounded up to 64) and its geometry. bf16 operands (K1-old)
     are exact in TF32 and have no lo parts."""
     s_kv = -(-seq_len // F32_KEY_PAD) * F32_KEY_PAD
     parts = 4 if split_kv else 2
     scratch = torch.empty(parts * b * h * s_kv * 64, dtype=torch.float32, device=device)
-    return scratch, _f32_geometry(b, h, s_kv, key_tile)
+    return scratch, _f32_geometry(b, h, s_kv)
 
 
 def packed_heads_layout(b: int, s: int, num_heads: int, d: int = 64):

@@ -482,4 +482,5 @@ def test_f32_scratch_and_geometry():
     v = map_geometry((2, 3, 64, 1984), (3 * 64 * 1984, 64 * 1984, 1984, 1), 4, 64, 32)
     assert list(geom) == [x for g in (k, v) for part in g for x in part]
     assert _f32_scratch(2, 3, 64, False, "cpu")[0].numel() == 2 * 2 * 3 * 64 * 64
-    assert list(_f32_geometry(1, 1, 64, 64))[9:14] == [32, 64, 2, 1, 1]
+    assert list(_f32_geometry(1, 1, 64))[9:14] == [32, 32, 2, 1, 1]  # K: 32 keys, both d blocks
+    assert list(_f32_geometry(1, 1, 64))[23:28] == [32, 64, 1, 1, 1]  # V^T: one 32-key block, all 64 rows

@@ -158,9 +158,9 @@ def test_import_leaves_jax_out():
 
 def test_no_source_imports_the_jax_package():
     """An AST scan: no ``import mickey_tpu...`` / ``from mickey_tpu...`` (nor
-    jax) in the port, chip_smoke.py or attention_ab.py."""
+    jax) in the port or in chip_smoke.py."""
     bad = []
-    for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py", PORT.parent / "attention_ab.py"]:
+    for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
