@@ -60,6 +60,10 @@ calls and back to back, and its timing ablations, as one JSON line.
 ``python3 chip_smoke.py --attention-f32`` does the same for the fp32 one, K1f
 (``attention_f32_report``): its checks, its three entries back to back
 beside SDPA fp32 with TF32 off, and its timing ablations.
+``python3 chip_smoke.py --matcher`` does it for the matcher's forward kernels
+on the 3xTF32 correlation engine, K2a and K4 (``matcher_report``): their
+checks on ragged sizes, NaN and an infinity, their times back to back beside
+the plain versions, their bounds and timing ablations.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 results before the last line, and ``{"ok": true, "device": ...}`` last. There
@@ -126,6 +130,9 @@ ABLATION_KERNELS = ("flash_attention", "flash_attention_packed_upcast")
 #      the two), plus K1f's 1e-5 max|ref| for the fp32 results' own
 #      difference, on rows below seq_len (the rows past it are the TPU's
 #      padded rows).
+#  K2a, K4: the correlation as 3xTF32 on the tensor cores (each term within
+#      ~2^-20 of fp32's) against the plain version's fp32 cuBLAS product;
+#      the tolerances below are those of fp32 arithmetic, unchanged.
 #  K2, K3: fp32 throughout; only the summation order differs:
 #      |diff| <= 1e-5 |ref| + 1e-6 max|ref|; indices that one side selects
 #      with a margin above its selection boundary must be selected by the
@@ -529,6 +536,81 @@ def check_topk_train_kernels(tin, prefilter: int, topl: int) -> dict:
     return res
 
 
+def _close_nan(a: torch.Tensor, b: torch.Tensor, what: str, rtol: float = RTOL) -> float:
+    """``_close`` where the plain version ``b`` may hold NaN and infinities:
+    NaN exactly where ``b`` is NaN, the same infinity where ``b`` is
+    infinite, ``rtol`` elsewhere. Returns max |diff| over the finite values."""
+    a, b = a.double().cpu(), b.double().cpu()
+    inf = torch.isinf(b)
+    if not (torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a[inf], b[inf])):
+        raise SmokeError(f"{what}: NaN or infinite values differ from the plain version's")
+    fin = torch.isfinite(b)
+    return _close(a[fin], b[fin], what, rtol) if bool(fin.any()) else 0.0
+
+
+def check_matcher_kernels(inp, tin) -> dict:
+    """``--matcher``: K2a (col_lse) against its plain version at RTOL at the
+    serving shape and at the training shape (the dense training route runs it
+    there), K4 (pair_softmax) at DS_RTOL at the training shape; two launches
+    of each bitwise equal (no atomics, a fixed order of the chunks' sums).
+    Returns name -> max |diff|."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    res = {}
+    for shape, d0, d1 in (("serving", inp["dsc0"], inp["dsc1"]), ("training", tin["dsc0"], tin["dsc1"])):
+        out = fm.col_lse(d0, d1, 10.0, 1.0)
+        res[f"col_lse {shape}"] = _close(out, fm.col_lse_plain(d0, d1, 10.0, 1.0), f"col_lse, {shape} shape")
+        if not torch.equal(fm.col_lse(d0, d1, 10.0, 1.0), out):
+            raise SmokeError(f"col_lse: two launches differ at the {shape} shape")
+    d0, d1, lc = tin["dsc0"], tin["dsc1"], tin["lse_col"]
+    out, lse_row = fm.pair_softmax(d0, d1, lc, 10.0, 1.0)
+    ref, ref_row = fm.pair_softmax_plain(d0, d1, lc, 10.0, 1.0)
+    res["pair_softmax training"] = max(_close(out, ref, "pair_softmax out", DS_RTOL),
+                                       _close(lse_row, ref_row, "pair_softmax lse_row", DS_RTOL))
+    del ref
+    again = fm.pair_softmax(d0, d1, lc, 10.0, 1.0)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse_row)):
+        raise SmokeError("pair_softmax: two launches differ")
+    return res
+
+
+MATCHER_SIZES = (1938, 129, 128, 127, 65, 64, 1)  # whole 64-row tiles, one over, one under, a single row
+
+
+def check_matcher_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, seed: int = SEED) -> float:
+    """K2a and K4 on ragged sizes: M = sizes[i], N = sizes[i + 1] (cyclic),
+    3 images of seeded unit descriptors, with the dustbin on and off, against
+    their plain versions (K4 on the plain lse_col): lse_col at RTOL, P and
+    lse_row at DS_RTOL, NaN and infinities where the plain version has them.
+    In the first pair image 1 holds an infinite descriptor value (dsc1, row
+    3) and image 2 a NaN row (dsc0, row 5). Returns the largest max |diff|."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    rng = np.random.default_rng(seed + 9)
+
+    def unit(rows):
+        d = rng.standard_normal((3, rows, desc), dtype=np.float32)
+        return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    worst = 0.0
+    for i, m in enumerate(sizes):
+        n = sizes[(i + 1) % len(sizes)]
+        d0, d1 = unit(m), unit(n)
+        if i == 0:
+            d1[1, min(3, n - 1), 7] = np.inf
+            d0[2, min(5, m - 1)] = np.nan
+        d0, d1 = (torch.from_numpy(x).to(device) for x in (d0, d1))
+        for use_dustbin in (True, False):
+            alpha = fm._alpha(1.0, use_dustbin)
+            what = f"M {m}, N {n}, dustbin {use_dustbin}"
+            lc = fm.col_lse_plain(d0, d1, 10.0, alpha)
+            worst = max(worst, _close_nan(fm.col_lse(d0, d1, 10.0, alpha), lc, f"col_lse, {what}"))
+            (p, lr), (pp, plr) = fm.pair_softmax(d0, d1, lc, 10.0, alpha), fm.pair_softmax_plain(d0, d1, lc, 10.0, alpha)
+            worst = max(worst, _close_nan(p, pp, f"pair_softmax out, {what}", DS_RTOL),
+                        _close_nan(lr, plr, f"pair_softmax lse_row, {what}", DS_RTOL))
+    return worst
+
+
 def _sync(t: torch.Tensor) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -613,10 +695,13 @@ def check_dense_table(model, image0, image1, K0, K1) -> dict:
     dense final scores (K2a + K4) against the fused route's K2 table on the
     same head outputs. The fused table is the top-P over each row's top-L
     candidates; under that selection (``dense_topk_scores``) the dense
-    matrix must give the same table: values at 1e-5 relative, index sets up
-    to near-ties, row_ok equal. Also reports the share of the exact global
-    top-P (``torch.topk`` over the whole matrix) that the fused table holds,
-    by count and by score mass."""
+    matrix must give the same table: values at DS_RTOL, K4's tolerance (the
+    dense scores are K4's P; K2b recomputes the correlation in fp32 FMA, K4
+    as 3xTF32, and exp(2 s) turns the two summation orders' ~1e-6 of s into
+    up to ~1e-5 of a score where all scores are alike, as at random
+    weights), index sets up to near-ties, row_ok equal. Also reports the
+    share of the exact global top-P (``torch.topk`` over the whole matrix)
+    that the fused table holds, by count and by score mass."""
     from mickey_tpu_torch.ops.fused_matcher import dense_topk_scores
 
     B = image0.shape[0]
@@ -627,7 +712,7 @@ def check_dense_table(model, image0, image1, K0, K1) -> dict:
     final = full.corr.final_scores
     P, L = int(cfg.TPU.SAMPLING_PREFILTER), int(cfg.TPU.MATCHER_TOPL)
     dv, di, dok = dense_topk_scores(final, P, row_topl=L)
-    err = _close(tc.top_scores, dv, "dense vs fused table values")
+    err = _close(tc.top_scores, dv, "dense vs fused table values", DS_RTOL)
     _sets_agree(tc.top_scores, tc.top_idx, dv, di, "dense vs fused table")
     if not torch.equal(tc.row_ok.cpu(), dok.cpu()):
         raise SmokeError("dense vs fused table: row_ok differs")
@@ -1129,13 +1214,32 @@ def k1_old_bound(inp):
                             keys=inp["old_len"])
 
 
+def col_lse_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
+    """K2a's bound: the correlation's 2 B M N C flops at fp32 accuracy, three
+    TF32 passes at 495 TFLOP/s (``peak=PEAK_FP32, passes=1``: the fp32 FMA
+    bound of the body it replaced), against both descriptor sets read and
+    lse_col written once."""
+    B, M, C = dsc0.shape
+    N = dsc1.shape[1]
+    return _bound(passes * 2.0 * B * M * N * C, (B * M * C + B * N * C + B * N) * 4, peak)
+
+
+def pair_softmax_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
+    """K4's bound: one correlation (a second sweep is the kernel's choice, not
+    work the function needs) as for K2a, against the descriptors and lse_col
+    read and P (B, M, N) and lse_row written once."""
+    B, M, C = dsc0.shape
+    N = dsc1.shape[1]
+    return _bound(passes * 2.0 * B * M * N * C, (B * M * C + B * N * C + B * N + B * M * N + B * M) * 4, peak)
+
+
 def kernel_bounds(inp, tin) -> dict:
     """name -> (bound_ms, bound_by) at this run's kernel inputs. Operations
     counted: the matrix products (2 flops per multiply-add; K1's two products
-    on bf16 tensor cores; K1f's at fp32 accuracy as 3xTF32, three TF32
-    passes each; K1-old's on bf16 tensor cores, ``k1_old_bound``; the others
-    fp32 FMA) and, for K3, the ~30 fp32 operations of one soft-inlier term;
-    exponentials are left out."""
+    on bf16 tensor cores; K1f's, K2a's and K4's at fp32 accuracy as 3xTF32,
+    three TF32 passes each; K1-old's on bf16 tensor cores, ``k1_old_bound``;
+    the others fp32 FMA) and, for K3, the ~30 fp32 operations of one
+    soft-inlier term; exponentials are left out."""
     f32 = 4
     imgs, seq, three_c = inp["qkv"].shape
     heads = inp["heads"]
@@ -1157,11 +1261,11 @@ def kernel_bounds(inp, tin) -> dict:
         "flash_attention_packed_f32": attn32,
         "flash_attention_f32": attn32,
         "flash_attention_packed_upcast": k1_old_bound(inp),
-        "col_lse": _bound(2.0 * B * M * N * C, (B * M * C + B * N * C + B * N) * f32, PEAK_FP32),
+        "col_lse": col_lse_bound(inp["dsc0"], inp["dsc1"]),
         "pair_topk": _bound(2.0 * B * M * N * C,
                             (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * L * M + 4 * B * M) * f32, PEAK_FP32),
         "hypothesis_scores": _bound(30.0 * hb * hr * hs, (2 * hb * hs * 3 + hb * hr * 12 + hb * hr) * f32, PEAK_FP32),
-        "pair_softmax": _bound(corr_t, descs_t + (Bt * Nt + Bt * Mt * Nt + Bt * Mt) * f32, PEAK_FP32),
+        "pair_softmax": pair_softmax_bound(tin["dsc0"], tin["dsc1"]),
         "dual_softmax_bwd_sums": _bound(corr_t, descs_t + (Bt * Mt * Nt + 2 * Bt * Mt + 2 * Bt * Nt) * f32, PEAK_FP32),
         "dual_softmax_bwd_grads": _bound(3 * corr_t, 2 * descs_t + (Bt * Mt * Nt + 2 * Bt * Mt + 2 * Bt * Nt) * f32,
                                          PEAK_FP32),
@@ -1233,6 +1337,8 @@ def main() -> int:
         return attention_report(inp, card)
     if "--attention-f32" in sys.argv[1:]:
         return attention_f32_report(inp, card)
+    if "--matcher" in sys.argv[1:]:
+        return matcher_report(inp, train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128), card)
     errs = check_kernels(inp)
     ragged = check_attention_shapes(dev)
     ragged32 = check_attention_shapes(dev, torch.float32)
@@ -1390,34 +1496,39 @@ ATTN_F32_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOAD
                       "no_prep": ("MK_ABLATE_PREP",)}
 
 
-def _attention_loop(card, checks: dict, fns: dict, timer, clock_launches: int, source: str, ablations: dict, launch,
-                    extra: dict) -> int:
-    """The body of both attention loops. ``fns`` (the library call, then the
-    kernel's entries) timed with ``timer`` in turns, forward then backward
-    (library, packed, strided, strided, packed, library); the SM clock and
-    power under ``clock_launches`` calls of the library and the packed entry
-    and, with the softmax ablated, of the products alone; each of
-    ``ablations`` (name -> -D defines) built from ``source`` and its entry
-    ``launch(variant, name)`` timed back to back. Prints one JSON line with
+def _kernel_loop(card, checks: dict, fns: dict, timer, clocked, clock_launches: int, ablations: dict, launch,
+                 extra: dict, clock_ablation: str | None = None) -> int:
+    """The body of the quick loops (``--attention``, ``--attention-f32``,
+    ``--matcher``). ``fns`` (name -> call) timed with ``timer`` in turns,
+    forward then backward (a, b, c, c, b, a); the SM clock and power under
+    ``clock_launches`` calls of each of ``clocked``; each of ``ablations``
+    (name -> -D defines) built and timed back to back: ``launch(defines,
+    name)`` returns label -> call on the timing builds, and the clock is read
+    under the one named ``clock_ablation``. Prints one JSON line with
     ``checks`` and ``extra``; no ``ok`` line, which belongs to the whole
     run."""
-    from mickey_tpu_torch.ops import _cuda
-
     t = {k: [] for k in fns}
     for name in list(fns) + list(fns)[::-1]:
         t[name].append(timer(fns[name]))
-    clocks = {k: clocks_under(fns[k], clock_launches) for k in list(fns)[:2]}
+    clocks = {k: clocks_under(fns[k], clock_launches) for k in clocked}
     ablated = {}
     for name, defines in ablations.items():
-        fn = launch(_cuda.build_variant(source, defines), name)
-        ablated[name] = time_many_ms(fn)
-        if name == "products_only":
-            clocks[name] = clocks_under(fn, clock_launches)
+        for label, fn in launch(defines, name).items():
+            ablated[label] = time_many_ms(fn)
+            if name == clock_ablation:
+                clocks[label] = clocks_under(fn, clock_launches)
     r4 = lambda d: {k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4)) for k, v in d.items()}  # noqa: E731
-    print(json.dumps({"card": card, **checks, "in_turns_ms_4_images": r4(t),
-                      "ablated_back_to_back_ms_4_images": r4(ablated), "sm_clock_and_power_under_load": clocks,
-                      **extra}))
+    print(json.dumps({"card": card, **checks, "in_turns_ms": r4(t), "ablated_back_to_back_ms": r4(ablated),
+                      "sm_clock_and_power_under_load": clocks, **extra}))
     return 0
+
+
+def _variant_launch(source: str, make):
+    """``launch`` for ``_kernel_loop`` on one source: the timing build of
+    ``source`` with the defines, and ``make(variant, name)``'s call on it."""
+    from mickey_tpu_torch.ops import _cuda
+
+    return lambda defines, name: {name: make(_cuda.build_variant(source, defines), name)}
 
 
 def attention_report(inp, card: str) -> int:
@@ -1428,7 +1539,7 @@ def attention_report(inp, card: str) -> int:
     images), as the ``kernels`` line times them; the same three enqueued back
     to back (``time_many_ms``), and K1 and SDPA at the training shape (16
     images); the timing ablations (``ATTN_ABLATIONS``) on the serving input
-    (``_attention_loop``)."""
+    (``_kernel_loop``)."""
     from mickey_tpu_torch.ops import _cuda
     from mickey_tpu_torch.ops import flash_attention as fa
 
@@ -1452,11 +1563,12 @@ def attention_report(inp, card: str) -> int:
     ptrs = [qkv.data_ptr() + o * qkv.element_size() for o in offsets]
     out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
 
-    def launch(variant, name):
+    def make(variant, name):
         entry = variant.mk_flash_attention_bf16
         return lambda: _cuda.check(entry(*ptrs, out.data_ptr(), geom, s, 0.125, _cuda.stream_ptr(qkv)), name)
-    return _attention_loop(card, checks, fns, lambda f: time_ms(f, iters=50, warmup=5), 3000,
-                           "flash_attention_packed.cu", ATTN_ABLATIONS, launch, extra)
+    extra["timed_shape"] = "4 images"
+    return _kernel_loop(card, checks, fns, lambda f: time_ms(f, iters=50, warmup=5), list(fns)[:2], 3000,
+                        ATTN_ABLATIONS, _variant_launch("flash_attention_packed.cu", make), extra, "products_only")
 
 
 def attention_f32_report(inp, card: str) -> int:
@@ -1467,7 +1579,7 @@ def attention_f32_report(inp, card: str) -> int:
     medians per call of 20 enqueued back to back (``time_many_ms``) in turns
     (SDPA fp32 with TF32 off, K1f packed, K1f strided), of K1-old at its
     shape, and of the timing ablations (``ATTN_F32_ABLATIONS``) on the
-    packed serving input (``_attention_loop``); the bounds: 3xTF32, K1-old's
+    packed serving input (``_kernel_loop``); the bounds: 3xTF32, K1-old's
     (``k1_old_bound``) and the fp32 FMA one of the body K1f replaced."""
     from mickey_tpu_torch.ops import _cuda
     from mickey_tpu_torch.ops import flash_attention as fa
@@ -1490,12 +1602,97 @@ def attention_f32_report(inp, card: str) -> int:
     out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     scratch, geom = fa._f32_scratch(b, heads, s, True, qkv.device)
 
-    def launch(variant, name):
+    def make(variant, name):
         entry = variant.mk_flash_attention_packed_f32
         return lambda: _cuda.check(entry(qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), geom, b, s, heads, 0.125,
                                          _cuda.stream_ptr(qkv)), name)
-    return _attention_loop(card, checks, fns, time_many_ms, 300, "flash_attention_f32.cu", ATTN_F32_ABLATIONS, launch,
-                           extra)
+    extra["timed_shape"] = "4 images"
+    return _kernel_loop(card, checks, fns, time_many_ms, list(fns)[:2], 300, ATTN_F32_ABLATIONS,
+                        _variant_launch("flash_attention_f32.cu", make), extra, "products_only")
+
+
+def matcher_fp64_errors(tin) -> dict:
+    """How close K4 and its plain version come to the exact function at the
+    training shape: P from both (on the fp64 lse_col rounded to fp32) against
+    P computed in fp64, relative error over the entries above 1e-6 of the
+    largest (max and mean, the mean showing a bias); and K2a's and its plain
+    version's lse_col, max |diff| from fp64."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    d0, d1 = tin["dsc0"], tin["dsc1"]
+    s64 = torch.matmul(d0.double(), d1.double().transpose(1, 2)) * tin["inv_temp"]
+    alpha = torch.tensor(tin["alpha"], dtype=torch.float64, device=d0.device)
+    lc64 = torch.logaddexp(torch.logsumexp(s64, dim=1), alpha)
+    p64 = torch.exp(2.0 * s64 - fm._row_lse(s64, tin["alpha"])[..., None] - lc64[:, None, :])
+    del s64
+    big = p64 > 1e-6 * p64.max()
+    out = {}
+    for name, lse_fn, pair_fn in (("kernel", fm.col_lse, fm.pair_softmax), ("plain", fm.col_lse_plain, fm.pair_softmax_plain)):
+        rel = ((pair_fn(d0, d1, lc64.float(), tin["inv_temp"], tin["alpha"])[0].double() - p64) / p64)[big]
+        out[name] = {"p_max": rel.abs().max().item(), "p_mean": rel.mean().item(),
+                     "lse_col_max_abs": (lse_fn(d0, d1, tin["inv_temp"], tin["alpha"]).double() - lc64).abs().max().item()}
+        del rel
+    return out
+
+
+# csrc/corr_tf32.cuh (K2a in fused_topk.cu, K4 in dual_softmax.cu)
+MATCHER_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOADS",),
+                     "one_tf32_pass": ("MK_ABLATE_1XTF32",)}
+
+
+def matcher_report(inp, tin, card: str) -> int:
+    """``python3 chip_smoke.py --matcher``: the matcher's forward kernels on
+    the correlation engine alone. K2a and K4 against their plain versions
+    (``check_matcher_kernels``, ``check_matcher_shapes``); CUDA-event medians
+    per call of 20 enqueued back to back (``time_many_ms``) in turns: K2a
+    and its plain version at the serving shape, K4 and its plain version at
+    the training shape; the dense route's forward (K2a + K4, ``_forward``) at
+    the training shape; both kernels' and their plain versions' errors from
+    fp64 (``matcher_fp64_errors``); the bounds at the 3xTF32 rate beside the
+    fp32 FMA ones; and the timing ablations (``MATCHER_ABLATIONS``) of both
+    kernels (``_kernel_loop``)."""
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    checks = {"max_abs_err": check_matcher_kernels(inp, tin),
+              "ragged_max_abs_err": check_matcher_shapes(inp["dsc0"].device)}
+    calls = {**kernel_calls(inp), **train_kernel_calls(tin)}
+    fns = {"col_lse plain": calls["col_lse"][1], "col_lse": calls["col_lse"][0],
+           "pair_softmax plain": calls["pair_softmax"][1], "pair_softmax": calls["pair_softmax"][0]}
+    s0, s1, t0, t1 = inp["dsc0"], inp["dsc1"], tin["dsc0"], tin["dsc1"]
+    B, M, C = s0.shape
+    N = s1.shape[1]
+    Bt, Mt, _ = t0.shape
+    Nt = t1.shape[1]
+    dev = s0.device
+    chunks = fm.col_lse_chunks(fm._sm_count(dev), B, M, N)
+    extra = {"p_rel_err_vs_fp64": matcher_fp64_errors(tin),
+             "timed_shapes": {"col_lse": list(s0.shape), "pair_softmax": list(t0.shape)},
+             "col_lse_chunks": chunks,
+             "dense_forward_back_to_back_ms": round(time_many_ms(lambda: fm._forward(t0, t1, 10.0, 1.0)), 4),
+             "bound_ms": {"col_lse": col_lse_bound(s0, s1), "pair_softmax": pair_softmax_bound(t0, t1)},
+             "ffma_bound_ms": {"col_lse": col_lse_bound(s0, s1, PEAK_FP32, 1.0),
+                               "pair_softmax": pair_softmax_bound(t0, t1, PEAK_FP32, 1.0)}}
+
+    lse = torch.empty((B, N), dtype=torch.float32, device=dev)
+    part = torch.empty((B, chunks, N, 2), dtype=torch.float32, device=dev)
+    scratch_s, scratch_t = fm._corr_scratch(B, M, N, dev), fm._corr_scratch(Bt, Mt, Nt, dev)
+    geom_s, geom_t = fm.corr_geometry(B, N, M), fm.corr_geometry(Bt, Mt, Nt)
+    out = torch.empty((Bt, Mt, Nt), dtype=torch.float32, device=dev)
+    lse_row = torch.empty((Bt, Mt), dtype=torch.float32, device=dev)
+    stream = _cuda.stream_ptr(s0)
+
+    def launch(defines, name):
+        k2a = _cuda.build_variant("fused_topk.cu", defines).mk_col_lse_f32
+        k4 = _cuda.build_variant("dual_softmax.cu", defines).mk_pair_softmax_f32
+        return {f"col_lse {name}": lambda: _cuda.check(k2a(
+                    s0.data_ptr(), s1.data_ptr(), lse.data_ptr(), scratch_s.data_ptr(), part.data_ptr(), geom_s, B, M,
+                    N, C, chunks, 10.0, 1.0, stream), name),
+                f"pair_softmax {name}": lambda: _cuda.check(k4(
+                    t0.data_ptr(), t1.data_ptr(), tin["lse_col"].data_ptr(), out.data_ptr(), lse_row.data_ptr(),
+                    scratch_t.data_ptr(), geom_t, Bt, Mt, Nt, C, 10.0, 1.0, stream), name)}
+    return _kernel_loop(card, checks, fns, time_many_ms, ["col_lse", "pair_softmax"], 3000, MATCHER_ABLATIONS,
+                        launch, extra)
 
 
 def _stage_times(model, image0, image1, K0, K1, fused: bool = True) -> dict:

@@ -19,18 +19,21 @@
 //       dS = gr exp(s - lse_row) + gc exp(s - lse_col), dd0 and dd1 as in K5.
 //       It reads no (B, M, N) tensor at all: that is the point of the fused
 //       top-K training route.
-// All arithmetic is fp32 FMA on the CUDA cores, never TF32: the reference
-// computes the correlation at Precision.HIGHEST and 1/T = 10 turns TF32
-// truncation into ~0.04 logit error.
+// The reference computes the correlation at Precision.HIGHEST (1/T = 10
+// turns TF32 truncation into ~0.04 logit error). K4 runs it at fp32 accuracy
+// as 3xTF32 wgmma on the correlation engine of corr_tf32.cuh (its design and
+// bound are there): a CTA owns 64 rows of dsc0 and sweeps dsc1 twice, the
+// online row logsumexp first, then the writes of P. K5 and K6 are fp32 FMA
+// on the CUDA cores.
 //
-// What bounds them on the H100: the recomputed correlation (2 B M N C flops per
-// pass; 7.7 GFLOP at B = 8, M = N = 1938, C = 128) against 67 TFLOP/s of fp32,
-// next to one pass over the (B, M, N) matrix (P written, or G read: 120 MB at
-// 3.35 TB/s; K6 moves only the descriptors and vectors). So all four are bound
-// by operations. Design:
+// What bounds K5 and K6 on the H100: the recomputed correlation (2 B M N C
+// flops per pass; 7.7 GFLOP at B = 8, M = N = 1938, C = 128) against 67
+// TFLOP/s of fp32, next to one pass over the (B, M, N) matrix (G read: 120 MB
+// at 3.35 TB/s; K6 moves only the descriptors and vectors). So they are
+// bound by operations. Design:
 //   * one register-tiled fp32 GEMM tile (64 x 64 per CTA of 256 threads, a
 //     4 x 4 micro tile per thread, operands k-major in shared memory, the
-//     whole descriptor depth C <= 128 staged at once) shared by every kernel;
+//     whole descriptor depth C <= 128 staged at once) shared by their kernels;
 //   * a CTA owns 64 rows of one axis and loops over the other axis in 64-wide
 //     tiles, so a per-row reduction never leaves the CTA. The TPU kernels
 //     carried column sums across a sequential grid in a revisited block; here
@@ -38,13 +41,14 @@
 //     second launch that owns the other axis (dd1) or per-row-block partials
 //     summed in a fixed order by a second pass (c). No float atomics: results
 //     are the same from run to run.
-//   * K4 sweeps the other axis twice: online row max / sum-exp first, then
-//     the writes. K5's grads kernel forms the dS tile in shared memory and
-//     multiplies it with the already staged descriptor tile; K6 is the same
-//     kernel with another dS epilogue and no G tile to load.
+//   * K5's grads kernel forms the dS tile in shared memory and multiplies it
+//     with the already staged descriptor tile; K6 is the same kernel with
+//     another dS epilogue and no G tile to load.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "corr_tf32.cuh"
 
 namespace {
 
@@ -92,86 +96,6 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ As, const flo
 __device__ __forceinline__ float row_sum16(float v) {
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__global__ void __launch_bounds__(NT)
-pair_softmax_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
-                    const float* __restrict__ lse_col, float* __restrict__ out,
-                    float* __restrict__ lse_row, int M, int N, int C, float inv_temp, float alpha) {
-  extern __shared__ __align__(16) float sm[];
-  float* As = sm;
-  float* Bs = sm + C * LDA;
-  const int b = blockIdx.y, i0 = blockIdx.x * BM;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* D0 = d0 + (size_t)b * M * C;
-  const float* D1 = d1 + (size_t)b * N * C;
-  const float* LC = lse_col + (size_t)b * N;
-
-  stage_kmajor(D0, i0, M, C, As);
-  float mx[4], sx[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) mx[a] = -INFINITY, sx[a] = 0.f;
-
-  // sweep 1: online row max / sum-exp over this thread's columns
-  float acc[4][4];
-  for (int j0 = 0; j0 < N; j0 += BN) {
-    __syncthreads();
-    stage_kmajor(D1, j0, N, C, Bs);
-    __syncthreads();
-    tile_dot(As, Bs, C, acc);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (j0 + tx * 4 + c >= N) continue;
-        const float v = acc[a][c] * inv_temp;
-        if (v > mx[a]) {
-          sx[a] = sx[a] * expf(mx[a] - v) + 1.f;
-          mx[a] = v;
-        } else {
-          sx[a] += expf(v - mx[a]);
-        }
-      }
-  }
-  float lse[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    for (int o = 8; o > 0; o >>= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, mx[a], o);
-      const float os = __shfl_xor_sync(0xffffffffu, sx[a], o);
-      const float nm = fmaxf(mx[a], om);
-      const float mine = mx[a] == -INFINITY ? 0.f : sx[a] * expf(mx[a] - nm);
-      const float theirs = om == -INFINITY ? 0.f : os * expf(om - nm);
-      sx[a] = mine + theirs;
-      mx[a] = nm;
-    }
-    // the dustbin column, as the TPU kernel folds it: max(row max, alpha)
-    const float rm = fmaxf(mx[a], alpha);
-    lse[a] = logf(sx[a] * expf(mx[a] - rm) + expf(alpha - rm)) + rm;
-    const int i = i0 + ty * 4 + a;
-    if (tx == 0 && i < M) lse_row[(size_t)b * M + i] = lse[a];
-  }
-
-  // sweep 2: the dense output
-  for (int j0 = 0; j0 < N; j0 += BN) {
-    __syncthreads();
-    stage_kmajor(D1, j0, N, C, Bs);
-    __syncthreads();
-    tile_dot(As, Bs, C, acc);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = i0 + ty * 4 + a;
-      if (i >= M) continue;
-      float* orow = out + ((size_t)b * M + i) * N;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + tx * 4 + c;
-        if (j >= N) continue;
-        const float v = acc[a][c] * inv_temp;
-        orow[j] = expf(v - lse[a]) * expf(v - LC[j]);
-      }
-    }
-  }
 }
 
 __global__ void __launch_bounds__(NT)
@@ -372,18 +296,16 @@ int set_smem(const void* fn, size_t bytes) {
 
 extern "C" int mk_dual_softmax_row_blocks(int M) { return (M + BM - 1) / BM; }
 
+// d0 (B, M, C), d1 (B, N, C) fp32, C <= 128, lse_col (B, N) -> out (B, M, N),
+// lse_row (B, M). scratch: 2 (B M + B N) 128 floats (corr_launch); geom: the
+// maps of dsc0's split (own) then dsc1's.
 extern "C" int mk_pair_softmax_f32(const void* d0, const void* d1, const void* lse_col, void* out,
-                                   void* lse_row, int B, int M, int N, int C, float inv_temp,
-                                   float alpha, void* stream) {
-  if (C < 1 || C > CMAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = operand_bytes(C);
-  int e = set_smem((const void*)pair_softmax_kernel, smem);
-  if (e) return e;
-  pair_softmax_kernel<<<dim3((M + BM - 1) / BM, B), NT, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(d0), static_cast<const float*>(d1),
-      static_cast<const float*>(lse_col), static_cast<float*>(out), static_cast<float*>(lse_row),
-      M, N, C, inv_temp, alpha);
-  return (int)cudaGetLastError();
+                                   void* lse_row, void* scratch, const long long* geom, int B, int M,
+                                   int N, int C, float inv_temp, float alpha, void* stream) {
+  return corr_launch<true>(static_cast<const float*>(d0), static_cast<const float*>(d1),
+                           static_cast<float*>(scratch), geom, B, M, N, C, 1, inv_temp, alpha, nullptr,
+                           static_cast<const float*>(lse_col), static_cast<float*>(out),
+                           static_cast<float*>(lse_row), static_cast<cudaStream_t>(stream));
 }
 
 // cpart: scratch of (B, mk_dual_softmax_row_blocks(M), N) floats.

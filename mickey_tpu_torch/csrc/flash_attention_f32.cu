@@ -123,18 +123,6 @@ constexpr bool ONE_PASS = true;
 constexpr bool ONE_PASS = false;
 #endif
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values (fp32 bit patterns)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
 __device__ __forceinline__ float ex2(float x) {
 #ifdef MK_ABLATE_EXP
   return x * 0.5f;
@@ -262,15 +250,6 @@ __device__ __forceinline__ void issue_pv(float (&pv)[32], const uint32_t (&ph)[1
     wgmma_n64(pv, h[0], h[1], h[2], h[3], dh, ONE_PASS ? kk != 0 : 1);
   }
   wgmma_commit();
-}
-
-__device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c1, int c2, int h,
-                                          int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c1), "r"(c2), "r"(h), "r"(b)
-      : "memory");
 }
 
 struct Maps {

@@ -13,28 +13,30 @@
 //        the row's top-L (value, flat index i*N + j) by L rounds of
 //        max / first index / mask, and the row's validity partials
 //        (mass, non-finite count, minimum).
-// The correlation is plain fp32 FMA, never TF32: the reference computes it at
-// Precision.HIGHEST and 1/T = 10 turns truncation into ~0.04 logit error.
+// The reference computes the correlation at Precision.HIGHEST (1/T = 10
+// turns TF32 truncation into ~0.04 logit error). K2a runs it at fp32
+// accuracy as 3xTF32 wgmma on the correlation engine of corr_tf32.cuh
+// (its design and bound are there): each CTA owns 64 columns (dsc1 rows)
+// and sweeps one chunk of dsc0's rows; col_lse_combine_kernel folds the
+// chunks' (max, sum) partials in a fixed order and adds alpha, so no float
+// atomics and two launches agree bitwise. K2b is plain fp32 FMA on the CUDA
+// cores.
 //
-// What bounds it on the H100: each pass recomputes the B x M x N x C
-// correlation (~0.5 GFMA per pair at M = N = 1938, C = 128) in fp32 on the
-// CUDA cores, so both kernels are compute bound; the device memory traffic is
-// only the descriptors and the (B, L, M) table. K2a gives each CTA a 32-column
-// tile of dsc1 held in shared memory and streams all M rows of dsc0 through
-// it (no cross-CTA carry, unlike the TPU's revisited stats block). K2b gives
-// each warp one row: the row's N scores live in shared memory, so the
-// softmax, the final scores and all L selection rounds touch device memory
-// once. CTAs of 8 warps share each staged chunk of dsc1.
+// What bounds K2b on the H100: it recomputes the B x M x N x C correlation
+// (~0.5 GFMA per pair at M = N = 1938, C = 128) in fp32 on the CUDA cores;
+// the device memory traffic is only the descriptors and the (B, L, M) table.
+// K2b gives each warp one row: the row's N scores live in shared memory, so
+// the softmax, the final scores and all L selection rounds touch device
+// memory once. CTAs of 8 warps share each staged chunk of dsc1.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "corr_tf32.cuh"
+
 namespace {
 
-constexpr int CT = 32;      // K2a: columns per CTA
-constexpr int RC = 64;      // K2a: dsc0 rows per staged chunk
-constexpr int NT_A = 256;   // K2a: 8 row groups x 32 columns
 constexpr int WR = 8;       // K2b: rows (warps) per CTA
 constexpr int CJ = 64;      // K2b: dsc1 rows per staged chunk
 
@@ -45,64 +47,23 @@ __device__ __forceinline__ float logaddexp(float x, float y) {
   return fmaxf(x, y) + log1pf(expf(-fabsf(d)));
 }
 
-__global__ void __launch_bounds__(NT_A)
-col_lse_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
-               float* __restrict__ lse_col, int M, int N, int C, float inv_temp, float alpha) {
-  extern __shared__ float sm[];
-  float* d1t = sm;                     // C x (CT + 1), transposed dsc1 tile
-  float* d0s = sm + C * (CT + 1);      // RC x C chunk of dsc0
-  __shared__ float red_m[NT_A / CT][CT], red_s[NT_A / CT][CT];
-
-  const int b = blockIdx.y, j0 = blockIdx.x * CT;
-  const int col = threadIdx.x % CT, rg = threadIdx.x / CT;
-  const float* D0 = d0 + (size_t)b * M * C;
-  const float* D1 = d1 + (size_t)b * N * C;
-
-  for (int e = threadIdx.x; e < CT * C; e += NT_A) {
-    int jj = e / C, k = e % C, j = j0 + jj;
-    d1t[k * (CT + 1) + jj] = j < N ? D1[(size_t)j * C + k] : 0.f;
+// lse_col[b, j] = logaddexp(logsumexp of column j, alpha) from the engine's
+// partials part[b, chunk, j] = (shift, sum of exp2(u - shift)), u = s log2 e,
+// summed over the chunks in order.
+__global__ void col_lse_combine_kernel(const float2* __restrict__ part, float* __restrict__ lse_col, int B,
+                                       int chunks, int N, float alpha) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= B * N) return;
+  const int b = e / N, j = e % N;
+  const float2* p = part + static_cast<long long>(b) * chunks * N + j;
+  float top = -INFINITY;
+  for (int k = 0; k < chunks; ++k) top = fmaxf(top, p[static_cast<long long>(k) * N].x);
+  float tot = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    const float2 v = p[static_cast<long long>(k) * N];
+    tot += v.y * exp2f(v.x - top);
   }
-
-  float m = -INFINITY, s = 0.f;  // online column max / sum-exp of this thread's rows
-  constexpr int RPT = RC / (NT_A / CT);  // rows per thread per chunk
-  for (int r0 = 0; r0 < M; r0 += RC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < RC * C; e += NT_A) {
-      int rr = e / C, row = r0 + rr;
-      d0s[e] = row < M ? D0[(size_t)row * C + (e % C)] : 0.f;
-    }
-    __syncthreads();
-    float acc[RPT];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
-    for (int k = 0; k < C; ++k) {
-      float w = d1t[k * (CT + 1) + col];
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) acc[q] = fmaf(d0s[(rg * RPT + q) * C + k], w, acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if (r0 + rg * RPT + q >= M) break;
-      float v = acc[q] * inv_temp;
-      if (v > m) {
-        s = s * expf(m - v) + 1.f;
-        m = v;
-      } else {
-        s += expf(v - m);
-      }
-    }
-  }
-  red_m[rg][col] = m;
-  red_s[rg][col] = s;
-  __syncthreads();
-  if (rg == 0 && j0 + col < N) {
-    float mx = -INFINITY;
-    for (int g = 0; g < NT_A / CT; ++g) mx = fmaxf(mx, red_m[g][col]);
-    float tot = 0.f;
-    for (int g = 0; g < NT_A / CT; ++g)
-      if (red_m[g][col] != -INFINITY) tot += red_s[g][col] * expf(red_m[g][col] - mx);
-    lse_col[(size_t)b * N + j0 + col] = logaddexp(logf(tot) + mx, alpha);
-  }
+  lse_col[e] = logaddexp((log2f(tot) + top) * CORR_LN2, alpha);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -218,17 +179,23 @@ pair_topk_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
 
 }  // namespace
 
-extern "C" int mk_col_lse_f32(const void* d0, const void* d1, void* lse_col, int B, int M, int N,
-                              int C, float inv_temp, float alpha, void* stream) {
-  size_t smem = (size_t)(C * (CT + 1) + RC * C) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(col_lse_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + CT - 1) / CT, B);
-  col_lse_kernel<<<grid, NT_A, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(d0), static_cast<const float*>(d1),
-      static_cast<float*>(lse_col), M, N, C, inv_temp, alpha);
-  return (int)cudaGetLastError();
+// d0 (B, M, C), d1 (B, N, C) fp32, C <= 128 -> lse_col (B, N). scratch:
+// 2 (B M + B N) 128 floats (corr_launch); part: B x chunks x N float2, the
+// chunks of dsc0's rows (at most `chunks`, corr_chunks); geom: the maps of
+// dsc1's split (own) then dsc0's.
+extern "C" int mk_col_lse_f32(const void* d0, const void* d1, void* lse_col, void* scratch, void* part,
+                              const long long* geom, int B, int M, int N, int C, int chunks, float inv_temp,
+                              float alpha, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chunks < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  chunks = corr_chunks(M, chunks);
+  int rc = corr_launch<false>(static_cast<const float*>(d0), static_cast<const float*>(d1),
+                              static_cast<float*>(scratch), geom, B, M, N, C, chunks, inv_temp, alpha,
+                              static_cast<float2*>(part), nullptr, nullptr, nullptr, st);
+  if (rc != 0) return rc;
+  col_lse_combine_kernel<<<(B * N + 255) / 256, 256, 0, st>>>(static_cast<const float2*>(part),
+                                                                static_cast<float*>(lse_col), B, chunks, N, alpha);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" size_t mk_pair_topk_smem_bytes(int N, int C) {

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the two attention kernels
-// (flash_attention_packed.cu, bf16; flash_attention_f32.cu, fp32 operands):
-// mbarriers, the shared-memory matrix descriptor of a 128-byte-swizzled
-// tile, the wgmma fence / commit / wait, and the tensor-map encoder looked up
-// in libcuda.
+// Hopper building blocks shared by the attention kernels
+// (flash_attention_packed.cu, bf16; flash_attention_f32.cu, fp32 operands)
+// and the matcher's correlation engine (corr_tf32.cuh): mbarriers, the
+// shared-memory matrix descriptor of a 128-byte-swizzled tile, the wgmma
+// fence / commit / wait, the TF32 hi / lo split of 3xTF32 products, the 5-D
+// TMA load, and the tensor-map encoder looked up in libcuda.
 
 #pragma once
 
@@ -61,6 +62,29 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values (fp32 bit patterns)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// One TMA box of a 5-D map (innermost coordinate 0) into shared memory at
+// `dst`, completing on the mbarrier at `bar`.
+__device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c1, int c2, int h,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c1), "r"(c2), "r"(h), "r"(b)
+      : "memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

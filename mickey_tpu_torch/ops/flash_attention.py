@@ -49,6 +49,7 @@ import math
 import torch
 
 from . import _cuda
+from .tf32 import tf32_split
 
 NEG_INF = -1e30  # the TPU kernels' mask value
 
@@ -271,18 +272,6 @@ def attention_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq
         acc = alpha * acc + torch.matmul(p.to(v.dtype).float(), vf[:, :, k0:k0 + block_k])
         m = m_new
     return (acc / denom.clamp_min(1e-30)).to(q.dtype)
-
-
-def tf32_split(x: torch.Tensor):
-    """fp32 ``x`` -> (hi, lo), both TF32 values (10 mantissa bits) in fp32:
-    hi = x rounded to nearest TF32, ties away from zero (``cvt.rna.tf32.f32``,
-    done here on the bits), lo = the same rounding of x - hi (exact in fp32).
-    x - hi - lo is within 2^-22 |x|."""
-    def rna(y):
-        return ((y.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-
-    hi = rna(x)
-    return hi, rna(x - hi)
 
 
 def attention_3xtf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: int,

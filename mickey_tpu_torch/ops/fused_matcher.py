@@ -24,6 +24,12 @@ P = A*B and upstream cotangent G,
     d alpha = -sum_j exp(a - lse_col_j) c_j - sum_i exp(a - lse_row_i) r_i
 
 Forward (K4): ``col_lse`` again, then ``pair_softmax`` (``csrc/dual_softmax.cu``).
+K2a and K4 compute the correlation at fp32 accuracy as 3xTF32 on the tensor
+cores (the engine of ``csrc/corr_tf32.cuh``): each wrapper splits the
+descriptors once into TF32 hi / lo parts in a scratch buffer that its kernels
+read through TMA tensor maps (``corr_geometry``). ``corr_3xtf32_plain``,
+``col_lse_3xtf32_plain`` and ``pair_softmax_3xtf32_plain`` repeat that
+arithmetic on the CPU, for the tests.
 Backward (K5): ``dual_softmax_bwd_sums`` (r, c) and ``dual_softmax_bwd_grads``
 (dd0, dd1), both recomputing the correlation from the saved logsumexps.
 
@@ -51,9 +57,15 @@ of the fused training route.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
 from . import _cuda
+from .flash_attention import map_geometry
+from .tf32 import desc_split
 
 NEG_INF = -1e30
 
@@ -68,27 +80,93 @@ def _correlation(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float) -> tor
     return torch.matmul(dsc0.float(), dsc1.float().transpose(1, 2)) * inv_temp
 
 
+# -- the correlation engine (K2a, K4): 3xTF32 on descriptors split once --------
+
+CORR_C = 128  # channels of the engine's scratch (csrc/corr_tf32.cuh CORR_C): the deepest descriptor
+CORR_ROWS = 64  # rows of a TMA box, own tile and other tile alike (CORR_BM, CORR_BN)
+
+
+def corr_3xtf32_plain(x_own: torch.Tensor, x_oth: torch.Tensor, inv_temp: float, passes: int = 3) -> torch.Tensor:
+    """The engine's correlation on the CPU: (B, R_own, C) x (B, R_oth, C) ->
+    (B, R_own, R_oth) = x_own x_oth^T * inv_temp, both split by
+    ``desc_split``, the product as the lo*hi and hi*lo passes summed first,
+    then hi*hi (``passes=1``: hi*hi alone, one TF32 product), every term exact
+    in fp32 and the sums in fp32."""
+    (ah, al), (bh, bl) = (desc_split(x.float()) for x in (x_own, x_oth))
+    bh, bl = bh.transpose(1, 2), bl.transpose(1, 2)
+    hh = torch.matmul(ah, bh)
+    s = hh if passes == 1 else (torch.matmul(al, bh) + torch.matmul(ah, bl)) + hh
+    return s * inv_temp
+
+
+def _col_lse_from(s: torch.Tensor, alpha: float) -> torch.Tensor:
+    lse = torch.logsumexp(s, dim=1)  # (B, N)
+    return torch.logaddexp(lse, torch.tensor(alpha, dtype=lse.dtype, device=lse.device))
+
+
+def col_lse_3xtf32_plain(dsc0, dsc1, inv_temp: float, alpha: float, passes: int = 3) -> torch.Tensor:
+    """K2a's arithmetic on the CPU: ``col_lse_plain`` on the engine's
+    correlation (own = dsc1)."""
+    return _col_lse_from(corr_3xtf32_plain(dsc1, dsc0, inv_temp, passes).transpose(1, 2), alpha)
+
+
+def pair_softmax_3xtf32_plain(dsc0, dsc1, lse_col, inv_temp: float, alpha: float, passes: int = 3):
+    """K4's arithmetic on the CPU: ``pair_softmax_plain`` on the engine's
+    correlation (own = dsc0)."""
+    return _pair_softmax_from(corr_3xtf32_plain(dsc0, dsc1, inv_temp, passes), lse_col, alpha)
+
+
+@functools.lru_cache(maxsize=64)
+def corr_geometry(b: int, n_own: int, n_oth: int):
+    """The ``geom`` argument of the engine's C entries: the tensor maps of
+    the split own rows, then of the other rows, each a contiguous
+    (B, rows, 128) fp32 array read ``CORR_ROWS`` rows of all 128 channels a
+    box (``map_geometry`` of it as (B, 1, rows, 128): dims (32, rows, 4, 1,
+    B), a box (32, 64, 4, 1, 1) lands as four blocks of 64 128-byte rows)."""
+    maps = [map_geometry((b, 1, rows, CORR_C), (rows * CORR_C, rows * CORR_C, CORR_C, 1), 4, CORR_ROWS, CORR_C)
+            for rows in (n_own, n_oth)]
+    return (ctypes.c_longlong * 28)(*(x for g in maps for part in g for x in part))
+
+
+def _corr_scratch(b: int, m: int, n: int, device, extra: int = 0) -> torch.Tensor:
+    """The split descriptors: dsc0 hi, lo, then dsc1 hi, lo, each (B, rows,
+    128), and ``extra`` floats after them (K2a's partials)."""
+    return torch.empty(2 * (b * m + b * n) * CORR_C + extra, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def col_lse_chunks(sms: int, b: int, m: int, n: int) -> int:
+    """How many chunks K2a splits dsc0's rows into: enough CTAs (B times
+    N / 64 column tiles, times the chunks) for one wave on ``sms`` SMs at one
+    CTA an SM, at most one chunk per 64 rows."""
+    tiles = b * math.ceil(n / CORR_ROWS)
+    return max(1, min(math.ceil(m / CORR_ROWS), sms // tiles))
+
+
 # -- K2a: column logsumexp -----------------------------------------------------
 
 
 def col_lse_plain(dsc0, dsc1, inv_temp: float, alpha: float) -> torch.Tensor:
-    s = _correlation(dsc0, dsc1, inv_temp)
-    lse = torch.logsumexp(s, dim=1)  # (B, N)
-    return torch.logaddexp(lse, torch.tensor(alpha, dtype=lse.dtype, device=lse.device))
+    return _col_lse_from(_correlation(dsc0, dsc1, inv_temp), alpha)
 
 
 def col_lse(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float, alpha: float) -> torch.Tensor:
     """(B, N) logaddexp(logsumexp_i s_ij, alpha) with s = dsc0 dsc1^T * inv_temp."""
     if dsc0.device.type == "cpu":
         return col_lse_plain(dsc0, dsc1, inv_temp, alpha)
-    B, M, C = dsc0.shape
-    N = dsc1.shape[1]
-    _cuda.require(dsc0, "dsc0", torch.float32, (B, M, C), dsc0.device)
-    _cuda.require(dsc1, "dsc1", torch.float32, (B, N, C), dsc0.device)
-    out = torch.empty((B, N), dtype=torch.float32, device=dsc0.device)
+    B, M, N, C = _require_descs(dsc0, dsc1, "col_lse")
+    dev = dsc0.device
+    chunks = col_lse_chunks(_sm_count(dev), B, M, N)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    scratch = _corr_scratch(B, M, N, dev, extra=B * chunks * N * 2)  # the chunks' (max, sum) partials last
+    part = scratch.data_ptr() + 4 * 2 * (B * M + B * N) * CORR_C
     rc = _cuda.lib().mk_col_lse_f32(
-        dsc0.data_ptr(), dsc1.data_ptr(), out.data_ptr(), B, M, N, C,
-        float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
+        dsc0.data_ptr(), dsc1.data_ptr(), out.data_ptr(), scratch.data_ptr(), part,
+        corr_geometry(B, N, M), B, M, N, C, chunks, float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
     )
     _cuda.check(rc, "col_lse")
     _cuda.LAUNCHES["col_lse"] += 1
@@ -227,8 +305,8 @@ def dense_topk_scores(scores: torch.Tensor, prefilter: int, row_topl: int = 16):
 
 # -- K4: dense dual-softmax (training forward) -----------------------------------
 
-# deepest descriptor the dual-softmax kernels stage (csrc/dual_softmax.cu CMAX)
-DUAL_SOFTMAX_MAX_C = 128
+# deepest descriptor the matcher kernels take (csrc/corr_tf32.cuh, csrc/dual_softmax.cu CMAX)
+DUAL_SOFTMAX_MAX_C = CORR_C
 
 
 def _require_descs(dsc0, dsc1, name: str):
@@ -241,10 +319,13 @@ def _require_descs(dsc0, dsc1, name: str):
     return B, M, N, C
 
 
-def pair_softmax_plain(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
-    s = _correlation(dsc0, dsc1, inv_temp)
+def _pair_softmax_from(s: torch.Tensor, lse_col: torch.Tensor, alpha: float):
     lse_row = _row_lse(s, alpha)
     return torch.exp(s - lse_row[..., None]) * torch.exp(s - lse_col[:, None, :]), lse_row
+
+
+def pair_softmax_plain(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
+    return _pair_softmax_from(_correlation(dsc0, dsc1, inv_temp), lse_col, alpha)
 
 
 def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
@@ -254,11 +335,14 @@ def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
         return pair_softmax_plain(dsc0, dsc1, lse_col, inv_temp, alpha)
     B, M, N, C = _require_descs(dsc0, dsc1, "pair_softmax")
     _cuda.require(lse_col, "lse_col", torch.float32, (B, N), dsc0.device)
-    out = torch.empty((B, M, N), dtype=torch.float32, device=dsc0.device)
-    lse_row = torch.empty((B, M), dtype=torch.float32, device=dsc0.device)
+    dev = dsc0.device
+    out = torch.empty((B, M, N), dtype=torch.float32, device=dev)
+    lse_row = torch.empty((B, M), dtype=torch.float32, device=dev)
+    scratch = _corr_scratch(B, M, N, dev)
     rc = _cuda.lib().mk_pair_softmax_f32(
         dsc0.data_ptr(), dsc1.data_ptr(), lse_col.data_ptr(), out.data_ptr(), lse_row.data_ptr(),
-        B, M, N, C, float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
+        scratch.data_ptr(), corr_geometry(B, M, N), B, M, N, C, float(inv_temp), float(alpha),
+        _cuda.stream_ptr(dsc0),
     )
     _cuda.check(rc, "pair_softmax")
     _cuda.LAUNCHES["pair_softmax"] += 1

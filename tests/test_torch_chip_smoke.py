@@ -299,3 +299,94 @@ def test_f32_attention_bounds_count_tf32_passes():
     assert bounds["flash_attention_packed_upcast"][0] == pytest.approx(max(old_ops, old_bytes))
     assert chip_smoke.k1_old_bound(inp) == bounds["flash_attention_packed_upcast"]
     assert 3 / chip_smoke.PEAK_BF16 < 2 / chip_smoke.PEAK_TF32  # three bf16 passes are the cheaper split
+
+
+def test_matcher_checks_rehearsal():
+    """``--matcher``'s checks at a tiny size, plain against plain: K2a at both
+    shapes and K4 with their launch-to-launch comparisons, and the ragged
+    sizes with the dustbin on and off, an infinite descriptor and a NaN row
+    (NaN and infinities where the plain version has them)."""
+    inp = _tiny_kernel_inputs()
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    errs = chip_smoke.check_matcher_kernels(inp, tin)
+    assert set(errs) == {"col_lse serving", "col_lse training", "pair_softmax training"}
+    assert all(e == 0.0 for e in errs.values())
+    assert chip_smoke.check_matcher_shapes("cpu", sizes=(70, 65, 64, 1), desc=16) == 0.0
+
+
+def _unmasked_pad(x: torch.Tensor) -> torch.Tensor:
+    """x (B, R, C) with zero rows up to a multiple of 64: what a TMA box past
+    the end holds."""
+    pad = -x.shape[1] % 64
+    return torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], dim=1)
+
+
+def test_matcher_checks_catch_a_wrong_kernel(monkeypatch):
+    """A K2a that counts the zero-filled rows past M (score 0) fails the
+    ragged check; so does a K4 that counts the columns past N in lse_row; a
+    K2a that sums its chunks in another order from call to call fails the
+    bitwise launch check."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    plain_col, plain_pair = fm.col_lse, fm.pair_softmax
+    monkeypatch.setattr(fm, "col_lse", lambda d0, d1, it, a: plain_col(_unmasked_pad(d0), d1, it, a))
+    with pytest.raises(chip_smoke.SmokeError, match="col_lse"):
+        chip_smoke.check_matcher_shapes("cpu", sizes=(70, 65), desc=16)
+    monkeypatch.setattr(fm, "col_lse", plain_col)
+
+    def unmasked_pair(d0, d1, lse_col, it, a):
+        out, lse_row = plain_pair(d0, d1, lse_col, it, a)
+        padded = fm._row_lse(fm._correlation(d0, _unmasked_pad(d1), it), a)
+        return out, padded
+
+    monkeypatch.setattr(fm, "pair_softmax", unmasked_pair)
+    with pytest.raises(chip_smoke.SmokeError, match="lse_row"):
+        chip_smoke.check_matcher_shapes("cpu", sizes=(70, 65), desc=16)
+    monkeypatch.setattr(fm, "pair_softmax", plain_pair)
+
+    calls = []
+
+    def drifting(d0, d1, it, a):
+        calls.append(0)
+        return plain_col(d0, d1, it, a) * (1 + 1e-7 * (len(calls) % 2))
+
+    monkeypatch.setattr(fm, "col_lse", drifting)
+    with pytest.raises(chip_smoke.SmokeError, match="two launches"):
+        chip_smoke.check_matcher_kernels(_tiny_kernel_inputs(),
+                                         chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16))
+
+
+def test_matcher_bounds_count_tf32_passes():
+    """K2a's and K4's bounds are three TF32 passes of one correlation at 495
+    TFLOP/s (K4's second sweep is not counted), the fp32 FMA bound of the
+    bodies they replaced one pass at 67 TFLOP/s; against the bytes read and
+    written once."""
+    inp = _tiny_kernel_inputs()
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    bounds = chip_smoke.kernel_bounds(inp, tin)
+    b, m, c = inp["dsc0"].shape
+    n = inp["dsc1"].shape[1]
+    flops = 2.0 * b * m * n * c
+    col_bytes = (b * m * c + b * n * c + b * n) * 4
+    assert bounds["col_lse"][0] == pytest.approx(
+        max(3 * flops / chip_smoke.PEAK_TF32, col_bytes / chip_smoke.PEAK_BYTES) * 1e3)
+    assert chip_smoke.col_lse_bound(inp["dsc0"], inp["dsc1"], chip_smoke.PEAK_FP32, 1.0)[0] == pytest.approx(
+        max(flops / chip_smoke.PEAK_FP32, col_bytes / chip_smoke.PEAK_BYTES) * 1e3)
+    bt, mt, ct = tin["dsc0"].shape
+    nt = tin["dsc1"].shape[1]
+    pair_bytes = (bt * mt * ct + bt * nt * ct + bt * nt + bt * mt * nt + bt * mt) * 4
+    assert bounds["pair_softmax"][0] == pytest.approx(
+        max(3 * 2.0 * bt * mt * nt * ct / chip_smoke.PEAK_TF32, pair_bytes / chip_smoke.PEAK_BYTES) * 1e3)
+    # at the training shape the products bind, not P's 120 MB
+    big = torch.empty((8, 1938, 128), device="meta")
+    ms, by = chip_smoke.pair_softmax_bound(big, big)
+    assert by == "operations" and ms == pytest.approx(3 * 2.0 * 8 * 1938 ** 2 * 128 / chip_smoke.PEAK_TF32 * 1e3)
+
+
+
+def test_matcher_fp64_errors_rehearsal():
+    """``--matcher``'s distance to fp64 at a tiny size: the plain versions
+    on the CPU come within fp32 rounding of it."""
+    errs = chip_smoke.matcher_fp64_errors(chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16))
+    assert set(errs) == {"kernel", "plain"}
+    assert all(e["p_max"] < 1e-5 and e["lse_col_max_abs"] < 1e-5 for e in errs.values())

@@ -150,3 +150,33 @@ def test_kernels_match_plain(cuda, shape):
                                                         tin["lse_col"], 10.0)
     errs = chip_smoke.check_train_kernels(tin)
     assert set(errs) == {"pair_softmax", "dual_softmax_bwd_sums", "dual_softmax_bwd_grads"}
+
+
+# -- K4's arithmetic: 3xTF32 on the correlation engine ---------------------------------
+
+
+@pytest.mark.parametrize("use_dustbin", [True, False])
+@pytest.mark.parametrize("shape", [(2, 37, 45, 16), (1, 129, 65, 128), (2, 70, 1, 128)])
+def test_pair_softmax_3xtf32_plain_matches_jax_interpret(shape, use_dustbin):
+    """K4's arithmetic (descriptors split once, lo*hi + hi*lo, then hi*hi)
+    against the JAX kernels' P and lse_row at DS_RTOL (1e-4 |ref| + 1e-6
+    max|ref|), on the JAX lse_col; one TF32 pass (hi*hi alone) is the
+    negative control whose P misses it."""
+    from mickey_tpu.ops import fused_matcher as jfm
+
+    b, m, n, c = shape
+    d0, d1, _ = _inputs(shape, seed=30 + m)
+    p0, p1, alpha = jfm._pad_inputs(jnp.asarray(d0), jnp.asarray(d1), jnp.float32(0.7), use_dustbin, 128)
+    out, lse_row, lse_col = (np.asarray(x) for x in jfm._forward_padded(p0, p1, alpha, 10.0, m, n, 128, True))
+    out, lse_row, lse_col = out[:, :m, :n], lse_row.reshape(b, -1)[:, :m], lse_col[:, 0, :n]
+
+    def ratio(x, ref):
+        x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+        return (np.abs(x - ref) / (1e-4 * np.abs(ref) + 1e-6 * np.abs(ref).max())).max()
+
+    t0, t1, lc = torch.from_numpy(d0), torch.from_numpy(d1), torch.from_numpy(lse_col)
+    a = fm._alpha(0.7, use_dustbin)
+    p, lr = fm.pair_softmax_3xtf32_plain(t0, t1, lc, 10.0, a)
+    assert ratio(p, out) <= 1.0 and ratio(lr, lse_row) <= 1.0
+    if n > 1:  # a single column: P is 1 whatever the score
+        assert ratio(fm.pair_softmax_3xtf32_plain(t0, t1, lc, 10.0, a, passes=1)[0], out) > 1.0

@@ -103,3 +103,98 @@ def test_kernels_match_plain(cuda, ties, nan):
     torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-9, equal_nan=True)
     if ties or nan:  # the selection semantics: exact where the inputs tie exactly
         assert (out[1] == ref[1]).float().mean().item() > 0.999
+
+
+# -- K2a's arithmetic: 3xTF32 on the correlation engine ------------------------------
+
+# (B, M, N, C): ragged tiles, a single row, the production depth
+TF32_SHAPES = [(2, 37, 45, 16), (1, 129, 65, 128), (2, 1, 70, 128)]
+
+
+def _jax_forward(d0, d1, use_dustbin):
+    """lse_col (B, N), P (B, M, N), lse_row (B, M) of the JAX package's
+    forward (``_forward_padded``, Pallas in interpret mode), cropped."""
+    b, m, _ = d0.shape
+    n = d1.shape[1]
+    p0, p1, alpha = jfm._pad_inputs(jnp.asarray(d0), jnp.asarray(d1), jnp.float32(0.7), use_dustbin, 128)
+    out, lse_row, lse_col = jfm._forward_padded(p0, p1, alpha, 10.0, m, n, 128, True)
+    return (np.asarray(lse_col)[:, 0, :n], np.asarray(out)[:, :m, :n], np.asarray(lse_row).reshape(b, -1)[:, :m])
+
+
+def _ratio(out, ref, rtol):
+    """max |out - ref| over the kernels' bound rtol |ref| + 1e-6 max|ref|
+    (chip_smoke's RTOL / DS_RTOL checks): <= 1 passes."""
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return (np.abs(out - ref) / (rtol * np.abs(ref) + 1e-6 * np.abs(ref).max())).max()
+
+
+@pytest.mark.parametrize("use_dustbin", [True, False])
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_col_lse_3xtf32_plain_matches_jax_interpret(shape, use_dustbin):
+    """K2a's arithmetic (descriptors split once, lo*hi + hi*lo, then hi*hi)
+    against the JAX kernel's lse_col at RTOL (1e-5 |ref| + 1e-6 max|ref|);
+    one TF32 pass (hi*hi alone) is the negative control that misses it."""
+    b, m, n, c = shape
+    d0, d1, _, _ = _inputs(b, m, n, c, seed=20 + m)
+    ref = _jax_forward(d0, d1, use_dustbin)[0]
+    t0, t1 = torch.from_numpy(d0), torch.from_numpy(d1)
+    alpha = fm._alpha(0.7, use_dustbin)
+    assert _ratio(fm.col_lse_3xtf32_plain(t0, t1, 10.0, alpha), ref, 1e-5) <= 1.0
+    assert _ratio(fm.col_lse_3xtf32_plain(t0, t1, 10.0, alpha, passes=1), ref, 1e-5) > 1.0
+
+
+def test_desc_split_keeps_an_inf_descriptor_infinite():
+    """An infinite descriptor value gives the fp32 product's +-inf scores
+    through the engine's split: hi truncated (x, hi and lo of one sign), lo
+    0 where hi is infinite and 2^-126 with x's sign where x is an exact TF32
+    number. NaN stays NaN. The attention kernels' split (hi rounded to
+    nearest) gives NaN there: its lo of an infinity is NaN, and with that lo
+    set to 0 a lo of the other sign still makes inf - inf."""
+    from mickey_tpu_torch.ops.tf32 import desc_split, tf32_split
+
+    d0, d1, _, _ = _inputs(1, 6, 9, 16, seed=5)
+    d0[0, 2, 3] = np.inf
+    d0[0, 4, 0] = np.nan
+    d1[0, :2, 3] = [0.5, -0.75]  # exact in TF32: lo would be 0
+    t0, t1 = torch.from_numpy(d0), torch.from_numpy(d1)
+    ref = fm._correlation(t0, t1, 10.0)
+    assert torch.isinf(ref[0, 2]).all() and torch.isnan(ref[0, 4]).all()
+    torch.testing.assert_close(fm.corr_3xtf32_plain(t0, t1, 10.0), ref, rtol=1e-5, atol=1e-5, equal_nan=True)
+    hi, lo = desc_split(t1)
+    assert ((torch.sign(hi) == torch.sign(t1)) & (torch.sign(lo) == torch.sign(t1))).all()
+    assert lo[0, :2, 3].tolist() == [2.0 ** -126, -(2.0 ** -126)]
+    assert desc_split(torch.tensor([np.inf, -np.inf, 0.0]))[1].tolist() == [0.0, 0.0, 0.0]
+
+    def product(split):
+        (ah, al), (bh, bl) = split(t0), split(t1)
+        return (al @ bh.transpose(1, 2) + ah @ bl.transpose(1, 2)) + ah @ bh.transpose(1, 2)
+
+    assert torch.isnan(product(tf32_split)[0, 2]).all()
+
+    def rna_lo0(x):
+        hi, lo = tf32_split(x)
+        return hi, torch.where(torch.isfinite(hi), lo, torch.zeros_like(lo))
+
+    assert torch.isnan(product(rna_lo0)[0, 2]).any()
+
+
+def test_corr_geometry():
+    """The engine's tensor maps: a (B, rows, 128) fp32 scratch array as
+    dims (32, rows, 4, 1, B) with byte strides (512, 128, rows 512, rows 512)
+    and a box of 64 rows of all four 128-byte blocks; own map first."""
+    geom = list(fm.corr_geometry(2, 1938, 129))
+    own = [32, 1938, 4, 1, 2, 512, 128, 1938 * 512, 1938 * 512, 32, 64, 4, 1, 1]
+    oth = [32, 129, 4, 1, 2, 512, 128, 129 * 512, 129 * 512, 32, 64, 4, 1, 1]
+    assert geom == own + oth
+    assert list(fm.corr_geometry(1, 1, 64))[:14] == [32, 1, 4, 1, 1, 512, 128, 512, 512, 32, 64, 4, 1, 1]
+
+
+def test_col_lse_chunks():
+    """K2a's chunks of dsc0's rows fill one wave at one CTA an SM: 2 x 31
+    column tiles x 2 chunks = 124 CTAs on 132 SMs at the serving shape; the
+    training shape (8 x 31 tiles) needs none; never more than a chunk per
+    64 rows."""
+    assert fm.col_lse_chunks(132, 2, 1938, 1938) == 2
+    assert fm.col_lse_chunks(132, 8, 1938, 1938) == 1
+    assert fm.col_lse_chunks(132, 1, 70, 64) == 2
+    assert fm.col_lse_chunks(132, 1, 1, 1) == 1
