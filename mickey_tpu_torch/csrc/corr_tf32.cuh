@@ -11,9 +11,10 @@
 // Numerics: every descriptor value x is split once into TF32 hi (x
 // truncated) and lo = cvt.rna(x - hi) (split_desc), and a product is three
 // passes over the 128 channels, lo*hi, hi*lo and hi*hi, in short
-// accumulator chains summed in registers (issue_corr). What is dropped (lo*lo, the split's residuals) is ~2^-20 of each term; one
-// TF32 pass alone would leave ~1e-3 of logit error at 1/T = 10. The logsumexps
-// run in the exp2 domain (u = s log2 e) with an online max; a running max
+// accumulator chains summed in registers (issue_corr). What is dropped
+// (lo*lo, the split's residuals) is ~2^-20 of each term; one TF32 pass alone
+// would leave ~1e-3 of logit error at 1/T = 10. The logsumexps run in the
+// exp2 domain (u = s log2 e) with an online max; a running max
 // that is infinite is shifted by 0, as torch.logsumexp does, so +inf
 // entries give +inf and NaN propagates through the sums.
 //
@@ -175,10 +176,10 @@ __device__ __forceinline__ uint64_t corr_desc(uint32_t tile, uint32_t block, int
 // The correlation of an own tile (a_hi, a_lo) and an other tile (b_hi, b_lo)
 // (raw dot products, 64 x 64) in five accumulator chains: x = lo*hi + hi*lo
 // over the 16 k8 slices, h[q] = hi*hi over slices 4q .. 4q + 3. The tensor
-// cores' fp32 sums truncate, so a chain of 16 hi*hi steps would shrink |s| by
-// ~8 ulp on average (a bias, not noise: ~1e-6 of s, 2e-5 of P at 1/T = 10);
-// chains of 4 keep it near 2 ulp, and their sum is rounded to nearest in
-// registers (corr_sum). x's terms are ~2^-10 of s, so its 32 steps do not
+// cores' fp32 sums truncate, so every step of a chain shrinks |s| a little (a
+// bias, not noise, which exp(2 s) doubles at 1/T = 10); chains of 4 steps
+// keep it at a quarter of one chain's, and their sum is rounded to nearest
+// in registers (corr_sum). x's terms are ~2^-10 of s, so its 32 steps do not
 // matter. Slices are interleaved across the chains, so a wgmma rarely waits
 // for the one before it. Issues and commits; the caller waits.
 __device__ __forceinline__ void issue_corr(float (&x)[32], float (&h)[4][32], uint32_t a_hi, uint32_t a_lo,
