@@ -150,6 +150,12 @@ ABLATION_KERNELS = ("flash_attention", "flash_attention_packed_upcast")
 #      near-ties, row_ok equal), lse_row and lse_col against dense_lse at
 #      1e-5 relative; its backward against torch.autograd of dense_lse: dsc
 #      gradients at 1e-4 max|ref|, the dustbin gradient at 1e-4 relative.
+#  Dense against fused table (phase 3, check_dense_table): the two routes
+#      share K2a's lse_col and recompute the correlation in different
+#      kernels (K4 3xTF32, K2b fp32 FMA), so each route's table values are
+#      held at RTOL against the fp64 final scores of the same head outputs
+#      and that lse_col, and lse_col at RTOL against fp64; index sets up to
+#      near-ties, row_ok equal.
 #  Backbone, packed against unpacked attention (K1 against K1b, one kernel
 #      body on two addressings, bf16 either way): cosine > 0.999 per image,
 #      as the backbone against the plain CPU path.
@@ -695,14 +701,17 @@ def check_dense_table(model, image0, image1, K0, K1) -> dict:
     dense final scores (K2a + K4) against the fused route's K2 table on the
     same head outputs. The fused table is the top-P over each row's top-L
     candidates; under that selection (``dense_topk_scores``) the dense
-    matrix must give the same table: values at DS_RTOL, K4's tolerance (the
-    dense scores are K4's P; K2b recomputes the correlation in fp32 FMA, K4
-    as 3xTF32, and exp(2 s) turns the two summation orders' ~1e-6 of s into
-    up to ~1e-5 of a score where all scores are alike, as at random
-    weights), index sets up to near-ties, row_ok equal. Also reports the
-    share of the exact global top-P (``torch.topk`` over the whole matrix)
-    that the fused table holds, by count and by score mass."""
-    from mickey_tpu_torch.ops.fused_matcher import dense_topk_scores
+    matrix must give the same table: index sets up to near-ties, row_ok
+    equal, and the values of each at RTOL (1e-5 relative) against the same
+    final scores recomputed in fp64 from the head outputs
+    and K2a's lse_col, which both routes share and which is itself held
+    against fp64 at RTOL. The routes differ in the kernel that recomputes
+    the correlation (K2b in fp32 FMA, K4 in 3xTF32), so each is held to the
+    exact function rather than to the other. Reports the largest |diff|
+    between the two tables, each side's largest share of its RTOL bound,
+    and the share of the exact global top-P (``torch.topk`` over the whole
+    matrix) that the fused table holds, by count and by score mass."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
 
     B = image0.shape[0]
     cfg = model.cfg
@@ -711,15 +720,32 @@ def check_dense_table(model, image0, image1, K0, K1) -> dict:
     tc = model.match_feats(tuple(f[:B] for f in feats), tuple(f[B:] for f in feats), fused=True)
     final = full.corr.final_scores
     P, L = int(cfg.TPU.SAMPLING_PREFILTER), int(cfg.TPU.MATCHER_TOPL)
-    dv, di, dok = dense_topk_scores(final, P, row_topl=L)
-    err = _close(tc.top_scores, dv, "dense vs fused table values", DS_RTOL)
+    dv, di, dok = fm.dense_topk_scores(final, P, row_topl=L)
     _sets_agree(tc.top_scores, tc.top_idx, dv, di, "dense vs fused table")
     if not torch.equal(tc.row_ok.cpu(), dok.cpu()):
         raise SmokeError("dense vs fused table: row_ok differs")
+    dsm = cfg.FEATURE_MATCHER.DUAL_SOFTMAX
+    inv_temp = 1.0 / float(dsm.TEMPERATURE)
+    alpha = fm._alpha(float(model.params["matcher"].get("dustbin_score", 0.0)), bool(dsm.USE_DUSTBIN))
+    d0, d1 = full.corr.dsc0.float().contiguous(), full.corr.dsc1.float().contiguous()
+    lse_col = fm.col_lse(d0, d1, inv_temp, alpha)
+    s64 = torch.matmul(d0.double(), d1.double().transpose(1, 2)) * inv_temp
+    _close(lse_col, fm._col_lse_from(s64, alpha), "K2a lse_col vs fp64")
+    ref = torch.exp(2.0 * s64 - fm._row_lse(s64, alpha)[..., None] - lse_col.double()[:, None, :])
+    ref = (ref * full.corr.scr0.double() * full.corr.scr1.double().transpose(1, 2)).reshape(B, -1)
+    del s64
+    shares = {}
+    for name, vals, idx in (("fused", tc.top_scores, tc.top_idx), ("dense", dv, di)):
+        want = torch.gather(ref, 1, idx.long())
+        _close(vals, want, f"{name} table values vs fp64")
+        err = (vals.double() - want).abs()
+        shares[f"{name}_share_of_rtol"] = (err / (RTOL * want.abs() + 1e-6 * want.abs().max())).max().item()
+    del ref
     gv, gi = torch.topk(final.reshape(B, -1).float(), P, dim=-1)
     recall = [len(set(a.tolist()) & set(b.tolist())) / P for a, b in zip(tc.top_idx.long().cpu(), gi.cpu())]
     mass = (tc.top_scores.double().sum(-1) / gv.double().sum(-1)).tolist()
-    return {"table_max_abs": err, "global_topP_recall": recall, "global_topP_mass": mass}
+    return {"table_max_abs": (tc.top_scores.double() - dv.double()).abs().max().item(), **shares,
+            "global_topP_recall": recall, "global_topP_mass": mass}
 
 
 def upstream_state_dicts(params):
@@ -1675,8 +1701,7 @@ def matcher_report(inp, tin, card: str) -> int:
                                "pair_softmax": pair_softmax_bound(t0, t1, PEAK_FP32, 1.0)}}
 
     lse = torch.empty((B, N), dtype=torch.float32, device=dev)
-    part = torch.empty((B, chunks, N, 2), dtype=torch.float32, device=dev)
-    scratch_s, scratch_t = fm._corr_scratch(B, M, N, dev), fm._corr_scratch(Bt, Mt, Nt, dev)
+    scratch_s, scratch_t = fm._corr_scratch(B, M, N, dev, chunks), fm._corr_scratch(Bt, Mt, Nt, dev)
     geom_s, geom_t = fm.corr_geometry(B, N, M), fm.corr_geometry(Bt, Mt, Nt)
     out = torch.empty((Bt, Mt, Nt), dtype=torch.float32, device=dev)
     lse_row = torch.empty((Bt, Mt), dtype=torch.float32, device=dev)
@@ -1686,8 +1711,8 @@ def matcher_report(inp, tin, card: str) -> int:
         k2a = _cuda.build_variant("fused_topk.cu", defines).mk_col_lse_f32
         k4 = _cuda.build_variant("dual_softmax.cu", defines).mk_pair_softmax_f32
         return {f"col_lse {name}": lambda: _cuda.check(k2a(
-                    s0.data_ptr(), s1.data_ptr(), lse.data_ptr(), scratch_s.data_ptr(), part.data_ptr(), geom_s, B, M,
-                    N, C, chunks, 10.0, 1.0, stream), name),
+                    s0.data_ptr(), s1.data_ptr(), lse.data_ptr(), scratch_s.data_ptr(), geom_s, B, M, N, C, chunks,
+                    10.0, 1.0, stream), name),
                 f"pair_softmax {name}": lambda: _cuda.check(k4(
                     t0.data_ptr(), t1.data_ptr(), tin["lse_col"].data_ptr(), out.data_ptr(), lse_row.data_ptr(),
                     scratch_t.data_ptr(), geom_t, Bt, Mt, Nt, C, 10.0, 1.0, stream), name)}

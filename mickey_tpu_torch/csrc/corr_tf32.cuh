@@ -388,24 +388,26 @@ inline bool corr_geometry_ok(const long long* g, int B, int rows, int box_rows) 
          g[9] == CORR_SPAN && g[10] == box_rows && g[11] == CORR_C / CORR_SPAN && g[12] == 1 && g[13] == 1;
 }
 
-// The chunks K2a splits the other rows into: at most `chunks`, none empty.
-inline int corr_chunks(int n_oth, int chunks) {
-  const int tiles = (n_oth + CORR_BN - 1) / CORR_BN;
-  const int per = (tiles + chunks - 1) / chunks;
-  return (tiles + per - 1) / per;
+// Floats of the split descriptors in scratch: [d0 hi | d0 lo | d1 hi | d1 lo],
+// each (B rows, 128). K2a's partials follow them.
+inline long long corr_split_floats(int B, int M, int N) {
+  return 2LL * (static_cast<long long>(B) * M + static_cast<long long>(B) * N) * CORR_C;
 }
 
 // The engine on descriptors d0 (B, M, C) and d1 (B, N, C): the prep kernel
-// into scratch [d0 hi | d0 lo | d1 hi | d1 lo] (each (B rows, 128) fp32),
-// then corr_tf32_kernel<kPair> with own = d1 (!kPair) or d0 (kPair) over
-// corr_chunks(n_oth, chunks) chunks of the other rows (1 for kPair). Returns 0, a cudaError_t, or
-// ERR_ENCODE + the encoder's CUresult.
+// into scratch (corr_split_floats), then corr_tf32_kernel<kPair> with
+// own = d1 (!kPair) or d0 (kPair) over `chunks` chunks of the other rows, each
+// the same whole number of 64-row tiles and none empty
+// (ops/fused_matcher.py::col_lse_chunks; 1 for kPair). Returns 0, a
+// cudaError_t, or ERR_ENCODE + the encoder's CUresult.
 template <bool kPair>
 int corr_launch(const float* d0, const float* d1, float* scratch, const long long* geom, int B, int M, int N, int C,
                 int chunks, float inv_temp, float alpha, float2* part, const float* lse_col, float* out,
                 float* lse_row, cudaStream_t st) {
   const int n_own = kPair ? M : N, n_oth = kPair ? N : M;
-  if (B < 1 || M < 1 || N < 1 || C < 1 || C > CORR_C || chunks < 1 || !corr_geometry_ok(geom, B, n_own, CORR_BM) ||
+  const int tiles = (n_oth + CORR_BN - 1) / CORR_BN, per = chunks < 1 ? 0 : (tiles + chunks - 1) / chunks;
+  if (B < 1 || M < 1 || N < 1 || C < 1 || C > CORR_C || chunks < 1 || (kPair && chunks != 1) ||
+      (chunks - 1) * per >= tiles || !corr_geometry_ok(geom, B, n_own, CORR_BM) ||
       !corr_geometry_ok(geom + 14, B, n_oth, CORR_BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows0 = static_cast<long long>(B) * M, rows1 = static_cast<long long>(B) * N;
@@ -415,7 +417,7 @@ int corr_launch(const float* d0, const float* d1, float* scratch, const long lon
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   float* h0 = scratch;
-  float* h1 = scratch + 2 * rows0 * CORR_C;
+  float* h1 = scratch + corr_split_floats(B, M, 0);
   float* own = kPair ? h0 : h1;
   float* oth = kPair ? h1 : h0;
   const long long own_part = (kPair ? rows0 : rows1) * CORR_C, oth_part = (kPair ? rows1 : rows0) * CORR_C;
@@ -430,9 +432,7 @@ int corr_launch(const float* d0, const float* d1, float* scratch, const long lon
   e = cudaFuncSetAttribute(corr_tf32_kernel<kPair>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(CORR_SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
-  chunks = kPair ? 1 : corr_chunks(n_oth, chunks);
-  const int per = ((n_oth + CORR_BN - 1) / CORR_BN + chunks - 1) / chunks;
-  corr_tf32_kernel<kPair><<<dim3((n_own + CORR_BM - 1) / CORR_BM, kPair ? 1 : chunks, B), CORR_NT, CORR_SMEM, st>>>(
+  corr_tf32_kernel<kPair><<<dim3((n_own + CORR_BM - 1) / CORR_BM, chunks, B), CORR_NT, CORR_SMEM, st>>>(
       maps, n_own, n_oth, per, inv_temp * CORR_LOG2E, part, lse_col, out, lse_row, alpha * CORR_LOG2E);
   return static_cast<int>(cudaGetLastError());
 }

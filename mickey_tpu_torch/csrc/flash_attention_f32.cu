@@ -123,6 +123,12 @@ constexpr bool ONE_PASS = true;
 constexpr bool ONE_PASS = false;
 #endif
 
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values (fp32 bit patterns)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
 __device__ __forceinline__ float ex2(float x) {
 #ifdef MK_ABLATE_EXP
   return x * 0.5f;

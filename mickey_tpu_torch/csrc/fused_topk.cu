@@ -180,21 +180,20 @@ pair_topk_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
 }  // namespace
 
 // d0 (B, M, C), d1 (B, N, C) fp32, C <= 128 -> lse_col (B, N). scratch:
-// 2 (B M + B N) 128 floats (corr_launch); part: B x chunks x N float2, the
-// chunks of dsc0's rows (at most `chunks`, corr_chunks); geom: the maps of
-// dsc1's split (own) then dsc0's.
-extern "C" int mk_col_lse_f32(const void* d0, const void* d1, void* lse_col, void* scratch, void* part,
-                              const long long* geom, int B, int M, int N, int C, int chunks, float inv_temp,
-                              float alpha, void* stream) {
+// corr_split_floats(B, M, N) floats of split descriptors (corr_launch), then
+// the partials, B x chunks x N float2; chunks: how many chunks of dsc0's rows
+// (ops/fused_matcher.py::col_lse_chunks); geom: the maps of dsc1's split
+// (own) then dsc0's.
+extern "C" int mk_col_lse_f32(const void* d0, const void* d1, void* lse_col, void* scratch, const long long* geom,
+                              int B, int M, int N, int C, int chunks, float inv_temp, float alpha, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chunks < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  chunks = corr_chunks(M, chunks);
+  float2* part = reinterpret_cast<float2*>(static_cast<float*>(scratch) + corr_split_floats(B, M, N));
   int rc = corr_launch<false>(static_cast<const float*>(d0), static_cast<const float*>(d1),
-                              static_cast<float*>(scratch), geom, B, M, N, C, chunks, inv_temp, alpha,
-                              static_cast<float2*>(part), nullptr, nullptr, nullptr, st);
+                              static_cast<float*>(scratch), geom, B, M, N, C, chunks, inv_temp, alpha, part, nullptr,
+                              nullptr, nullptr, st);
   if (rc != 0) return rc;
-  col_lse_combine_kernel<<<(B * N + 255) / 256, 256, 0, st>>>(static_cast<const float2*>(part),
-                                                                static_cast<float*>(lse_col), B, chunks, N, alpha);
+  col_lse_combine_kernel<<<(B * N + 255) / 256, 256, 0, st>>>(part, static_cast<float*>(lse_col), B, chunks, N,
+                                                                alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,8 +2,8 @@
 // (flash_attention_packed.cu, bf16; flash_attention_f32.cu, fp32 operands)
 // and the matcher's correlation engine (corr_tf32.cuh): mbarriers, the
 // shared-memory matrix descriptor of a 128-byte-swizzled tile, the wgmma
-// fence / commit / wait, the TF32 hi / lo split of 3xTF32 products, the 5-D
-// TMA load, and the tensor-map encoder looked up in libcuda.
+// fence / commit / wait, the conversion to TF32 (cvt.rna), the 5-D TMA
+// load, and the tensor-map encoder looked up in libcuda.
 
 #pragma once
 
@@ -68,12 +68,6 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values (fp32 bit patterns)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
 }
 
 // One TMA box of a 5-D map (innermost coordinate 0) into shared memory at

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "mk_flash_attention_packed_f32": [_P, _P, _P, _LLP, _I, _I, _I, _F, _P],
     "mk_flash_attention_f32": [_P] * 4 + [_LLP, _P, _LLP] + [_I] * 4 + [_F, _P],
     "mk_flash_attention_packed_upcast_bf16": [_P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
-    "mk_col_lse_f32": [_P] * 5 + [_LLP] + [_I] * 5 + [_F, _F, _P],
+    "mk_col_lse_f32": [_P] * 4 + [_LLP] + [_I] * 5 + [_F, _F, _P],
     "mk_pair_topk_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
     "mk_pair_softmax_f32": [_P] * 6 + [_LLP] + [_I] * 4 + [_F, _F, _P],

@@ -128,10 +128,11 @@ def corr_geometry(b: int, n_own: int, n_oth: int):
     return (ctypes.c_longlong * 28)(*(x for g in maps for part in g for x in part))
 
 
-def _corr_scratch(b: int, m: int, n: int, device, extra: int = 0) -> torch.Tensor:
+def _corr_scratch(b: int, m: int, n: int, device, chunks: int = 0) -> torch.Tensor:
     """The split descriptors: dsc0 hi, lo, then dsc1 hi, lo, each (B, rows,
-    128), and ``extra`` floats after them (K2a's partials)."""
-    return torch.empty(2 * (b * m + b * n) * CORR_C + extra, dtype=torch.float32, device=device)
+    128); then, for K2a, ``chunks`` (max, sum) partials of each of B x N
+    columns."""
+    return torch.empty(2 * (b * m + b * n) * CORR_C + 2 * b * chunks * n, dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -140,11 +141,14 @@ def _sm_count(device) -> int:
 
 
 def col_lse_chunks(sms: int, b: int, m: int, n: int) -> int:
-    """How many chunks K2a splits dsc0's rows into: enough CTAs (B times
-    N / 64 column tiles, times the chunks) for one wave on ``sms`` SMs at one
-    CTA an SM, at most one chunk per 64 rows."""
-    tiles = b * math.ceil(n / CORR_ROWS)
-    return max(1, min(math.ceil(m / CORR_ROWS), sms // tiles))
+    """How many chunks K2a splits dsc0's rows into: about enough CTAs (B
+    times N / 64 column tiles, times the chunks) for one wave on ``sms`` SMs
+    at one CTA an SM; every chunk the same whole number of 64-row tiles (the
+    last one's rows may run out sooner), none empty."""
+    row_tiles = math.ceil(m / CORR_ROWS)
+    want = max(1, min(row_tiles, sms // (b * math.ceil(n / CORR_ROWS))))
+    per = math.ceil(row_tiles / want)
+    return math.ceil(row_tiles / per)
 
 
 # -- K2a: column logsumexp -----------------------------------------------------
@@ -162,11 +166,10 @@ def col_lse(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float, alpha: floa
     dev = dsc0.device
     chunks = col_lse_chunks(_sm_count(dev), B, M, N)
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    scratch = _corr_scratch(B, M, N, dev, extra=B * chunks * N * 2)  # the chunks' (max, sum) partials last
-    part = scratch.data_ptr() + 4 * 2 * (B * M + B * N) * CORR_C
+    scratch = _corr_scratch(B, M, N, dev, chunks)
     rc = _cuda.lib().mk_col_lse_f32(
-        dsc0.data_ptr(), dsc1.data_ptr(), out.data_ptr(), scratch.data_ptr(), part,
-        corr_geometry(B, N, M), B, M, N, C, chunks, float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
+        dsc0.data_ptr(), dsc1.data_ptr(), out.data_ptr(), scratch.data_ptr(), corr_geometry(B, N, M), B, M, N, C,
+        chunks, float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
     )
     _cuda.check(rc, "col_lse")
     _cuda.LAUNCHES["col_lse"] += 1

@@ -208,6 +208,7 @@ def test_exact_phase_rehearsal(monkeypatch):
     table = chip_smoke.check_dense_table(model, *ims)
     # two formulas of the same scores (softmax products; the fused route's closed form)
     assert table["table_max_abs"] < 1e-6 and all(0.0 < r <= 1.0 for r in table["global_topP_recall"])
+    assert table["fused_share_of_rtol"] < 1.0 and table["dense_share_of_rtol"] < 1.0
     assert chip_smoke.check_checkpoint(cfg, params, torch.device("cpu"), *ims)["bitwise"]
     small = chip_smoke.check_exact_against_plain(model_x, MickeyRelativePose(cfg_x, model.params, device="cpu"),
                                                  *chip_smoke.slice_inputs("cpu", pairs=2, height=56, width=70))
@@ -216,6 +217,30 @@ def test_exact_phase_rehearsal(monkeypatch):
     stages = chip_smoke._stage_times(model_x, *ims, fused=False)
     assert set(stages) == {"backbone", "heads", "matcher", "solver"}
     assert set(chip_smoke.ablation_times(_tiny_kernel_inputs(), iters=1)) == {"k1_bf16", "k1_old_f32"}
+
+
+@pytest.mark.parametrize("side", ["dense", "fused"])
+def test_dense_table_check_catches_a_wrong_route(side, monkeypatch):
+    """The table cross-check holds each route's values at RTOL against the
+    fp64 recomputation: a table 3e-5 too large on either side fails it,
+    though the other side is right."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    cfg = _tiny_cfg()
+    model = build_model(cfg, _tiny_params(cfg), device="cpu")
+    ims = chip_smoke.slice_inputs("cpu", pairs=2, height=112, width=140)
+    if side == "dense":
+        dense = fm.dense_topk_scores
+        monkeypatch.setattr(fm, "dense_topk_scores", lambda *a, **k: (lambda v, i, ok: (v * (1 + 3e-5), i, ok))(
+            *dense(*a, **k)))
+    else:
+        match = model.match_feats
+        def wrong(*a, **k):
+            out = match(*a, **k)
+            return out._replace(top_scores=out.top_scores * (1 + 3e-5)) if hasattr(out, "top_scores") else out
+        monkeypatch.setattr(model, "match_feats", wrong)
+    with pytest.raises(chip_smoke.SmokeError, match=f"{side} table values vs fp64"):
+        chip_smoke.check_dense_table(model, *ims)
 
 
 def test_within_bf16_ulp():

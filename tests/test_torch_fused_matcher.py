@@ -193,8 +193,10 @@ def test_col_lse_chunks():
     """K2a's chunks of dsc0's rows fill one wave at one CTA an SM: 2 x 31
     column tiles x 2 chunks = 124 CTAs on 132 SMs at the serving shape; the
     training shape (8 x 31 tiles) needs none; never more than a chunk per
-    64 rows."""
+    64 rows; every chunk the same number of row tiles and none empty (5 row
+    tiles for 4 wanted chunks: 3 chunks of 2)."""
     assert fm.col_lse_chunks(132, 2, 1938, 1938) == 2
     assert fm.col_lse_chunks(132, 8, 1938, 1938) == 1
     assert fm.col_lse_chunks(132, 1, 70, 64) == 2
     assert fm.col_lse_chunks(132, 1, 1, 1) == 1
+    assert fm.col_lse_chunks(132, 1, 320, 1920) == 3
