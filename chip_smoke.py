@@ -64,6 +64,10 @@ beside SDPA fp32 with TF32 off, and its timing ablations.
 on the 3xTF32 correlation engine, K2a and K4 (``matcher_report``): their
 checks on ragged sizes, NaN and an infinity, their times back to back beside
 the plain versions, their bounds and timing ablations.
+``python3 chip_smoke.py --matcher-bwd`` does the same for the gradient
+kernels on that engine, K5 (``dual_softmax_bwd_sums``,
+``dual_softmax_bwd_grads``) and K6 (``lse_bwd``) (``matcher_bwd_report``),
+and adds their and their plain versions' distances from fp64.
 
 Prints the card's name and power limit first, a JSON line of per-kernel
 results before the last line, and ``{"ok": true, "device": ...}`` last. There
@@ -130,9 +134,10 @@ ABLATION_KERNELS = ("flash_attention", "flash_attention_packed_upcast")
 #      the two), plus K1f's 1e-5 max|ref| for the fp32 results' own
 #      difference, on rows below seq_len (the rows past it are the TPU's
 #      padded rows).
-#  K2a, K4: the correlation as 3xTF32 on the tensor cores (each term within
-#      ~2^-20 of fp32's) against the plain version's fp32 cuBLAS product;
-#      the tolerances below are those of fp32 arithmetic, unchanged.
+#  K2a, K4, K5, K6: the correlation (and K5's and K6's dS products) as
+#      3xTF32 on the tensor cores (each term within ~2^-20 of fp32's) against
+#      the plain version's fp32 cuBLAS products; the tolerances below are
+#      those of fp32 arithmetic, unchanged.
 #  K2, K3: fp32 throughout; only the summation order differs:
 #      |diff| <= 1e-5 |ref| + 1e-6 max|ref|; indices that one side selects
 #      with a margin above its selection boundary must be selected by the
@@ -439,8 +444,6 @@ def train_kernel_inputs(device, *, pairs: int, kpts: int, desc: int, seed: int =
     cotangents gr, gc and detection scores at the training matcher's shapes,
     with the intermediate inputs of each K4 / K5 / K6 kernel made by the
     plain versions."""
-    from mickey_tpu_torch.ops import fused_matcher as fm
-
     rng = np.random.default_rng(seed + 2)
     d = rng.standard_normal((2, pairs, kpts, desc), dtype=np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -452,10 +455,20 @@ def train_kernel_inputs(device, *, pairs: int, kpts: int, desc: int, seed: int =
         inp[name] = t(rng.standard_normal((pairs, kpts), dtype=np.float32))
     for name in ("scr0", "scr1"):
         inp[name] = t(rng.uniform(0.1, 1, (pairs, kpts)).astype(np.float32))
-    inp["lse_col"] = fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inp["inv_temp"], inp["alpha"])
-    _, inp["lse_row"] = fm.pair_softmax_plain(inp["dsc0"], inp["dsc1"], inp["lse_col"], inp["inv_temp"], inp["alpha"])
-    inp["r"], inp["c"] = fm.dual_softmax_bwd_sums_plain(inp["dsc0"], inp["dsc1"], inp["G"], inp["lse_row"],
-                                                        inp["lse_col"], inp["inv_temp"])
+    return with_alpha(inp, inp["alpha"])
+
+
+def with_alpha(tin, alpha: float) -> dict:
+    """``tin`` with the dustbin logit ``alpha`` (``fused_matcher.NEG_INF``:
+    no dustbin) and the intermediate inputs of K4 / K5 / K6 for it, made by
+    the plain versions: lse_col, lse_row, r and c."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    inp = dict(tin, alpha=alpha)
+    d0, d1, it = inp["dsc0"], inp["dsc1"], inp["inv_temp"]
+    inp["lse_col"] = fm.col_lse_plain(d0, d1, it, alpha)
+    _, inp["lse_row"] = fm.pair_softmax_plain(d0, d1, inp["lse_col"], it, alpha)
+    inp["r"], inp["c"] = fm.dual_softmax_bwd_sums_plain(d0, d1, inp["G"], inp["lse_row"], inp["lse_col"], it)
     return inp
 
 
@@ -614,6 +627,86 @@ def check_matcher_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, seed: int
             (p, lr), (pp, plr) = fm.pair_softmax(d0, d1, lc, 10.0, alpha), fm.pair_softmax_plain(d0, d1, lc, 10.0, alpha)
             worst = max(worst, _close_nan(p, pp, f"pair_softmax out, {what}", DS_RTOL),
                         _close_nan(lr, plr, f"pair_softmax lse_row, {what}", DS_RTOL))
+    return worst
+
+
+def _close_to_max_nan(a: torch.Tensor, b: torch.Tensor, what: str, tol: float) -> float:
+    """``_close_to_max`` where the plain version ``b`` may hold NaN and
+    infinities, as ``_close_nan``: the same non-finite pattern, ``tol``
+    max|finite ref| on the finite values. Returns their max |diff|."""
+    a, b = a.double().cpu(), b.double().cpu()
+    inf = torch.isinf(b)
+    if not (torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a[inf], b[inf])):
+        raise SmokeError(f"{what}: NaN or infinite values differ from the plain version's")
+    fin = torch.isfinite(b)
+    return _close_to_max(a[fin], b[fin], what, tol) if bool(fin.any()) else 0.0
+
+
+def _bwd_checked(tin, what: str, close, close_to_max) -> float:
+    """K5's two bodies and K6 on ``tin`` against their plain versions: r, c
+    with ``close`` at DS_RTOL, dd0 and dd1 with ``close_to_max`` at DS_RTOL
+    max|ref|. Returns the largest max |diff|."""
+    calls = train_kernel_calls(tin)
+    (r, c), (pr, pc) = (f() for f in calls["dual_softmax_bwd_sums"])
+    worst = max(close(r, pr, f"bwd_sums r, {what}", DS_RTOL), close(c, pc, f"bwd_sums c, {what}", DS_RTOL))
+    for name in ("dual_softmax_bwd_grads", "lse_bwd"):
+        (g0, g1), (pg0, pg1) = (f() for f in calls[name])
+        worst = max(worst, close_to_max(g0, pg0, f"{name} dd0, {what}", DS_RTOL),
+                    close_to_max(g1, pg1, f"{name} dd1, {what}", DS_RTOL))
+    return worst
+
+
+def check_matcher_bwd_kernels(tin) -> dict:
+    """``--matcher-bwd``: K5's two bodies (bwd_sums, bwd_grads) and K6
+    (lse_bwd) against their plain versions at the training shape, with the
+    dustbin on and off (the intermediate inputs remade for each); two
+    launches of each bitwise equal (no atomics, the column sums and both
+    gradients in a fixed order). Returns "dustbin on / off" -> max |diff|."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    res = {}
+    for use_dustbin in (True, False):
+        t = tin if use_dustbin else with_alpha(tin, fm.NEG_INF)
+        what = f"dustbin {'on' if use_dustbin else 'off'}"
+        res[what] = _bwd_checked(t, what, _close, _close_to_max)
+        for name, (kernel, _) in train_kernel_calls(t).items():
+            if name != "pair_softmax" and not all(torch.equal(x, y) for x, y in zip(kernel(), kernel())):
+                raise SmokeError(f"{name}: two launches differ, {what}")
+    return res
+
+
+def check_matcher_bwd_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, seed: int = SEED) -> float:
+    """K5's two bodies and K6 on ragged sizes: M = sizes[i], N = sizes[i +
+    1] (cyclic), 3 images of seeded unit descriptors, a seeded G and
+    cotangents, with the dustbin on and off, against their plain versions
+    (on the plain versions' intermediate inputs): r, c at DS_RTOL, dd0, dd1
+    at DS_RTOL max|ref|, NaN and infinities where the plain version has
+    them. In the first pair image 1 holds an infinite descriptor value
+    (dsc1, row 3) and image 2 a NaN row (dsc0, row 5). Returns the largest
+    max |diff|."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    rng = np.random.default_rng(seed + 10)
+
+    def unit(rows):
+        d = rng.standard_normal((3, rows, desc), dtype=np.float32)
+        return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    worst = 0.0
+    for i, m in enumerate(sizes):
+        n = sizes[(i + 1) % len(sizes)]
+        d0, d1 = unit(m), unit(n)
+        if i == 0:
+            d1[1, min(3, n - 1), 7 % desc] = np.inf
+            d0[2, min(5, m - 1)] = np.nan
+        tin = dict(dsc0=t(d0), dsc1=t(d1), G=t(rng.standard_normal((3, m, n), dtype=np.float32)),
+                   gr=t(rng.standard_normal((3, m), dtype=np.float32)),
+                   gc=t(rng.standard_normal((3, n), dtype=np.float32)), inv_temp=10.0)
+        for use_dustbin in (True, False):
+            what = f"M {m}, N {n}, C {desc}, dustbin {use_dustbin}"
+            worst = max(worst, _bwd_checked(with_alpha(tin, fm._alpha(1.0, use_dustbin)), what, _close_nan,
+                                            _close_to_max_nan))
     return worst
 
 
@@ -1259,11 +1352,44 @@ def pair_softmax_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0)
     return _bound(passes * 2.0 * B * M * N * C, (B * M * C + B * N * C + B * N + B * M * N + B * M) * 4, peak)
 
 
+def bwd_sums_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
+    """K5's first body's bound: one correlation as for K2a, against the
+    descriptors, G (B, M, N), lse_row and lse_col read and r, c written
+    once."""
+    B, M, C = dsc0.shape
+    N = dsc1.shape[1]
+    return _bound(passes * 2.0 * B * M * N * C, (B * M * C + B * N * C + B * M * N + 2 * B * M + 2 * B * N) * 4, peak)
+
+
+def bwd_grads_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
+    """K5's second body's bound: the function's three products (s, dS dsc1,
+    dS^T dsc0; recomputing s in each of its two launches is the kernel's
+    choice) at fp32 accuracy, three TF32 passes each at 495 TFLOP/s
+    (``peak=PEAK_FP32, passes=1``: the FFMA bound of the body it replaced),
+    against the descriptors, G, both logsumexps and r, c read and dd0, dd1
+    written once (G read twice by the two launches adds 0.036 ms at the
+    training shape, still under the operations' 0.14)."""
+    B, M, C = dsc0.shape
+    N = dsc1.shape[1]
+    return _bound(passes * 3 * 2.0 * B * M * N * C,
+                  (2 * (B * M * C + B * N * C) + B * M * N + 2 * B * M + 2 * B * N) * 4, peak)
+
+
+def lse_bwd_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
+    """K6's bound: three products as ``bwd_grads_bound``, against the
+    descriptors, the two logsumexps and their cotangents read and dd0, dd1
+    written once (no (B, M, N) tensor)."""
+    B, M, C = dsc0.shape
+    N = dsc1.shape[1]
+    return _bound(passes * 3 * 2.0 * B * M * N * C, (2 * (B * M * C + B * N * C) + 2 * B * M + 2 * B * N) * 4, peak)
+
+
 def kernel_bounds(inp, tin) -> dict:
     """name -> (bound_ms, bound_by) at this run's kernel inputs. Operations
     counted: the matrix products (2 flops per multiply-add; K1's two products
-    on bf16 tensor cores; K1f's, K2a's and K4's at fp32 accuracy as 3xTF32,
-    three TF32 passes each; K1-old's on bf16 tensor cores, ``k1_old_bound``;
+    on bf16 tensor cores; K1f's, K2a's, K4's, K5's and K6's at fp32 accuracy
+    as 3xTF32, three TF32 passes each; K1-old's on bf16 tensor cores,
+    ``k1_old_bound``;
     the others fp32 FMA) and, for K3, the ~30 fp32 operations of one
     soft-inlier term; exponentials are left out."""
     f32 = 4
@@ -1273,12 +1399,8 @@ def kernel_bounds(inp, tin) -> dict:
     B, M, C = inp["dsc0"].shape
     N = inp["dsc1"].shape[1]
     L = inp["topl"]
-    Bt, Mt, Ct = tin["dsc0"].shape
-    Nt = tin["dsc1"].shape[1]
     hb, hs = inp["X"].shape[:2]
     hr = inp["R"].shape[1]
-    corr_t = 2.0 * Bt * Mt * Nt * Ct
-    descs_t = (Bt * Mt * Ct + Bt * Nt * Ct) * f32
     attn = _attention_bound(inp["qkv"], heads, PEAK_BF16)
     attn32 = _attention_bound(inp["qkv32"], heads, PEAK_TF32, passes=3)
     return {
@@ -1292,12 +1414,9 @@ def kernel_bounds(inp, tin) -> dict:
                             (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * L * M + 4 * B * M) * f32, PEAK_FP32),
         "hypothesis_scores": _bound(30.0 * hb * hr * hs, (2 * hb * hs * 3 + hb * hr * 12 + hb * hr) * f32, PEAK_FP32),
         "pair_softmax": pair_softmax_bound(tin["dsc0"], tin["dsc1"]),
-        "dual_softmax_bwd_sums": _bound(corr_t, descs_t + (Bt * Mt * Nt + 2 * Bt * Mt + 2 * Bt * Nt) * f32, PEAK_FP32),
-        "dual_softmax_bwd_grads": _bound(3 * corr_t, 2 * descs_t + (Bt * Mt * Nt + 2 * Bt * Mt + 2 * Bt * Nt) * f32,
-                                         PEAK_FP32),
-        # s, dS dsc1 and dS^T dsc0: three products (the kernel recomputes s
-        # in each of its two launches, four)
-        "lse_bwd": _bound(3 * corr_t, 2 * descs_t + (2 * Bt * Mt + 2 * Bt * Nt) * f32, PEAK_FP32),
+        "dual_softmax_bwd_sums": bwd_sums_bound(tin["dsc0"], tin["dsc1"]),
+        "dual_softmax_bwd_grads": bwd_grads_bound(tin["dsc0"], tin["dsc1"]),
+        "lse_bwd": lse_bwd_bound(tin["dsc0"], tin["dsc1"]),
     }
 
 
@@ -1365,6 +1484,8 @@ def main() -> int:
         return attention_f32_report(inp, card)
     if "--matcher" in sys.argv[1:]:
         return matcher_report(inp, train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128), card)
+    if "--matcher-bwd" in sys.argv[1:]:
+        return matcher_bwd_report(train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128), card)
     errs = check_kernels(inp)
     ragged = check_attention_shapes(dev)
     ragged32 = check_attention_shapes(dev, torch.float32)
@@ -1525,7 +1646,7 @@ ATTN_F32_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOAD
 def _kernel_loop(card, checks: dict, fns: dict, timer, clocked, clock_launches: int, ablations: dict, launch,
                  extra: dict, clock_ablation: str | None = None) -> int:
     """The body of the quick loops (``--attention``, ``--attention-f32``,
-    ``--matcher``). ``fns`` (name -> call) timed with ``timer`` in turns,
+    ``--matcher``, ``--matcher-bwd``). ``fns`` (name -> call) timed with ``timer`` in turns,
     forward then backward (a, b, c, c, b, a); the SM clock and power under
     ``clock_launches`` calls of each of ``clocked``; each of ``ablations``
     (name -> -D defines) built and timed back to back: ``launch(defines,
@@ -1718,6 +1839,124 @@ def matcher_report(inp, tin, card: str) -> int:
                     scratch_t.data_ptr(), geom_t, Bt, Mt, Nt, C, 10.0, 1.0, stream), name)}
     return _kernel_loop(card, checks, fns, time_many_ms, ["col_lse", "pair_softmax"], 3000, MATCHER_ABLATIONS,
                         launch, extra)
+
+
+def _fp64_distance(x: torch.Tensor, ref: torch.Tensor) -> dict:
+    """How far ``x`` lies from the fp64 ``ref``: max |x - ref| / max|ref|
+    (the tolerances' measure), and the max and mean of (x - ref) / ref over
+    the entries above 1e-3 of max|ref| (sums of both signs cancel to ~0
+    elsewhere). The mean shows a bias: sums that truncate shrink |x|, a
+    negative mean."""
+    x, ref = x.double(), ref.double()
+    top = ref.abs().max()
+    big = ref.abs() > 1e-3 * top
+    rel = ((x - ref) / ref)[big]
+    return {"max_over_max": ((x - ref).abs().max() / top).item(), "rel_max": rel.abs().max().item(),
+            "rel_mean": rel.mean().item()}
+
+
+def matcher_bwd_fp64_errors(tin) -> dict:
+    """How close K5's two bodies, K6 and their plain versions come to the
+    exact functions at the training shape: r, c, and each gradient's dd0,
+    dd1 from both, on the fp64 intermediate inputs rounded to fp32, against
+    the same functions in fp64 (``_fp64_distance``)."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    d0, d1, G, it = tin["dsc0"], tin["dsc1"], tin["G"], tin["inv_temp"]
+    s64 = torch.matmul(d0.double(), d1.double().transpose(1, 2)) * it
+    alpha = torch.tensor(tin["alpha"], dtype=torch.float64, device=d0.device)
+    lc64 = torch.logaddexp(torch.logsumexp(s64, dim=1), alpha)
+    lr64 = fm._row_lse(s64, tin["alpha"])
+    r64, c64 = fm._bwd_sums_from(s64, G.double(), lr64, lc64)
+    ref = {"r": r64, "c": c64}
+    for name, g, w_row, w_col in (("bwd_grads", G.double(), r64, c64),
+                                  ("lse_bwd", None, tin["gr"].double(), tin["gc"].double())):
+        dS = fm._grads_ds(s64, g, lr64, lc64, w_row, w_col)
+        ref[f"{name} dd0"] = torch.matmul(dS, d1.double()) * it
+        ref[f"{name} dd1"] = torch.matmul(dS.transpose(1, 2), d0.double()) * it
+        del dS
+    del s64
+    lr, lc, r, c = (x.float() for x in (lr64, lc64, r64, c64))
+    out = {}
+    for name, sums, grads, lse in (("kernel", fm.dual_softmax_bwd_sums, fm.dual_softmax_bwd_grads, fm.lse_bwd),
+                                   ("plain", fm.dual_softmax_bwd_sums_plain, fm.dual_softmax_bwd_grads_plain,
+                                    fm.lse_bwd_plain)):
+        got = dict(zip(("r", "c"), sums(d0, d1, G, lr, lc, it)))
+        got.update(zip(("bwd_grads dd0", "bwd_grads dd1"), grads(d0, d1, G, lr, lc, r, c, it)))
+        got.update(zip(("lse_bwd dd0", "lse_bwd dd1"), lse(d0, d1, tin["gr"], tin["gc"], lr, lc, it)))
+        out[name] = {k: _fp64_distance(v, ref[k]) for k, v in got.items()}
+    return out
+
+
+# csrc/dual_softmax.cu's gradient kernels (corr_bwd_kernel; MK_ABLATE_PREP: no prep kernels, stale scratch)
+MATCHER_BWD_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOADS",),
+                         "one_tf32_pass": ("MK_ABLATE_1XTF32",), "no_prep": ("MK_ABLATE_PREP",)}
+
+
+def matcher_bwd_report(tin, card: str) -> int:
+    """``python3 chip_smoke.py --matcher-bwd``: the matcher's gradient
+    kernels on the correlation engine alone. K5's two bodies and K6 against
+    their plain versions (``check_matcher_bwd_kernels``, and
+    ``check_matcher_bwd_shapes`` at C = 128 and at an odd C); CUDA-event
+    medians per call of 20 enqueued back to back (``time_many_ms``) in turns
+    with the plain versions at the training shape; the dense route's whole
+    backward (bwd_sums then bwd_grads); the kernels' and the plain versions'
+    errors from fp64 (``matcher_bwd_fp64_errors``); the bounds at the 3xTF32
+    rate beside the fp32 FMA ones; the three on a split kept from the
+    forward, as the autograd functions call them; and the timing ablations
+    (``MATCHER_BWD_ABLATIONS``, ``_kernel_loop``)."""
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    dev = tin["dsc0"].device
+    checks = {"max_abs_err": check_matcher_bwd_kernels(tin),
+              "ragged_max_abs_err": max(check_matcher_bwd_shapes(dev), check_matcher_bwd_shapes(dev, (130, 67), 45))}
+    calls = train_kernel_calls(tin)
+    names = ("dual_softmax_bwd_sums", "dual_softmax_bwd_grads", "lse_bwd")
+    fns = {k: v for name in names for k, v in ((f"{name} plain", calls[name][1]), (name, calls[name][0]))}
+    d0, d1, G, it = tin["dsc0"], tin["dsc1"], tin["G"], tin["inv_temp"]
+    B, M, C = d0.shape
+    N = d1.shape[1]
+    lr, lc, r, c, gr, gc = (tin[k] for k in ("lse_row", "lse_col", "r", "c", "gr", "gc"))
+
+    def dense_backward():
+        rr, cc = fm.dual_softmax_bwd_sums(d0, d1, G, lr, lc, it)
+        return fm.dual_softmax_bwd_grads(d0, d1, G, lr, lc, rr, cc, it)
+
+    bounds = {"dual_softmax_bwd_sums": bwd_sums_bound, "dual_softmax_bwd_grads": bwd_grads_bound,
+              "lse_bwd": lse_bwd_bound}
+    extra = {"fp64_errors": matcher_bwd_fp64_errors(tin), "timed_shape": list(d0.shape),
+             "dense_backward_back_to_back_ms": round(time_many_ms(dense_backward), 4),
+             "bound_ms": {k: f(d0, d1) for k, f in bounds.items()},
+             "ffma_bound_ms": {k: f(d0, d1, PEAK_FP32, 1.0) for k, f in bounds.items()}}
+
+    # the same calls on a split kept from a forward (the autograd functions' ctx.split): no split in the backward
+    split = fm._corr_scratch(B, M, N, dev)
+    fm.pair_softmax(d0, d1, lc, it, tin["alpha"], split)
+    extra["with_forward_split_back_to_back_ms"] = {
+        "dual_softmax_bwd_sums": round(time_many_ms(lambda: fm.dual_softmax_bwd_sums(d0, d1, G, lr, lc, it, split)), 4),
+        "dual_softmax_bwd_grads": round(time_many_ms(
+            lambda: fm.dual_softmax_bwd_grads(d0, d1, G, lr, lc, r, c, it, split)), 4),
+        "lse_bwd": round(time_many_ms(lambda: fm.lse_bwd(d0, d1, gr, gc, lr, lc, it, split)), 4)}
+
+    rr, cc = torch.empty_like(r), torch.empty_like(c)
+    lib = _cuda.lib()
+    cpart = torch.empty((B, lib.mk_dual_softmax_row_blocks(M), N), dtype=torch.float32, device=dev)
+    xt = fm._t_scratch(B, M, N, dev)
+    dd0, dd1 = torch.empty_like(d0), torch.empty_like(d1)
+    geom, geom_bwd = fm.corr_geometry(B, M, N), fm.corr_bwd_geometry(B, M, N)
+    stream = _cuda.stream_ptr(d0)
+    p = lambda *ts: [x.data_ptr() for x in ts]  # noqa: E731
+
+    def launch(defines, name):
+        v = _cuda.build_variant("dual_softmax.cu", defines)
+        return {f"dual_softmax_bwd_sums {name}": lambda: _cuda.check(v.mk_dual_softmax_bwd_sums_f32(
+                    *p(d0, d1, G, lr, lc, rr, cc, cpart, split), geom, B, M, N, C, it, 1, stream), name),
+                f"dual_softmax_bwd_grads {name}": lambda: _cuda.check(v.mk_dual_softmax_bwd_grads_f32(
+                    *p(d0, d1, G, lr, lc, r, c, dd0, dd1, split, xt), geom_bwd, B, M, N, C, it, 1, stream), name),
+                f"lse_bwd {name}": lambda: _cuda.check(v.mk_lse_bwd_f32(
+                    *p(d0, d1, gr, gc, lr, lc, dd0, dd1, split, xt), geom_bwd, B, M, N, C, it, 1, stream), name)}
+    return _kernel_loop(card, checks, fns, time_many_ms, list(names), 1000, MATCHER_BWD_ABLATIONS, launch, extra)
 
 
 def _stage_times(model, image0, image1, K0, K1, fused: bool = True) -> dict:

@@ -7,6 +7,10 @@
 //   K4 pair_softmax (dual_softmax.cu): own = dsc0, other = dsc1; sweep 1
 //       gives lse_row with the dustbin, sweep 2 recomputes S and writes
 //       P = exp(2 s - lse_row - lse_col).
+// The gradient kernels K5 and K6 (dual_softmax.cu, corr_bwd_kernel) run the
+// same correlation (issue_corr) and add a second product, dd_own += dS X_oth,
+// with dS as the register A operand (issue_dd) and X_oth^T from a transposed
+// copy the prep kernel split_desc_t_kernel writes.
 //
 // Numerics: every descriptor value x is split once into TF32 hi (x
 // truncated) and lo = cvt.rna(x - hi) (split_desc), and a product is three
@@ -63,6 +67,8 @@ constexpr uint32_t CORR_B_PART = CORR_BN * CORR_C * 4;      // other hi or lo
 constexpr uint32_t CORR_A_BLOCK = CORR_BM * CORR_SPAN * 4;  // one 32-channel block of an own tile
 constexpr uint32_t CORR_B_BLOCK = CORR_BN * CORR_SPAN * 4;
 constexpr uint32_t CORR_STAGE = 2 * CORR_B_PART;
+constexpr uint32_t CORR_T_BLOCK = CORR_C * CORR_SPAN * 4;  // 32 other rows of every channel of an X_oth^T tile
+constexpr uint32_t CORR_T_PART = CORR_C * CORR_BN * 4;     // an X_oth^T tile, hi or lo
 constexpr size_t CORR_SMEM = 1024 + 2 * CORR_A_PART + CORR_STAGES * CORR_STAGE + 8 * (CORR_STAGES + 1);
 constexpr float CORR_LOG2E = 1.4426950408889634f;
 constexpr float CORR_LN2 = 0.6931471805599453f;
@@ -174,36 +180,147 @@ __device__ __forceinline__ uint64_t corr_desc(uint32_t tile, uint32_t block, int
 }
 
 // The correlation of an own tile (a_hi, a_lo) and an other tile (b_hi, b_lo)
-// (raw dot products, 64 x 64) in five accumulator chains: x = lo*hi + hi*lo
-// over the 16 k8 slices, h[q] = hi*hi over slices 4q .. 4q + 3. The tensor
-// cores' fp32 sums truncate, so every step of a chain shrinks |s| a little (a
-// bias, not noise, which exp(2 s) doubles at 1/T = 10); chains of 4 steps
-// keep it at a quarter of one chain's, and their sum is rounded to nearest
-// in registers (corr_sum). x's terms are ~2^-10 of s, so its 32 steps do not
-// matter. Slices are interleaved across the chains, so a wgmma rarely waits
-// for the one before it. Issues and commits; the caller waits.
-__device__ __forceinline__ void issue_corr(float (&x)[32], float (&h)[4][32], uint32_t a_hi, uint32_t a_lo,
+// (raw dot products, 64 x 64) in 1 + kHi accumulator chains: x = lo*hi +
+// hi*lo over the 16 k8 slices, h[q] = hi*hi over slices q 16 / kHi onwards.
+// The tensor cores' fp32 sums truncate, so every step of a chain shrinks |s|
+// a little (a bias, not noise, which exp(2 s) doubles at 1/T = 10); chains of
+// 4 steps (kHi = 4) keep it at a quarter of one chain's, and their sum is
+// rounded to nearest in registers (corr_sum). x's terms are ~2^-10 of s, so
+// its 32 steps do not matter. Slices are interleaved across the chains, so a
+// wgmma rarely waits for the one before it (the h chains take their slices
+// in turn, so kHi sets the bias, not the overlap). Issues and commits; the
+// caller waits.
+template <int kHi>
+__device__ __forceinline__ void issue_corr(float (&x)[32], float (&h)[kHi][32], uint32_t a_hi, uint32_t a_lo,
                                            uint32_t b_hi, uint32_t b_lo) {
+  constexpr int kPer = CORR_C / 8 / kHi;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < CORR_C / 8; ++kk) {
     const uint64_t ah = corr_desc(a_hi, CORR_A_BLOCK, kk), bh = corr_desc(b_hi, CORR_B_BLOCK, kk);
     if (!CORR_ONE_PASS) wgmma_ss_n64(x, corr_desc(a_lo, CORR_A_BLOCK, kk), bh, kk != 0);
-    wgmma_ss_n64(h[kk / 4], ah, bh, kk % 4 != 0);
+    wgmma_ss_n64(h[kk / kPer], ah, bh, kk % kPer != 0);
     if (!CORR_ONE_PASS) wgmma_ss_n64(x, ah, corr_desc(b_lo, CORR_B_BLOCK, kk), 1);
   }
   wgmma_commit();
 }
 
-// s = x + ((h0 + h1) + (h2 + h3)), after the products are waited for
-__device__ __forceinline__ void corr_sum(float (&s)[32], float (&x)[32], float (&h)[4][32]) {
+// s = x + (the h chains summed pairwise: (h0 + h1) + (h2 + h3)), after the
+// products are waited for
+template <int kHi>
+__device__ __forceinline__ void corr_sum(float (&s)[32], float (&x)[32], float (&h)[kHi][32]) {
+  static_assert(kHi == 1 || kHi == 2 || kHi == 4, "pairwise sum of 1, 2 or 4 chains");
   fence_regs(x);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) fence_regs(h[q]);
+  for (int q = 0; q < kHi; ++q) fence_regs(h[q]);
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    s[i] = (h[0][i] + h[1][i]) + (h[2][i] + h[3][i]);
+    if constexpr (kHi == 4) {
+      s[i] = (h[0][i] + h[1][i]) + (h[2][i] + h[3][i]);
+    } else if constexpr (kHi == 2) {
+      s[i] = h[0][i] + h[1][i];
+    } else {
+      s[i] = h[0][i];
+    }
     if (!CORR_ONE_PASS) s[i] += x[i];
+  }
+}
+
+// d (64 x 128 fp32) = or += A (64 x 8 tf32, 4 fragment registers) B^T (128 x 8, K-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// The gradient's product of one other tile, d (64 x 128, a fresh chain) =
+// dS X_oth, dS (64 own x 64 other rows) split into TF32 hi / lo fragments in
+// registers (fragment k-slice kk holds other rows 8 kk .. 8 kk + 7, k-index
+// t4 the row 8 kk + 2 t4 and t4 + 4 the row 8 kk + 2 t4 + 1: the
+// accumulator's columns), X_oth^T (t_hi, t_lo: 128 channel rows of 64 other
+// rows, two blocks of 32, permuted alike within each 8) from shared memory.
+// lo*hi, hi*lo, hi*hi a slice. Issues and commits; the caller waits and adds
+// d into its running sum in registers (the tensor cores' sums truncate).
+__device__ __forceinline__ void issue_dd(float (&d)[64], const uint32_t (&ah)[32], const uint32_t (&al)[32],
+                                         uint32_t t_hi, uint32_t t_lo) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CORR_BN / 8; ++kk) {
+    const uint32_t* h = &ah[4 * kk];
+    const uint32_t* l = &al[4 * kk];
+    const uint64_t th = corr_desc(t_hi, CORR_T_BLOCK, kk);
+    if (!CORR_ONE_PASS) {
+      wgmma_rs_n128(d, l[0], l[1], l[2], l[3], th, kk != 0);
+      wgmma_rs_n128(d, h[0], h[1], h[2], h[3], corr_desc(t_lo, CORR_T_BLOCK, kk), 1);
+    }
+    wgmma_rs_n128(d, h[0], h[1], h[2], h[3], th, CORR_ONE_PASS ? kk != 0 : 1);
+  }
+  wgmma_commit();
+}
+
+// Position p of each 8 rows of an X^T tile holds row 2 p (p < 4) or
+// 2 (p - 4) + 1: the accumulator columns {2 t4, 2 t4 + 1} of a thread are its
+// A fragment's k-indices {t4, t4 + 4}, so dS goes from the one to the other
+// with no shuffle.
+__device__ __forceinline__ int corr_t_row(int p) {
+  const int w = p & 7;
+  return (p & ~7) + (w < 4 ? 2 * w : 2 * (w - 4) + 1);
+}
+
+// The gradient kernels' transposed copies: rows of x0 (r0 rows, blockIdx.z =
+// 0) or x1 (r1, blockIdx.z = 1), C channels each, split as split_desc_kernel
+// does, into scratch [x0^T hi | x0^T lo | x1^T hi | x1^T lo], each (B, 128,
+// rows padded to 64) with channels past C and rows past the end zero and
+// each 8 rows permuted (corr_t_row). One block per 64 rows of one image
+// (blockIdx.x, blockIdx.y), through a shared-memory transpose.
+__global__ void __launch_bounds__(256)
+split_desc_t_kernel(const float* __restrict__ x0, const float* __restrict__ x1, float* __restrict__ scratch, int r0,
+                    int r1, int C) {
+  __shared__ float xs[CORR_BN][CORR_C + 1];
+  const bool second = blockIdx.z == 1;
+  const float* x = second ? x1 : x0;
+  const int rows = second ? r1 : r0;
+  const long long pad0 = (r0 + CORR_BN - 1) / CORR_BN * CORR_BN, pad1 = (r1 + CORR_BN - 1) / CORR_BN * CORR_BN;
+  const long long pad = second ? pad1 : pad0;
+  const int row0 = blockIdx.x * CORR_BN, b = blockIdx.y;
+  if (row0 >= pad) return;
+  float* hi = scratch + (second ? 2LL * gridDim.y * pad0 * CORR_C : 0LL);
+  float* lo = hi + static_cast<long long>(gridDim.y) * pad * CORR_C;
+  const float* xb = x + static_cast<long long>(b) * rows * C;
+  for (int e = threadIdx.x; e < CORR_BN * CORR_C; e += blockDim.x) {
+    const int r = e / CORR_C, c = e % CORR_C;
+    xs[r][c] = row0 + r < rows && c < C ? xb[static_cast<long long>(row0 + r) * C + c] : 0.f;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < CORR_C * CORR_BN; e += blockDim.x) {
+    const int c = e / CORR_BN, p = e % CORR_BN;
+    uint32_t h, l;
+    split_desc(xs[corr_t_row(p)][c], h, l);
+    const long long at = (static_cast<long long>(b) * CORR_C + c) * pad + row0 + p;
+    hi[at] = __uint_as_float(h);
+    lo[at] = __uint_as_float(l);
   }
 }
 
@@ -386,6 +503,14 @@ corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, in
 inline bool corr_geometry_ok(const long long* g, int B, int rows, int box_rows) {
   return g[0] == CORR_SPAN && g[1] == rows && g[2] == CORR_C / CORR_SPAN && g[3] == 1 && g[4] == B &&
          g[9] == CORR_SPAN && g[10] == box_rows && g[11] == CORR_C / CORR_SPAN && g[12] == 1 && g[13] == 1;
+}
+
+// geom of an X^T map (ops/fused_matcher.py::corr_t_geometry): dims (32, 128,
+// pad / 32, 1, B), box (32, 128, 2, 1, 1), pad the rows padded to 64.
+inline bool corr_t_geometry_ok(const long long* g, int B, int rows) {
+  const long long pad = (rows + CORR_BN - 1) / CORR_BN * CORR_BN;
+  return g[0] == CORR_SPAN && g[1] == CORR_C && g[2] * CORR_SPAN == pad && g[3] == 1 && g[4] == B &&
+         g[9] == CORR_SPAN && g[10] == CORR_C && g[11] == CORR_BN / CORR_SPAN && g[12] == 1 && g[13] == 1;
 }
 
 // Floats of the split descriptors in scratch: [d0 hi | d0 lo | d1 hi | d1 lo],

@@ -3,7 +3,8 @@
 // and the matcher's correlation engine (corr_tf32.cuh): mbarriers, the
 // shared-memory matrix descriptor of a 128-byte-swizzled tile, the wgmma
 // fence / commit / wait, the conversion to TF32 (cvt.rna), the 5-D TMA
-// load, and the tensor-map encoder looked up in libcuda.
+// load, the 4- and 8-byte cp.async, and the tensor-map encoder looked up in
+// libcuda.
 
 #pragma once
 
@@ -79,6 +80,24 @@ __device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map, 
       "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c1), "r"(c2), "r"(h), "r"(b)
       : "memory");
+}
+
+// `bytes` (4 or 8, kBytes) from `src` into shared memory at `dst`, the rest
+// of the kBytes zero-filled (bytes = 0: no read, all zero), asynchronously;
+// cp_async_commit closes this thread's group of copies, cp_async_wait<n>
+// waits until at most n of its groups are in flight.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, uint32_t bytes) {
+  static_assert(kBytes == 4 || kBytes == 8, "cp.async.ca of 4 or 8 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst), "l"(src), "n"(kBytes), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int kGroups>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kGroups) : "memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

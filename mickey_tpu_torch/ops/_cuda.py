@@ -51,9 +51,9 @@ _SIGNATURES = {
     "mk_pair_topk_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
     "mk_pair_softmax_f32": [_P] * 6 + [_LLP] + [_I] * 4 + [_F, _F, _P],
-    "mk_dual_softmax_bwd_sums_f32": [_P] * 8 + [_I] * 4 + [_F, _P],
-    "mk_dual_softmax_bwd_grads_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
-    "mk_lse_bwd_f32": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "mk_dual_softmax_bwd_sums_f32": [_P] * 9 + [_LLP] + [_I] * 4 + [_F, _I, _P],
+    "mk_dual_softmax_bwd_grads_f32": [_P] * 11 + [_LLP] + [_I] * 4 + [_F, _I, _P],
+    "mk_lse_bwd_f32": [_P] * 10 + [_LLP] + [_I] * 4 + [_F, _I, _P],
 }
 
 
@@ -136,8 +136,8 @@ def lib():
 def build_variant(source: str, defines: tuple):
     """``source`` compiled alone with ``-D`` ``defines`` into a library of
     its own, loaded with the entries' signatures set: the timing ablations
-    of ``chip_smoke.py --attention``, ``--attention-f32`` and ``--matcher``. The port
-    itself loads only ``lib()``."""
+    of ``chip_smoke.py --attention``, ``--attention-f32``, ``--matcher`` and
+    ``--matcher-bwd``. The port itself loads only ``lib()``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = hashlib.sha256((_source_hash() + " ".join(defines)).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{Path(source).stem}_{tag}.so"

@@ -31,7 +31,11 @@ read through TMA tensor maps (``corr_geometry``). ``corr_3xtf32_plain``,
 ``col_lse_3xtf32_plain`` and ``pair_softmax_3xtf32_plain`` repeat that
 arithmetic on the CPU, for the tests.
 Backward (K5): ``dual_softmax_bwd_sums`` (r, c) and ``dual_softmax_bwd_grads``
-(dd0, dd1), both recomputing the correlation from the saved logsumexps.
+(dd0, dd1), both recomputing the correlation from the saved logsumexps on
+the same engine; the gradients' dS products are 3xTF32 too, dS split in
+registers, the other descriptors read a second time transposed
+(``corr_t_geometry``). ``dual_softmax_bwd_sums_3xtf32_plain`` and
+``dual_softmax_bwd_grads_3xtf32_plain`` repeat that arithmetic on the CPU.
 
 Fused top-K training, ``fused_topk_scores_train`` (a ``torch.autograd.Function``):
 the serving route's table (K2a, K2b, top-P glue), detached, plus the
@@ -41,7 +45,8 @@ grad-carrying lse_row and lse_col. With final_ij = P_ij scr0_i scr1_j,
 
 is linear in s and the two logsumexps, so the loss needs the dense matrix in
 neither direction. The VJP of the logsumexps for cotangents gr (B, M),
-gc (B, N) is K6 (``lse_bwd``, ``csrc/dual_softmax.cu``):
+gc (B, N) is K6 (``lse_bwd``, ``csrc/dual_softmax.cu``, the gradient kernel of K5 with
+another dS; ``lse_bwd_3xtf32_plain`` on the CPU):
 
     dS = gr_i exp(s_ij - lse_row_i) + gc_j exp(s_ij - lse_col_j)
     d dsc0 = dS @ dsc1 / T,   d dsc1 = dS^T @ dsc0 / T
@@ -135,6 +140,10 @@ def _corr_scratch(b: int, m: int, n: int, device, chunks: int = 0) -> torch.Tens
     return torch.empty(2 * (b * m + b * n) * CORR_C + 2 * b * chunks * n, dtype=torch.float32, device=device)
 
 
+def _col_lse_scratch(b: int, m: int, n: int, device) -> torch.Tensor:
+    return _corr_scratch(b, m, n, device, col_lse_chunks(_sm_count(device), b, m, n))
+
+
 @functools.lru_cache(maxsize=8)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -151,6 +160,48 @@ def col_lse_chunks(sms: int, b: int, m: int, n: int) -> int:
     return math.ceil(row_tiles / per)
 
 
+def _rows_padded(rows: int) -> int:
+    return -(-rows // CORR_ROWS) * CORR_ROWS
+
+
+def corr_t_geometry(b: int, rows: int):
+    """The tensor map of a transposed split descriptor set, a contiguous (B,
+    128, rows padded to 64) fp32 array read 64 rows of all 128 channels a
+    box (``map_geometry`` of it as (B, 1, 128, padded rows): dims (32, 128,
+    padded / 32, 1, B), a box (32, 128, 2, 1, 1) lands as two blocks of 128
+    128-byte rows)."""
+    pad = _rows_padded(rows)
+    return map_geometry((b, 1, CORR_C, pad), (CORR_C * pad, CORR_C * pad, pad, 1), 4, CORR_C, CORR_ROWS)
+
+
+@functools.lru_cache(maxsize=64)
+def corr_bwd_geometry(b: int, m: int, n: int):
+    """The ``geom`` argument of the gradient kernels' C entries: the maps of
+    dsc0's and dsc1's split rows (``corr_geometry``), then of their
+    transposed copies (``corr_t_geometry``)."""
+    maps = [map_geometry((b, 1, rows, CORR_C), (rows * CORR_C, rows * CORR_C, CORR_C, 1), 4, CORR_ROWS, CORR_C)
+            for rows in (m, n)] + [corr_t_geometry(b, rows) for rows in (m, n)]
+    return (ctypes.c_longlong * 56)(*(x for g in maps for part in g for x in part))
+
+
+def _t_scratch(b: int, m: int, n: int, device) -> torch.Tensor:
+    """The gradient kernels' transposed split descriptors: dsc0^T hi, lo and
+    dsc1^T hi, lo, each (B, 128, rows padded to 64)."""
+    return torch.empty(2 * b * (_rows_padded(m) + _rows_padded(n)) * CORR_C, dtype=torch.float32, device=device)
+
+
+def _split_for(split, b: int, m: int, n: int, device):
+    """The backward's split descriptors and whether its kernels write them:
+    ``split``, a forward's scratch that holds this (B, M, N) pair's split
+    already (K2a's or K4's, saved in the autograd context), or a new one."""
+    if split is None:
+        return _corr_scratch(b, m, n, device), 1
+    if split.device != device or split.dtype != torch.float32 or split.numel() < 2 * (b * m + b * n) * CORR_C:
+        raise ValueError(f"split: expected an fp32 scratch on {device} of at least {2 * (b * m + b * n) * CORR_C} "
+                         f"values, got {split.dtype} {tuple(split.shape)} on {split.device}")
+    return split, 0
+
+
 # -- K2a: column logsumexp -----------------------------------------------------
 
 
@@ -158,15 +209,17 @@ def col_lse_plain(dsc0, dsc1, inv_temp: float, alpha: float) -> torch.Tensor:
     return _col_lse_from(_correlation(dsc0, dsc1, inv_temp), alpha)
 
 
-def col_lse(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float, alpha: float) -> torch.Tensor:
-    """(B, N) logaddexp(logsumexp_i s_ij, alpha) with s = dsc0 dsc1^T * inv_temp."""
+def col_lse(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float, alpha: float, scratch=None) -> torch.Tensor:
+    """(B, N) logaddexp(logsumexp_i s_ij, alpha) with s = dsc0 dsc1^T * inv_temp.
+    ``scratch`` (``_col_lse_scratch``): where the kernel splits the
+    descriptors, for a caller that keeps the split."""
     if dsc0.device.type == "cpu":
         return col_lse_plain(dsc0, dsc1, inv_temp, alpha)
     B, M, N, C = _require_descs(dsc0, dsc1, "col_lse")
     dev = dsc0.device
     chunks = col_lse_chunks(_sm_count(dev), B, M, N)
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    scratch = _corr_scratch(B, M, N, dev, chunks)
+    scratch = _corr_scratch(B, M, N, dev, chunks) if scratch is None else scratch
     rc = _cuda.lib().mk_col_lse_f32(
         dsc0.data_ptr(), dsc1.data_ptr(), out.data_ptr(), scratch.data_ptr(), corr_geometry(B, N, M), B, M, N, C,
         chunks, float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
@@ -256,12 +309,13 @@ def exact_topk_desc(vals: torch.Tensor, k: int):
     return v, i
 
 
-def _topk_table(dsc0, dsc1, scr0, scr1, inv_temp: float, alpha: float, prefilter: int, row_topl: int):
-    """K2a, K2b and the top-P glue: (top_scores, top_idx, row_ok, lse_row, lse_col)."""
+def _topk_table(dsc0, dsc1, scr0, scr1, inv_temp: float, alpha: float, prefilter: int, row_topl: int, split=None):
+    """K2a, K2b and the top-P glue: (top_scores, top_idx, row_ok, lse_row,
+    lse_col); K2a's split descriptors into ``split`` where it is given."""
     B, M, _ = dsc0.shape
     scr0 = scr0.float().contiguous()
     scr1 = scr1.float().contiguous()
-    lse_col = col_lse(dsc0, dsc1, inv_temp, alpha)
+    lse_col = col_lse(dsc0, dsc1, inv_temp, alpha, split)
     vals, idxs, stats, lse_row = pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp, alpha, row_topl)
     row_ok = (
         (stats[..., 1].sum(dim=-1) == 0)  # all finite
@@ -308,7 +362,7 @@ def dense_topk_scores(scores: torch.Tensor, prefilter: int, row_topl: int = 16):
 
 # -- K4: dense dual-softmax (training forward) -----------------------------------
 
-# deepest descriptor the matcher kernels take (csrc/corr_tf32.cuh, csrc/dual_softmax.cu CMAX)
+# deepest descriptor the matcher kernels take (csrc/corr_tf32.cuh CORR_C)
 DUAL_SOFTMAX_MAX_C = CORR_C
 
 
@@ -331,9 +385,10 @@ def pair_softmax_plain(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
     return _pair_softmax_from(_correlation(dsc0, dsc1, inv_temp), lse_col, alpha)
 
 
-def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
+def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float, scratch=None):
     """(out (B, M, N) = exp(s - lse_row) exp(s - lse_col), lse_row (B, M)),
-    lse_row with the dustbin column ``alpha``; ``lse_col`` from ``col_lse``."""
+    lse_row with the dustbin column ``alpha``; ``lse_col`` from ``col_lse``;
+    ``scratch`` (``_corr_scratch``) as for ``col_lse``."""
     if dsc0.device.type == "cpu":
         return pair_softmax_plain(dsc0, dsc1, lse_col, inv_temp, alpha)
     B, M, N, C = _require_descs(dsc0, dsc1, "pair_softmax")
@@ -341,7 +396,7 @@ def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
     dev = dsc0.device
     out = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     lse_row = torch.empty((B, M), dtype=torch.float32, device=dev)
-    scratch = _corr_scratch(B, M, N, dev)
+    scratch = _corr_scratch(B, M, N, dev) if scratch is None else scratch
     rc = _cuda.lib().mk_pair_softmax_f32(
         dsc0.data_ptr(), dsc1.data_ptr(), lse_col.data_ptr(), out.data_ptr(), lse_row.data_ptr(),
         scratch.data_ptr(), corr_geometry(B, M, N), B, M, N, C, float(inv_temp), float(alpha),
@@ -355,14 +410,24 @@ def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
 # -- K5: analytic backward -------------------------------------------------------
 
 
-def dual_softmax_bwd_sums_plain(dsc0, dsc1, g, lse_row, lse_col, inv_temp: float):
-    s = _correlation(dsc0, dsc1, inv_temp)
+def _bwd_sums_from(s, g, lse_row, lse_col):
     gp = g * torch.exp(2.0 * s - lse_row[..., None] - lse_col[:, None, :])
     return gp.sum(dim=2), gp.sum(dim=1)
 
 
-def dual_softmax_bwd_sums(dsc0, dsc1, g, lse_row, lse_col, inv_temp: float):
-    """(r (B, M), c (B, N)): row and column sums of G * P."""
+def dual_softmax_bwd_sums_plain(dsc0, dsc1, g, lse_row, lse_col, inv_temp: float):
+    return _bwd_sums_from(_correlation(dsc0, dsc1, inv_temp), g, lse_row, lse_col)
+
+
+def dual_softmax_bwd_sums_3xtf32_plain(dsc0, dsc1, g, lse_row, lse_col, inv_temp: float, passes: int = 3):
+    """K5's first body's arithmetic on the CPU: ``dual_softmax_bwd_sums_plain``
+    on the engine's correlation (own = dsc0)."""
+    return _bwd_sums_from(corr_3xtf32_plain(dsc0, dsc1, inv_temp, passes), g, lse_row, lse_col)
+
+
+def dual_softmax_bwd_sums(dsc0, dsc1, g, lse_row, lse_col, inv_temp: float, split=None):
+    """(r (B, M), c (B, N)): row and column sums of G * P. ``split``: the
+    forward's split of these descriptors (``_split_for``), else made here."""
     if dsc0.device.type == "cpu":
         return dual_softmax_bwd_sums_plain(dsc0, dsc1, g, lse_row, lse_col, inv_temp)
     B, M, N, C = _require_descs(dsc0, dsc1, "dual_softmax_bwd_sums")
@@ -373,38 +438,80 @@ def dual_softmax_bwd_sums(dsc0, dsc1, g, lse_row, lse_col, inv_temp: float):
     r = torch.empty((B, M), dtype=torch.float32, device=dev)
     c = torch.empty((B, N), dtype=torch.float32, device=dev)
     cpart = torch.empty((B, lib.mk_dual_softmax_row_blocks(M), N), dtype=torch.float32, device=dev)
+    split, do_split = _split_for(split, B, M, N, dev)
     rc = lib.mk_dual_softmax_bwd_sums_f32(
         dsc0.data_ptr(), dsc1.data_ptr(), g.data_ptr(), lse_row.data_ptr(), lse_col.data_ptr(),
-        r.data_ptr(), c.data_ptr(), cpart.data_ptr(), B, M, N, C, float(inv_temp), _cuda.stream_ptr(dsc0),
+        r.data_ptr(), c.data_ptr(), cpart.data_ptr(), split.data_ptr(), corr_geometry(B, M, N), B, M, N, C,
+        float(inv_temp), do_split, _cuda.stream_ptr(dsc0),
     )
     _cuda.check(rc, "dual_softmax_bwd_sums")
     _cuda.LAUNCHES["dual_softmax_bwd_sums"] += 1
     return r, c
 
 
+def _grads_ds(s, g, lse_own, lse_oth, w_own, w_oth):
+    """dS of one side, the owned axis first: K5's 2 P G - A w_oth - B w_own
+    (``g`` given) or K6's w_own B + w_oth A, with A = exp(s - lse_oth) the
+    softmax along the owned axis and B = exp(s - lse_own)."""
+    A = torch.exp(s - lse_oth[:, None, :])
+    Bm = torch.exp(s - lse_own[..., None])
+    if g is None:
+        return w_own[..., None] * Bm + w_oth[:, None, :] * A
+    return 2.0 * (A * Bm) * g - A * w_oth[:, None, :] - Bm * w_own[..., None]
+
+
+def _grads_3xtf32(dsc0, dsc1, g, lse_row, lse_col, w_row, w_col, inv_temp: float, passes: int):
+    """The gradient kernels' arithmetic on the CPU: per side (dd0 owns dsc0's
+    rows, dd1 dsc1's, as the kernel's two launches) s on the engine, dS in
+    fp32, then dS X_oth with dS split as the descriptors are
+    (``corr_3xtf32_plain`` of dS and X_oth^T)."""
+    out = []
+    for x_own, x_oth, g_side, l_own, l_oth, w_own, w_oth in (
+            (dsc0, dsc1, g, lse_row, lse_col, w_row, w_col),
+            (dsc1, dsc0, None if g is None else g.transpose(1, 2), lse_col, lse_row, w_col, w_row)):
+        dS = _grads_ds(corr_3xtf32_plain(x_own, x_oth, inv_temp, passes), g_side, l_own, l_oth, w_own, w_oth)
+        out.append(corr_3xtf32_plain(dS, x_oth.float().transpose(1, 2), inv_temp, passes))
+    return tuple(out)
+
+
 def dual_softmax_bwd_grads_plain(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: float):
-    s = _correlation(dsc0, dsc1, inv_temp)
-    A = torch.exp(s - lse_col[:, None, :])  # softmax over rows
-    Bm = torch.exp(s - lse_row[..., None])  # softmax over columns
-    dS = 2.0 * (A * Bm) * g - A * c[:, None, :] - Bm * r[..., None]
+    dS = _grads_ds(_correlation(dsc0, dsc1, inv_temp), g, lse_row, lse_col, r, c)
     return torch.matmul(dS, dsc1.float()) * inv_temp, torch.matmul(dS.transpose(1, 2), dsc0.float()) * inv_temp
 
 
-def dual_softmax_bwd_grads(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: float):
-    """(dd0 (B, M, C), dd1 (B, N, C)) = (dS dsc1 / T, dS^T dsc0 / T)."""
+def dual_softmax_bwd_grads_3xtf32_plain(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: float, passes: int = 3):
+    """K5's second body's arithmetic on the CPU (``_grads_3xtf32``)."""
+    return _grads_3xtf32(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp, passes)
+
+
+def _grads_launch(entry: str, dsc0, dsc1, vecs, inv_temp: float, split):
+    """The gradient kernels' wrapper body: dd0, dd1 from the C entry
+    ``entry`` on the checked descriptors and the vectors' pointers."""
+    B, M, C = dsc0.shape
+    N = dsc1.shape[1]
+    dev = dsc0.device
+    dd0 = torch.empty((B, M, C), dtype=torch.float32, device=dev)
+    dd1 = torch.empty((B, N, C), dtype=torch.float32, device=dev)
+    split, do_split = _split_for(split, B, M, N, dev)
+    rc = getattr(_cuda.lib(), entry)(
+        dsc0.data_ptr(), dsc1.data_ptr(), *(v.data_ptr() for v in vecs), dd0.data_ptr(), dd1.data_ptr(),
+        split.data_ptr(), _t_scratch(B, M, N, dev).data_ptr(), corr_bwd_geometry(B, M, N), B, M, N, C,
+        float(inv_temp), do_split, _cuda.stream_ptr(dsc0),
+    )
+    return rc, dd0, dd1
+
+
+def dual_softmax_bwd_grads(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: float, split=None):
+    """(dd0 (B, M, C), dd1 (B, N, C)) = (dS dsc1 / T, dS^T dsc0 / T);
+    ``split`` as for ``dual_softmax_bwd_sums``."""
     if dsc0.device.type == "cpu":
         return dual_softmax_bwd_grads_plain(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp)
     B, M, N, C = _require_descs(dsc0, dsc1, "dual_softmax_bwd_grads")
     for t, name, shape in ((g, "g", (B, M, N)), (lse_row, "lse_row", (B, M)), (lse_col, "lse_col", (B, N)),
                            (r, "r", (B, M)), (c, "c", (B, N))):
         _cuda.require(t, name, torch.float32, shape, dsc0.device)
-    dd0 = torch.empty((B, M, C), dtype=torch.float32, device=dsc0.device)
-    dd1 = torch.empty((B, N, C), dtype=torch.float32, device=dsc0.device)
-    rc = _cuda.lib().mk_dual_softmax_bwd_grads_f32(
-        dsc0.data_ptr(), dsc1.data_ptr(), g.data_ptr(), lse_row.data_ptr(), lse_col.data_ptr(),
-        r.data_ptr(), c.data_ptr(), dd0.data_ptr(), dd1.data_ptr(), B, M, N, C, float(inv_temp),
-        _cuda.stream_ptr(dsc0),
-    )
+    rc, dd0, dd1 = _grads_launch("mk_dual_softmax_bwd_grads_f32", dsc0, dsc1, (g, lse_row, lse_col, r, c), inv_temp,
+                                 split)
     _cuda.check(rc, "dual_softmax_bwd_grads")
     _cuda.LAUNCHES["dual_softmax_bwd_grads"] += 1
     return dd0, dd1
@@ -436,9 +543,9 @@ def _dustbin_grad(ctx, w_row, w_col, lse_row, lse_col):
     return da.reshape(shape).to(dtype)
 
 
-def _forward(dsc0, dsc1, inv_temp: float, alpha: float):
+def _forward(dsc0, dsc1, inv_temp: float, alpha: float, split=None):
     lse_col = col_lse(dsc0, dsc1, inv_temp, alpha)
-    out, lse_row = pair_softmax(dsc0, dsc1, lse_col, inv_temp, alpha)
+    out, lse_row = pair_softmax(dsc0, dsc1, lse_col, inv_temp, alpha, split)
     return out, lse_row, lse_col
 
 
@@ -453,7 +560,9 @@ class _FusedDualSoftmax(torch.autograd.Function):
     def forward(ctx, dsc0, dsc1, dustbin, inv_temp: float, use_dustbin: bool):
         d0, d1 = (d.float().contiguous() for d in (dsc0, dsc1))
         alpha = _alpha(dustbin, use_dustbin)
-        out, lse_row, lse_col = _forward(d0, d1, inv_temp, alpha)
+        # K4's split descriptors, kept for the backward's kernels
+        ctx.split = _corr_scratch(d0.shape[0], d0.shape[1], d1.shape[1], d0.device) if d0.is_cuda else None
+        out, lse_row, lse_col = _forward(d0, d1, inv_temp, alpha, ctx.split)
         ctx.save_for_backward(d0, d1, lse_row, lse_col)
         _save_meta(ctx, dsc0, dsc1, dustbin, inv_temp, alpha, use_dustbin)
         return out
@@ -462,8 +571,8 @@ class _FusedDualSoftmax(torch.autograd.Function):
     def backward(ctx, g):
         d0, d1, lse_row, lse_col = ctx.saved_tensors
         g = g.float().contiguous()
-        r, c = dual_softmax_bwd_sums(d0, d1, g, lse_row, lse_col, ctx.inv_temp)
-        dd0, dd1 = dual_softmax_bwd_grads(d0, d1, g, lse_row, lse_col, r, c, ctx.inv_temp)
+        r, c = dual_softmax_bwd_sums(d0, d1, g, lse_row, lse_col, ctx.inv_temp, ctx.split)
+        dd0, dd1 = dual_softmax_bwd_grads(d0, d1, g, lse_row, lse_col, r, c, ctx.inv_temp, ctx.split)
         dalpha = _dustbin_grad(ctx, -r, -c, lse_row, lse_col)
         return dd0.to(ctx.dtypes[0]), dd1.to(ctx.dtypes[1]), dalpha, None, None
 
@@ -478,27 +587,26 @@ def fused_dual_softmax_vjp(dsc0, dsc1, dustbin, temperature: float = 0.1, use_du
 
 
 def lse_bwd_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float):
-    s = _correlation(dsc0, dsc1, inv_temp)
-    dS = gr[..., None] * torch.exp(s - lse_row[..., None]) + gc[:, None, :] * torch.exp(s - lse_col[:, None, :])
+    dS = _grads_ds(_correlation(dsc0, dsc1, inv_temp), None, lse_row, lse_col, gr, gc)
     return torch.matmul(dS, dsc1.float()) * inv_temp, torch.matmul(dS.transpose(1, 2), dsc0.float()) * inv_temp
 
 
-def lse_bwd(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float):
+def lse_bwd_3xtf32_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float, passes: int = 3):
+    """K6's arithmetic on the CPU (``_grads_3xtf32`` without G)."""
+    return _grads_3xtf32(dsc0, dsc1, None, lse_row, lse_col, gr, gc, inv_temp, passes)
+
+
+def lse_bwd(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float, split=None):
     """(dd0 (B, M, C), dd1 (B, N, C)) = (dS dsc1 / T, dS^T dsc0 / T) with
     dS = gr exp(s - lse_row) + gc exp(s - lse_col): the VJP of the two
-    dustbin-augmented logsumexps."""
+    dustbin-augmented logsumexps; ``split`` as for ``dual_softmax_bwd_sums``."""
     if dsc0.device.type == "cpu":
         return lse_bwd_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp)
     B, M, N, C = _require_descs(dsc0, dsc1, "lse_bwd")
     for t, name, shape in ((gr, "gr", (B, M)), (gc, "gc", (B, N)), (lse_row, "lse_row", (B, M)),
                            (lse_col, "lse_col", (B, N))):
         _cuda.require(t, name, torch.float32, shape, dsc0.device)
-    dd0 = torch.empty((B, M, C), dtype=torch.float32, device=dsc0.device)
-    dd1 = torch.empty((B, N, C), dtype=torch.float32, device=dsc0.device)
-    rc = _cuda.lib().mk_lse_bwd_f32(
-        dsc0.data_ptr(), dsc1.data_ptr(), gr.data_ptr(), gc.data_ptr(), lse_row.data_ptr(), lse_col.data_ptr(),
-        dd0.data_ptr(), dd1.data_ptr(), B, M, N, C, float(inv_temp), _cuda.stream_ptr(dsc0),
-    )
+    rc, dd0, dd1 = _grads_launch("mk_lse_bwd_f32", dsc0, dsc1, (gr, gc, lse_row, lse_col), inv_temp, split)
     _cuda.check(rc, "lse_bwd")
     _cuda.LAUNCHES["lse_bwd"] += 1
     return dd0, dd1
@@ -510,8 +618,10 @@ class _FusedTopKTrain(torch.autograd.Function):
                 row_topl: int):
         d0, d1 = (d.float().contiguous() for d in (dsc0, dsc1))
         alpha = _alpha(dustbin, use_dustbin)
+        # K2a's split descriptors, kept for the backward's kernels
+        ctx.split = _col_lse_scratch(d0.shape[0], d0.shape[1], d1.shape[1], d0.device) if d0.is_cuda else None
         top_scores, top_idx, row_ok, lse_row, lse_col = _topk_table(d0, d1, scr0, scr1, inv_temp, alpha,
-                                                                    prefilter, row_topl)
+                                                                    prefilter, row_topl, ctx.split)
         ctx.save_for_backward(d0, d1, lse_row, lse_col)
         _save_meta(ctx, dsc0, dsc1, dustbin, inv_temp, alpha, use_dustbin)
         ctx.mark_non_differentiable(top_scores, top_idx, row_ok)
@@ -522,7 +632,7 @@ class _FusedTopKTrain(torch.autograd.Function):
         d0, d1, lse_row, lse_col = ctx.saved_tensors
         gr = torch.zeros_like(lse_row) if gr is None else gr.float().contiguous()
         gc = torch.zeros_like(lse_col) if gc is None else gc.float().contiguous()
-        dd0, dd1 = lse_bwd(d0, d1, gr, gc, lse_row, lse_col, ctx.inv_temp)
+        dd0, dd1 = lse_bwd(d0, d1, gr, gc, lse_row, lse_col, ctx.inv_temp, ctx.split)
         dalpha = _dustbin_grad(ctx, gr, gc, lse_row, lse_col)
         return dd0.to(ctx.dtypes[0]), dd1.to(ctx.dtypes[1]), dalpha, None, None, None, None, None, None
 

@@ -415,3 +415,87 @@ def test_matcher_fp64_errors_rehearsal():
     errs = chip_smoke.matcher_fp64_errors(chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16))
     assert set(errs) == {"kernel", "plain"}
     assert all(e["p_max"] < 1e-5 and e["lse_col_max_abs"] < 1e-5 for e in errs.values())
+
+
+def test_matcher_bwd_checks_rehearsal():
+    """``--matcher-bwd``'s checks at a tiny size, plain against plain: K5's
+    two bodies and K6 with the dustbin on and off and their launch-to-launch
+    comparisons, and the ragged sizes (C = 16 and an odd C) with an infinite
+    descriptor and a NaN row (NaN and infinities where the plain version has
+    them)."""
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    errs = chip_smoke.check_matcher_bwd_kernels(tin)
+    assert set(errs) == {"dustbin on", "dustbin off"} and all(e == 0.0 for e in errs.values())
+    assert chip_smoke.check_matcher_bwd_shapes("cpu", sizes=(70, 65, 64, 1), desc=16) == 0.0
+    assert chip_smoke.check_matcher_bwd_shapes("cpu", sizes=(130, 67), desc=45) == 0.0
+
+
+def test_matcher_bwd_checks_catch_a_wrong_kernel(monkeypatch):
+    """A bwd_grads of one TF32 pass fails the training-shape check; an
+    lse_bwd that zeroes NaN fails the ragged sizes' non-finite check; a
+    bwd_sums whose column sums drift from call to call fails the bitwise
+    launch check."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    monkeypatch.setattr(fm, "dual_softmax_bwd_grads", lambda *a: fm.dual_softmax_bwd_grads_3xtf32_plain(*a, passes=1))
+    with pytest.raises(chip_smoke.SmokeError, match="dual_softmax_bwd_grads dd"):
+        chip_smoke.check_matcher_bwd_kernels(tin)
+    monkeypatch.undo()
+    monkeypatch.setattr(fm, "lse_bwd", lambda *a: tuple(torch.nan_to_num(x) for x in fm.lse_bwd_plain(*a)))
+    with pytest.raises(chip_smoke.SmokeError, match="NaN or infinite"):
+        chip_smoke.check_matcher_bwd_shapes("cpu", sizes=(70, 65), desc=16)
+    monkeypatch.undo()
+    calls = []
+
+    def drifting(*a):
+        calls.append(0)
+        r, c = fm.dual_softmax_bwd_sums_plain(*a)
+        return r, c * (1 + 1e-7 * (len(calls) % 2))
+
+    monkeypatch.setattr(fm, "dual_softmax_bwd_sums", drifting)
+    with pytest.raises(chip_smoke.SmokeError, match="two launches"):
+        chip_smoke.check_matcher_bwd_kernels(tin)
+
+
+def test_matcher_bwd_bounds_count_tf32_passes():
+    """K5's and K6's bounds: bwd_sums one correlation, bwd_grads and lse_bwd
+    the function's three products (not the two launches' recomputed s), each
+    three TF32 passes at 495 TFLOP/s, the fp32 FMA bound of the bodies they
+    replaced one pass at 67 TFLOP/s; against the bytes read and written
+    once."""
+    inp = _tiny_kernel_inputs()
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    bounds = chip_smoke.kernel_bounds(inp, tin)
+    b, m, c = tin["dsc0"].shape
+    n = tin["dsc1"].shape[1]
+    corr = 2.0 * b * m * n * c
+    descs = (b * m * c + b * n * c) * 4
+    vecs = (2 * b * m + 2 * b * n) * 4
+    want = {"dual_softmax_bwd_sums": (3 * corr, descs + b * m * n * 4 + vecs),
+            "dual_softmax_bwd_grads": (9 * corr, 2 * descs + b * m * n * 4 + vecs),
+            "lse_bwd": (9 * corr, 2 * descs + vecs)}
+    for name, (flops, nbytes) in want.items():
+        assert bounds[name][0] == pytest.approx(
+            max(flops / chip_smoke.PEAK_TF32, nbytes / chip_smoke.PEAK_BYTES) * 1e3), name
+    fn = chip_smoke.bwd_grads_bound
+    assert fn(tin["dsc0"], tin["dsc1"], chip_smoke.PEAK_FP32, 1.0)[0] == pytest.approx(
+        max(3 * corr / chip_smoke.PEAK_FP32, want["dual_softmax_bwd_grads"][1] / chip_smoke.PEAK_BYTES) * 1e3)
+    # at the training shape the products bind, not G's 120 MB
+    big = torch.empty((8, 1938, 128), device="meta")
+    for fn, products in ((chip_smoke.bwd_sums_bound, 1), (chip_smoke.bwd_grads_bound, 3), (chip_smoke.lse_bwd_bound, 3)):
+        ms, by = fn(big, big)
+        assert by == "operations" and ms == pytest.approx(3 * products * 2.0 * 8 * 1938 ** 2 * 128 / chip_smoke.PEAK_TF32 * 1e3)
+
+
+def test_matcher_bwd_fp64_errors_rehearsal():
+    """``--matcher-bwd``'s distances from fp64 at a tiny size: the plain
+    versions on the CPU (both sides of the comparison) come within fp32
+    rounding of it, and the distance of a value 1e-4 too large reads 1e-4."""
+    errs = chip_smoke.matcher_bwd_fp64_errors(chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16))
+    assert set(errs) == {"kernel", "plain"}
+    keys = {"r", "c", "bwd_grads dd0", "bwd_grads dd1", "lse_bwd dd0", "lse_bwd dd1"}
+    assert all(set(e) == keys and all(v["max_over_max"] < 1e-5 for v in e.values()) for e in errs.values())
+    ref = torch.tensor([1.0, -2.0, 4.0, 1e-9], dtype=torch.float64)
+    d = chip_smoke._fp64_distance(ref * (1 + 1e-4), ref)
+    assert d["rel_mean"] == pytest.approx(1e-4) and d["max_over_max"] == pytest.approx(1e-4)

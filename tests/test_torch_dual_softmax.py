@@ -180,3 +180,118 @@ def test_pair_softmax_3xtf32_plain_matches_jax_interpret(shape, use_dustbin):
     assert ratio(p, out) <= 1.0 and ratio(lr, lse_row) <= 1.0
     if n > 1:  # a single column: P is 1 whatever the score
         assert ratio(fm.pair_softmax_3xtf32_plain(t0, t1, lc, 10.0, a, passes=1)[0], out) > 1.0
+
+
+# -- K5's arithmetic: 3xTF32 on the correlation engine, dS split in registers ------------
+
+
+def _jax_pieces(d0, d1, use_dustbin, m, n):
+    """The JAX kernels' lse_row, lse_col (interpret mode, cropped)."""
+    from mickey_tpu.ops import fused_matcher as jfm
+
+    b = d0.shape[0]
+    p0, p1, alpha = jfm._pad_inputs(jnp.asarray(d0), jnp.asarray(d1), jnp.float32(0.7), use_dustbin, 128)
+    _, lse_row, lse_col = (np.asarray(x) for x in jfm._forward_padded(p0, p1, alpha, 10.0, m, n, 128, True))
+    return torch.from_numpy(lse_row.reshape(b, -1)[:, :m].copy()), torch.from_numpy(lse_col[:, 0, :n].copy())
+
+
+@pytest.mark.parametrize("use_dustbin", [True, False])
+@pytest.mark.parametrize("shape", [(2, 37, 45, 16), (1, 129, 65, 128), (2, 70, 1, 128)])
+def test_bwd_3xtf32_plain_matches_jax_interpret(shape, use_dustbin):
+    """K5's two bodies' arithmetic (the correlation on the engine, dS in
+    fp32, dS X_oth with dS and X_oth split as the descriptors are, lo*hi +
+    hi*lo then hi*hi) on the JAX kernels' logsumexps: dd0, dd1 against
+    jax.grad of the JAX route in interpret mode at the JAX package's own
+    gradient tolerance (atol 2e-5, rtol 1e-4); one TF32 pass of both
+    products is the negative control that misses it."""
+    b, m, n, c = shape
+    d0, d1, G = _inputs(shape, seed=40 + m)
+
+    def loss(x0, x1):
+        return jnp.sum(jax_vjp(x0, x1, jnp.float32(0.7), temperature=0.1, use_dustbin=use_dustbin, block_m=128,
+                               interpret=True) * G)
+
+    ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(d0), jnp.asarray(d1))
+    lse_row, lse_col = _jax_pieces(d0, d1, use_dustbin, m, n)
+    t0, t1, tg = torch.from_numpy(d0), torch.from_numpy(d1), torch.from_numpy(G)
+    r, cc = fm.dual_softmax_bwd_sums_3xtf32_plain(t0, t1, tg, lse_row, lse_col, 10.0)
+    for g, want in zip(fm.dual_softmax_bwd_grads_3xtf32_plain(t0, t1, tg, lse_row, lse_col, r, cc, 10.0), ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+    one = fm.dual_softmax_bwd_grads_3xtf32_plain(t0, t1, tg, lse_row, lse_col, r, cc, 10.0, passes=1)
+    assert not all(np.allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=1e-4) for g, w in zip(one, ref))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 70, 1, 128)])
+def test_bwd_3xtf32_plain_matches_plain(shape):
+    """The 3xTF32 mimics of K5's two bodies against the fp32 plain versions
+    at chip_smoke.py's tolerances (r, c at DS_RTOL, dd0 and dd1 at DS_RTOL
+    max|ref|), with the dustbin on and off."""
+    import chip_smoke
+
+    b, m, n, c = shape
+    d0, d1, G = (torch.from_numpy(x) for x in _inputs(shape, seed=50))
+    for alpha in (0.7, fm.NEG_INF):
+        lse_col = fm.col_lse_plain(d0, d1, 10.0, alpha)
+        _, lse_row = fm.pair_softmax_plain(d0, d1, lse_col, 10.0, alpha)
+        sums = fm.dual_softmax_bwd_sums_3xtf32_plain(d0, d1, G, lse_row, lse_col, 10.0)
+        for x, ref in zip(sums, fm.dual_softmax_bwd_sums_plain(d0, d1, G, lse_row, lse_col, 10.0)):
+            chip_smoke._close(x, ref, "bwd_sums", chip_smoke.DS_RTOL)
+        r, cc = sums
+        grads = fm.dual_softmax_bwd_grads_3xtf32_plain(d0, d1, G, lse_row, lse_col, r, cc, 10.0)
+        for x, ref in zip(grads, fm.dual_softmax_bwd_grads_plain(d0, d1, G, lse_row, lse_col, r, cc, 10.0)):
+            chip_smoke._close_to_max(x, ref, "bwd_grads", chip_smoke.DS_RTOL)
+
+
+def test_ds_split_keeps_the_fp32_product_nonfinite_pattern():
+    """dS takes the descriptors' split (``desc_split``: hi truncated, lo of
+    x's sign, 2^-126 for a nonzero exact TF32 value, 0 where hi is not
+    finite): against an infinite descriptor value the three passes lo*hi +
+    hi*lo + hi*hi give the fp32 product's +-inf or NaN, for every finite dS,
+    and an infinite dS gives the fp32 product against a finite value. Two
+    infinities meet as 0 * inf in a lo pass, NaN where fp32 gives +-inf, as
+    in the correlation. Rounding hi to nearest (``tf32_split``) gives NaN
+    where a lo of the other sign meets the infinity."""
+    from mickey_tpu_torch.ops.tf32 import desc_split, tf32_split
+
+    ds = torch.tensor([0.0, -0.0, 1.0, -3.0, 1e-3, 1.0 + 3 * 2.0 ** -12, -(1.0 + 3 * 2.0 ** -12), 7.5e-30,
+                       float("inf"), float("-inf"), float("nan")])
+    x = torch.tensor([float("inf"), float("-inf"), 1.5, -0.25, 0.0])
+    xh, xl = desc_split(x)
+
+    def passes(split):
+        h, lo = split(ds)
+        return (lo[:, None] * xh[None] + h[:, None] * xl[None]) + h[:, None] * xh[None]
+
+    want = ds[:, None] * x[None]
+    got = passes(desc_split)
+    both_inf = torch.isinf(ds)[:, None] & torch.isinf(x)[None]
+    assert torch.isnan(got[both_inf]).all()
+    got, want = got[~both_inf], want[~both_inf]
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=2e-6, atol=0)
+    assert not torch.equal(torch.isnan(passes(tf32_split)[~both_inf]), torch.isnan(want))
+
+
+def test_bwd_3xtf32_plain_nonfinite_where_plain_is():
+    """An infinite descriptor value and a NaN row: the mimics of K5 and K6
+    give NaN and infinities exactly where the fp32 plain versions do."""
+    d0, d1, G = (torch.from_numpy(x) for x in _inputs((3, 40, 33, 16), seed=60))
+    d1[1, 3, 7] = float("inf")
+    d0[2, 5] = float("nan")
+    lse_col = fm.col_lse_plain(d0, d1, 10.0, 0.7)
+    _, lse_row = fm.pair_softmax_plain(d0, d1, lse_col, 10.0, 0.7)
+    r, c = fm.dual_softmax_bwd_sums_plain(d0, d1, G, lse_row, lse_col, 10.0)
+    gr, gc = torch.randn(3, 40, generator=torch.Generator().manual_seed(0)), torch.ones(3, 33)
+    pairs = [(fm.dual_softmax_bwd_sums_3xtf32_plain(d0, d1, G, lse_row, lse_col, 10.0), (r, c)),
+             (fm.dual_softmax_bwd_grads_3xtf32_plain(d0, d1, G, lse_row, lse_col, r, c, 10.0),
+              fm.dual_softmax_bwd_grads_plain(d0, d1, G, lse_row, lse_col, r, c, 10.0)),
+             (fm.lse_bwd_3xtf32_plain(d0, d1, gr, gc, lse_row, lse_col, 10.0),
+              fm.lse_bwd_plain(d0, d1, gr, gc, lse_row, lse_col, 10.0))]
+    for got, want in pairs:
+        for x, ref in zip(got, want):
+            assert torch.equal(torch.isnan(x), torch.isnan(ref)) and torch.isnan(ref).any()
+            assert torch.equal(x[torch.isinf(ref)], ref[torch.isinf(ref)])
+            assert torch.isfinite(ref).any()

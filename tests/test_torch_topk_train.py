@@ -136,6 +136,51 @@ def test_lse_bwd_plain_matches_autograd_of_dense_lse(use_dustbin):
         np.testing.assert_allclose(g, r, atol=2e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("use_dustbin", [True, False])
+@pytest.mark.parametrize("shape", SHAPES + [(2, 70, 1, 128)])
+def test_lse_bwd_3xtf32_plain_matches_jax(shape, use_dustbin):
+    """K6's arithmetic (the correlation on the engine, dS in fp32, dS X_oth
+    with dS and X_oth split as the descriptors are) on the JAX route's
+    logsumexps: dd0, dd1 against jax.grad of the JAX route, K6 in interpret
+    mode, at the JAX package's gradient tolerance (atol 2e-5, rtol 1e-4); one
+    TF32 pass of both products is the negative control that misses it."""
+    d0, d1, s0, s1, rng = _inputs(shape, seed=5)
+    b, m, n, _ = shape
+    wr = rng.normal(size=(b, m)).astype(np.float32)
+    wc = rng.normal(size=(b, n)).astype(np.float32)
+    kw = dict(temperature=0.1, use_dustbin=use_dustbin, row_topl=1, block_m=128, interpret=True)
+    ja = [jnp.asarray(x) for x in (d0, d1, s0, s1)]
+
+    def jax_loss(x0, x1):
+        _, _, _, lr, lcol = jfm.fused_topk_scores_train(x0, x1, ja[2], ja[3], jnp.float32(0.7), 4, **kw)
+        return jnp.sum(wr * lr) + jnp.sum(wc * lcol)
+
+    ref = jax.grad(jax_loss, argnums=(0, 1))(ja[0], ja[1])
+    lse_row, lse_col = (torch.from_numpy(np.asarray(x)) for x in jfm.fused_topk_scores_train(
+        *ja, jnp.float32(0.7), 4, **kw)[3:])
+    args = (torch.from_numpy(d0), torch.from_numpy(d1), torch.from_numpy(wr), torch.from_numpy(wc), lse_row, lse_col,
+            10.0)
+    for g, want in zip(fm.lse_bwd_3xtf32_plain(*args), ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+    one = fm.lse_bwd_3xtf32_plain(*args, passes=1)
+    assert not all(np.allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=1e-4) for g, w in zip(one, ref))
+
+
+def test_lse_bwd_3xtf32_plain_matches_plain():
+    """K6's 3xTF32 mimic against its fp32 plain version at chip_smoke.py's
+    tolerance (dd0, dd1 at DS_RTOL max|ref|), with the dustbin on and off."""
+    d0, d1, _, _, rng = _inputs(SHAPES[1], seed=6)
+    b, m, n, _ = SHAPES[1]
+    t0, t1 = torch.from_numpy(d0), torch.from_numpy(d1)
+    gr, gc = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)) for sh in ((b, m), (b, n)))
+    for alpha in (0.7, fm.NEG_INF):
+        lse_col = fm.col_lse_plain(t0, t1, 10.0, alpha)
+        _, lse_row = fm.pair_softmax_plain(t0, t1, lse_col, 10.0, alpha)
+        got = fm.lse_bwd_3xtf32_plain(t0, t1, gr, gc, lse_row, lse_col, 10.0)
+        for x, ref in zip(got, fm.lse_bwd_plain(t0, t1, gr, gc, lse_row, lse_col, 10.0)):
+            chip_smoke._close_to_max(x, ref, "lse_bwd", chip_smoke.DS_RTOL)
+
+
 def test_cpu_route_launches_nothing():
     d0, d1, s0, s1, _ = _inputs(SHAPES[0])
     t0 = torch.from_numpy(d0).requires_grad_(True)
