@@ -140,10 +140,6 @@ def _corr_scratch(b: int, m: int, n: int, device, chunks: int = 0) -> torch.Tens
     return torch.empty(2 * (b * m + b * n) * CORR_C + 2 * b * chunks * n, dtype=torch.float32, device=device)
 
 
-def _col_lse_scratch(b: int, m: int, n: int, device) -> torch.Tensor:
-    return _corr_scratch(b, m, n, device, col_lse_chunks(_sm_count(device), b, m, n))
-
-
 @functools.lru_cache(maxsize=8)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -211,8 +207,8 @@ def col_lse_plain(dsc0, dsc1, inv_temp: float, alpha: float) -> torch.Tensor:
 
 def col_lse(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float, alpha: float, scratch=None) -> torch.Tensor:
     """(B, N) logaddexp(logsumexp_i s_ij, alpha) with s = dsc0 dsc1^T * inv_temp.
-    ``scratch`` (``_col_lse_scratch``): where the kernel splits the
-    descriptors, for a caller that keeps the split."""
+    ``scratch`` (``_corr_scratch`` with ``col_lse_chunks``' partials): where
+    the kernel splits the descriptors, for a caller that keeps the split."""
     if dsc0.device.type == "cpu":
         return col_lse_plain(dsc0, dsc1, inv_temp, alpha)
     B, M, N, C = _require_descs(dsc0, dsc1, "col_lse")
@@ -460,28 +456,24 @@ def _grads_ds(s, g, lse_own, lse_oth, w_own, w_oth):
     return 2.0 * (A * Bm) * g - A * w_oth[:, None, :] - Bm * w_own[..., None]
 
 
-def _grads_3xtf32(dsc0, dsc1, g, lse_row, lse_col, w_row, w_col, inv_temp: float, passes: int):
-    """The gradient kernels' arithmetic on the CPU: per side (dd0 owns dsc0's
-    rows, dd1 dsc1's, as the kernel's two launches) s on the engine, dS in
-    fp32, then dS X_oth with dS split as the descriptors are
-    (``corr_3xtf32_plain`` of dS and X_oth^T)."""
-    out = []
-    for x_own, x_oth, g_side, l_own, l_oth, w_own, w_oth in (
-            (dsc0, dsc1, g, lse_row, lse_col, w_row, w_col),
-            (dsc1, dsc0, None if g is None else g.transpose(1, 2), lse_col, lse_row, w_col, w_row)):
-        dS = _grads_ds(corr_3xtf32_plain(x_own, x_oth, inv_temp, passes), g_side, l_own, l_oth, w_own, w_oth)
-        out.append(corr_3xtf32_plain(dS, x_oth.float().transpose(1, 2), inv_temp, passes))
-    return tuple(out)
-
-
 def dual_softmax_bwd_grads_plain(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: float):
     dS = _grads_ds(_correlation(dsc0, dsc1, inv_temp), g, lse_row, lse_col, r, c)
     return torch.matmul(dS, dsc1.float()) * inv_temp, torch.matmul(dS.transpose(1, 2), dsc0.float()) * inv_temp
 
 
 def dual_softmax_bwd_grads_3xtf32_plain(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: float, passes: int = 3):
-    """K5's second body's arithmetic on the CPU (``_grads_3xtf32``)."""
-    return _grads_3xtf32(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp, passes)
+    """The gradient kernels' arithmetic on the CPU (K5's second body; K6's
+    with ``g`` None and the cotangents as r, c): per side (dd0 owns dsc0's
+    rows, dd1 dsc1's, as the kernel's two launches) s on the engine, dS in
+    fp32, then dS X_oth with dS split as the descriptors are
+    (``corr_3xtf32_plain`` of dS and X_oth^T)."""
+    out = []
+    for x_own, x_oth, g_side, l_own, l_oth, w_own, w_oth in (
+            (dsc0, dsc1, g, lse_row, lse_col, r, c),
+            (dsc1, dsc0, None if g is None else g.transpose(1, 2), lse_col, lse_row, c, r)):
+        dS = _grads_ds(corr_3xtf32_plain(x_own, x_oth, inv_temp, passes), g_side, l_own, l_oth, w_own, w_oth)
+        out.append(corr_3xtf32_plain(dS, x_oth.float().transpose(1, 2), inv_temp, passes))
+    return tuple(out)
 
 
 def _grads_launch(entry: str, dsc0, dsc1, vecs, inv_temp: float, split):
@@ -592,8 +584,8 @@ def lse_bwd_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float):
 
 
 def lse_bwd_3xtf32_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float, passes: int = 3):
-    """K6's arithmetic on the CPU (``_grads_3xtf32`` without G)."""
-    return _grads_3xtf32(dsc0, dsc1, None, lse_row, lse_col, gr, gc, inv_temp, passes)
+    """K6's arithmetic on the CPU (``dual_softmax_bwd_grads_3xtf32_plain`` without G)."""
+    return dual_softmax_bwd_grads_3xtf32_plain(dsc0, dsc1, None, lse_row, lse_col, gr, gc, inv_temp, passes)
 
 
 def lse_bwd(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float, split=None):
@@ -619,7 +611,10 @@ class _FusedTopKTrain(torch.autograd.Function):
         d0, d1 = (d.float().contiguous() for d in (dsc0, dsc1))
         alpha = _alpha(dustbin, use_dustbin)
         # K2a's split descriptors, kept for the backward's kernels
-        ctx.split = _col_lse_scratch(d0.shape[0], d0.shape[1], d1.shape[1], d0.device) if d0.is_cuda else None
+        ctx.split = None
+        if d0.is_cuda:
+            b, m, n = d0.shape[0], d0.shape[1], d1.shape[1]
+            ctx.split = _corr_scratch(b, m, n, d0.device, col_lse_chunks(_sm_count(d0.device), b, m, n))
         top_scores, top_idx, row_ok, lse_row, lse_col = _topk_table(d0, d1, scr0, scr1, inv_temp, alpha,
                                                                     prefilter, row_topl, ctx.split)
         ctx.save_for_backward(d0, d1, lse_row, lse_col)

@@ -1,11 +1,22 @@
 """The TF32 split of the port's 3xTF32 kernels, on the CPU.
 
-The fp32-accurate kernels (K1f in ``csrc/flash_attention_f32.cu``; K2a and K4
-on the correlation engine of ``csrc/corr_tf32.cuh``) split every fp32
-operand into two TF32 values and run each product as three TF32 passes on
-the tensor cores. These functions repeat that split bit for bit, so that the
-plain versions that mimic the kernels' arithmetic (``attention_3xtf32_plain``,
-``corr_3xtf32_plain``) can be held against the JAX package on the CPU.
+The fp32-accurate kernels (K1f in ``csrc/flash_attention_f32.cu``; K2a, K4,
+K5 and K6 on the correlation engine of ``csrc/corr_tf32.cuh``) split every
+fp32 operand into two TF32 values and run each product as three TF32 passes
+on the tensor cores. These functions repeat that split bit for bit, so that
+the plain versions that mimic the kernels' arithmetic
+(``attention_3xtf32_plain``, ``corr_3xtf32_plain`` and the matcher's
+``*_3xtf32_plain``) can be held against the JAX package on the CPU.
+
+K5's and K6's second product, dd = dS X_oth, splits dS in registers by the
+descriptors' rule (``desc_split``), not by ``tf32_split``: X_oth is split by
+that rule, and against an infinite X_oth value only a hi truncated to x's
+sign, with a lo of the same sign (2^-126 for an exact TF32 value), gives the
+fp32 product's +-inf in all three passes; a lo of the other sign would give
+inf - inf, a lo of 0 would give 0 * inf, both NaN. Its extra error (a hi
+within 2^-10 of x instead of 2^-11) is lost in lo: x - hi - lo stays within
+2^-21 |x|. Two infinities meet as 0 * inf in a lo pass, NaN where fp32 gives
++-inf, in the correlation as in dd.
 """
 
 from __future__ import annotations
