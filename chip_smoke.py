@@ -12,17 +12,19 @@ Phases, one line each, any failure exits non-zero:
              pairs, 1938 keypoints; K1-old: the tools' (16, 2048, 3072)
              bf16 ablation input), with the tolerances stated below, and
              the attention kernels (bf16 K1 / K1b, fp32 K1f) on ragged
-             lengths and with seq_len < S; the
-             training matcher's whole forward and backward against
-             torch.autograd of the dense dual-softmax, and the fused top-K
-             training route's against the dense table and torch.autograd of
-             the dense logsumexps;
+             lengths and with seq_len < S, K2b on ragged sizes with exact
+             ties, NaN and infinities, K2b and K3 bitwise from launch to
+             launch; the training matcher's whole forward and backward
+             against torch.autograd of the dense dual-softmax, and the fused
+             top-K training route's against the dense table and
+             torch.autograd of the dense logsumexps;
 3. slice   - the pose-serving main path at full ViT-L width (714x532 images,
              1938 keypoints, B = 2 pairs, seeded random weights) in both
              layouts (general pairs, shared keyframe); outputs finite and of
-             the right shape, every serving kernel launched; then the general
-             layout with ``TPU.PACKED_ATTENTION=False`` (K1b launched, K1 not,
-             backbone features within the bf16 bound of the packed run's);
+             the right shape, every serving kernel launched, K3 once a solve;
+             then the general layout with ``TPU.PACKED_ATTENTION=False`` (K1b
+             launched, K1 not, backbone features within the bf16 bound of the
+             packed run's);
              then a small input run on the card checked stage by stage
              against the plain CPU path;
    exact   - the exact inference path at full width
@@ -61,9 +63,14 @@ calls and back to back, and its timing ablations, as one JSON line.
 (``attention_f32_report``): its checks, its three entries back to back
 beside SDPA fp32 with TF32 off, and its timing ablations.
 ``python3 chip_smoke.py --matcher`` does it for the matcher's forward kernels
-on the 3xTF32 correlation engine, K2a and K4 (``matcher_report``): their
-checks on ragged sizes, NaN and an infinity, their times back to back beside
-the plain versions, their bounds and timing ablations.
+on the 3xTF32 correlation engine, K2a, K2b and K4 (``matcher_report``): their
+checks on ragged sizes, NaN and infinities (K2b's with exact ties and a NaN
+in the last column), their times back to back beside the plain versions
+(K2b's in one launch and split in column chunks), their bounds, timing
+ablations, K2b's merge counts and distances from fp64.
+``python3 chip_smoke.py --scoring`` does it for the RANSAC scoring kernel K3
+(``scoring_report``): its checks, one launch a solve against the 20
+launches of one a draw, its bound and timing ablations.
 ``python3 chip_smoke.py --matcher-bwd`` does the same for the gradient
 kernels on that engine, K5 (``dual_softmax_bwd_sums``,
 ``dual_softmax_bwd_grads``) and K6 (``lse_bwd``) (``matcher_bwd_report``),
@@ -134,14 +141,18 @@ ABLATION_KERNELS = ("flash_attention", "flash_attention_packed_upcast")
 #      the two), plus K1f's 1e-5 max|ref| for the fp32 results' own
 #      difference, on rows below seq_len (the rows past it are the TPU's
 #      padded rows).
-#  K2a, K4, K5, K6: the correlation (and K5's and K6's dS products) as
+#  K2a, K2b, K4, K5, K6: the correlation (and K5's and K6's dS products) as
 #      3xTF32 on the tensor cores (each term within ~2^-20 of fp32's) against
 #      the plain version's fp32 cuBLAS products; the tolerances below are
 #      those of fp32 arithmetic, unchanged.
 #  K2, K3: fp32 throughout; only the summation order differs:
 #      |diff| <= 1e-5 |ref| + 1e-6 max|ref|; indices that one side selects
 #      with a margin above its selection boundary must be selected by the
-#      other (exact ties and near-ties may swap).
+#      other (exact ties and near-ties may swap); K2b's rounds of the same
+#      index where the plain version's value is apart from the row's other
+#      selected values by MARGIN, NaN and infinities where the plain
+#      version has them, non-finite counts equal. K3 at (it B) point sets
+#      also at rtol 1e-5, atol 1e-4.
 #  K4, K5: fp32 throughout; the summation order differs and the exponentials
 #      amplify it (|s| <= 1/T = 10 carries ~1e-6 absolute error, exp(2 s) twice
 #      that relative): P, lse, r, c to |diff| <= 1e-4 |ref| + 1e-6 max|ref|;
@@ -157,10 +168,10 @@ ABLATION_KERNELS = ("flash_attention", "flash_attention_packed_upcast")
 #      gradients at 1e-4 max|ref|, the dustbin gradient at 1e-4 relative.
 #  Dense against fused table (phase 3, check_dense_table): the two routes
 #      share K2a's lse_col and recompute the correlation in different
-#      kernels (K4 3xTF32, K2b fp32 FMA), so each route's table values are
-#      held at RTOL against the fp64 final scores of the same head outputs
-#      and that lse_col, and lse_col at RTOL against fp64; index sets up to
-#      near-ties, row_ok equal.
+#      kernels (K4, K2b: the same s, but f in one exponential or two), so
+#      each route's table values are held at RTOL against the fp64 final
+#      scores of the same head outputs and that lse_col, and lse_col at RTOL
+#      against fp64; index sets up to near-ties, row_ok equal.
 #  Backbone, packed against unpacked attention (K1 against K1b, one kernel
 #      body on two addressings, bf16 either way): cosine > 0.999 per image,
 #      as the backbone against the plain CPU path.
@@ -173,6 +184,7 @@ MARGIN = 1e-4
 #      see check_train_against_plain; GRAD_TOL bounds each head parameter's
 #      gradient on the card against fp64, normwise.
 GRAD_TOL = 5e-2
+MATCHER_SIZES = (1938, 129, 128, 127, 65, 64, 1)  # whole 64-row tiles, one over, one under, a single row
 
 
 class SmokeError(RuntimeError):
@@ -234,11 +246,13 @@ def _sets_agree(vals_a, idx_a, vals_b, idx_b, what: str) -> None:
 
 
 def kernel_inputs(device, *, images: int, seq: int, heads: int, kpts: int, desc: int,
-                  topl: int, prefilter: int, samples: int, hyps: int, old_images: int, old_seq: int,
+                  topl: int, prefilter: int, draws: int, samples: int, hyps: int, old_images: int, old_seq: int,
                   old_len: int, seed: int = SEED):
-    """Seeded inputs at the main path's shapes for each kernel; K1-old's at
-    the tools' ablation shape (``old_images`` x ``old_seq`` rows, keys from
-    ``old_len`` on masked, N(0, 0.05^2) values as the tool draws them)."""
+    """Seeded inputs at the main path's shapes for each kernel (K3's: the
+    ``draws`` outer draws of a solve times the pairs, stacked as the solver
+    hands them over); K1-old's at the tools' ablation shape (``old_images``
+    x ``old_seq`` rows, keys from ``old_len`` on masked, N(0, 0.05^2) values
+    as the tool draws them)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     qkv = t(rng.standard_normal((images, seq, 3 * heads * 64), dtype=np.float32)).to(torch.bfloat16)
@@ -246,17 +260,18 @@ def kernel_inputs(device, *, images: int, seq: int, heads: int, kpts: int, desc:
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     scr = rng.uniform(0, 1, (2, images // 2, kpts)).astype(np.float32)
     scr /= scr.sum(-1, keepdims=True)
-    X = rng.uniform(-2, 2, (images // 2, samples, 3)).astype(np.float32)
-    ang = rng.uniform(-0.2, 0.2, (images // 2, hyps, 3))
-    R = np.stack([_rot(a) for a in ang.reshape(-1, 3)]).reshape(images // 2, hyps, 3, 3).astype(np.float32)
-    tr = rng.uniform(-0.1, 0.1, (images // 2, hyps, 1, 3)).astype(np.float32)
+    sets = draws * (images // 2)
+    X = rng.uniform(-2, 2, (sets, samples, 3)).astype(np.float32)
+    ang = rng.uniform(-0.2, 0.2, (sets, hyps, 3))
+    R = np.stack([_rot(a) for a in ang.reshape(-1, 3)]).reshape(sets, hyps, 3, 3).astype(np.float32)
+    tr = rng.uniform(-0.1, 0.1, (sets, hyps, 1, 3)).astype(np.float32)
     Y = X @ _rot(np.array([0.1, -0.05, 0.02])).T.astype(np.float32) + 0.05
     Y = Y + rng.normal(0, 0.1, Y.shape).astype(np.float32)
     qkv32 = t(rng.standard_normal((images, seq, 3 * heads * 64), dtype=np.float32))
     qkv_old = t(0.05 * rng.standard_normal((old_images, old_seq, 3 * heads * 64), dtype=np.float32)).to(torch.bfloat16)
     return dict(qkv=qkv, heads=heads, dsc0=t(d[0]), dsc1=t(d[1]), scr0=t(scr[0]), scr1=t(scr[1]),
-                topl=topl, prefilter=prefilter, X=t(X), Y=t(Y), R=t(R), t=t(tr), qkv32=qkv32, qkv_old=qkv_old,
-                old_len=old_len)
+                topl=topl, prefilter=prefilter, draws=draws, X=t(X), Y=t(Y), R=t(R), t=t(tr), qkv32=qkv32,
+                qkv_old=qkv_old, old_len=old_len)
 
 
 def _rot(a) -> np.ndarray:
@@ -290,6 +305,9 @@ def kernel_calls(inp, alpha: float = 1.0, inv_temp: float = 10.0):
     seq = q.shape[2]
     lse_c = fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inv_temp, alpha)
     k2b = (inp["dsc0"], inp["dsc1"], inp["scr0"], inp["scr1"], lse_c, inv_temp, alpha, inp["topl"])
+    # K2b reads the split descriptors K2a writes, as on the main path
+    split = fm.topk_split(inp["dsc0"], inp["dsc1"])
+    fm.col_lse(inp["dsc0"], inp["dsc1"], inv_temp, alpha, split)
     hyp = (inp["X"], inp["Y"], inp["R"], inp["t"], 0.3)
     return {
         "flash_attention_packed": (lambda: flash_attention_packed(inp["qkv"], inp["heads"]),
@@ -304,12 +322,12 @@ def kernel_calls(inp, alpha: float = 1.0, inv_temp: float = 10.0):
                                           lambda: attention_packed_plain(old, heads, old_len)),
         "col_lse": (lambda: fm.col_lse(inp["dsc0"], inp["dsc1"], inv_temp, alpha),
                     lambda: fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inv_temp, alpha)),
-        "pair_topk": (lambda: fm.pair_topk(*k2b), lambda: fm.pair_topk_plain(*k2b)),
+        "pair_topk": (lambda: fm.pair_topk(*k2b, split), lambda: fm.pair_topk_plain(*k2b)),
         "hypothesis_scores": (lambda: hypothesis_scores(*hyp), lambda: hypothesis_scores_plain(*hyp)),
     }
 
 
-def check_kernels(inp) -> dict:
+def check_kernels(inp, topk_sizes=MATCHER_SIZES) -> dict:
     """Phase 2: each kernel against its plain version; returns name -> max |diff|."""
     from mickey_tpu_torch.ops import fused_matcher as fm
 
@@ -319,14 +337,9 @@ def check_kernels(inp) -> dict:
     out, ref = (f()[:, :inp["old_len"]] for f in calls["flash_attention_packed_upcast"])
     res["flash_attention_packed_upcast"] = _within_bf16_ulp(out, ref, "flash_attention_packed_upcast")
     res["col_lse"] = _close(*(f() for f in calls["col_lse"]), "col_lse")
-    (v, i, st, lr), (pv, pi, pst, plr) = (f() for f in calls["pair_topk"])
-    err = _close(v, pv, "pair_topk values")
-    _sets_agree(v.transpose(1, 2), i.transpose(1, 2), pv.transpose(1, 2), pi.transpose(1, 2), "pair_topk rows")
-    err = max(err, _close(lr, plr, "pair_topk lse_row"), _close(st[..., 0], pst[..., 0], "pair_topk mass"),
-              _close(st[..., 2], pst[..., 2], "pair_topk min"))
-    if not torch.equal(st[..., 1].cpu(), pst[..., 1].cpu()):
-        raise SmokeError("pair_topk: non-finite counts differ")
-    res["pair_topk"] = err
+    out, ref = (f() for f in calls["pair_topk"])
+    res["pair_topk"] = _topk_checked(out, ref, "pair_topk")
+    _bitwise(calls["pair_topk"][0], out, "pair_topk")
     # the whole route against the dense oracle (dual_softmax -> dense_topk_scores)
     from mickey_tpu_torch.nn.matcher import dual_softmax
 
@@ -338,8 +351,119 @@ def check_kernels(inp) -> dict:
     _sets_agree(top[0], top[1], oracle[0], oracle[1], "fused_topk_scores table")
     if not torch.equal(top[2].cpu(), oracle[2].cpu()):
         raise SmokeError("fused_topk_scores: row_ok differs from the dense oracle")
-    res["hypothesis_scores"] = _close(*(f() for f in calls["hypothesis_scores"]), "hypothesis_scores")
+    out, ref = (f() for f in calls["hypothesis_scores"])
+    res["hypothesis_scores"] = _close_k3(out, ref, "hypothesis_scores")
+    _bitwise(calls["hypothesis_scores"][0], out, "hypothesis_scores")
+    res["pair_topk"] = max(res["pair_topk"], check_topk_shapes(inp["dsc0"].device, topk_sizes))
     return res
+
+
+def _bitwise(call, first, what: str) -> None:
+    """A second launch of ``call`` gives ``first`` bit for bit (NaN too)."""
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+    again = call()
+    pairs = zip(again, first) if isinstance(first, tuple) else ((again, first),)
+    if not all(torch.equal(bits(a), bits(b)) for a, b in pairs):
+        raise SmokeError(f"{what}: two launches differ")
+
+
+K3_RTOL, K3_ATOL = 1e-5, 1e-4
+
+
+def _close_k3(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
+    """K3 against its plain version: |diff| <= K3_ATOL + K3_RTOL |ref|."""
+    a, b = a.double().cpu(), b.double().cpu()
+    err = (a - b).abs()
+    if not bool((err <= K3_ATOL + K3_RTOL * b.abs()).all()):
+        raise SmokeError(f"{what}: max |diff| {err.max().item():.3e} beyond rtol {K3_RTOL}, atol {K3_ATOL}")
+    return err.max().item()
+
+
+def _rounds_agree(v, i, pv, pi, what: str) -> None:
+    """K2b's rounds (B, L, M) against the plain version's: the same index
+    at every round whose plain value is apart from each other value of its
+    row's rounds by MARGIN (relative; NaN rounds apart from none but equal
+    to the plain version's (NaN, N - 1)), and the kernel's own rounds of
+    positive values (not clamped at 0) in (value desc, index asc) order."""
+    v, i, pv, pi = (np.asarray(x.cpu(), dtype=np.float64 if x.is_floating_point() else np.int64).transpose(0, 2, 1)
+                    for x in (v, i, pv, pi))
+    with np.errstate(invalid="ignore"):  # inf - inf
+        gap = np.abs(pv[..., :, None] - pv[..., None, :])
+    gap = np.where(np.eye(pv.shape[-1], dtype=bool), np.inf, gap)
+    apart = np.nan_to_num(gap, nan=np.inf).min(-1) > MARGIN * np.abs(pv)
+    apart |= np.isnan(pv)
+    if not np.array_equal(np.where(apart, i, 0), np.where(apart, pi, 0)):
+        raise SmokeError(f"{what}: {int((apart & (i != pi)).sum())} rounds select another index than the plain version")
+    a, b, ia, ib = v[..., :-1], v[..., 1:], i[..., :-1], i[..., 1:]
+    ordered = (a > b) | ((a == b) & (ia < ib)) | ~(b > 0) | np.isnan(a)
+    if not ordered.all():
+        raise SmokeError(f"{what}: {int((~ordered).sum())} rounds out of (value desc, index asc) order")
+
+
+def _topk_checked(out, ref, what: str) -> float:
+    """K2b's four outputs against the plain version's: values, lse_row,
+    mass and minimum by ``_close_nan`` (RTOL, NaN and infinities where the
+    plain version has them), non-finite counts equal, the rounds by
+    ``_rounds_agree`` and, over the rows, ``_sets_agree``. Returns the
+    largest max |diff|."""
+    (v, i, st, lr), (pv, pi, pst, plr) = out, ref
+    err = max(_close_nan(v, pv, f"{what} values"), _close_nan(lr, plr, f"{what} lse_row"),
+              _close_nan(st[..., 0], pst[..., 0], f"{what} mass"), _close_nan(st[..., 2], pst[..., 2], f"{what} min"))
+    if not torch.equal(st[..., 1].cpu(), pst[..., 1].cpu()):
+        raise SmokeError(f"{what}: non-finite counts differ")
+    _rounds_agree(v, i, pv, pi, what)
+    fin = torch.isfinite(pv).all(1)[:, None, :].expand_as(pv)  # rows without NaN or infinities
+    if bool(fin.any()):
+        rows = lambda x: x.transpose(1, 2)[fin.transpose(1, 2)].reshape(-1, x.shape[1])  # noqa: E731
+        _sets_agree(rows(v), rows(i), rows(pv), rows(pi), f"{what} rows")
+    return err
+
+
+def check_topk_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, topl: int = 16, seed: int = SEED) -> float:
+    """K2b on ragged sizes: M = sizes[i], N = sizes[i + 1] (cyclic), 3
+    images of seeded unit descriptors and uniform scores, with the dustbin
+    on and off, against its plain version on the plain lse_col
+    (``_topk_checked``). Image 0: column 7 a copy of column 3 (exact ties in
+    every row) and scr1 +inf at column 5, where N > 7; image 1: an infinite
+    descriptor value (dsc1, row 3); image 2: scr1 NaN at the last column (its
+    only NaN, in most rows) and, in the first pair, a NaN row of dsc0 (row
+    5). N = 1 leaves rounds past the row's end. K2b reads the split K2a
+    writes (dustbin on) or splits the descriptors itself (off). Returns the
+    largest max |diff|."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    rng = np.random.default_rng(seed + 11)
+
+    def unit(rows):
+        d = rng.standard_normal((3, rows, desc), dtype=np.float32)
+        return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    worst = 0.0
+    for k, m in enumerate(sizes):
+        n = sizes[(k + 1) % len(sizes)]
+        d0, d1 = unit(m), unit(n)
+        s0, s1 = (rng.uniform(0, 1, (3, r)).astype(np.float32) for r in (m, n))
+        if n > 7:
+            d1[0, 7], s1[0, 7] = d1[0, 3], s1[0, 3]
+            s1[0, 5] = np.inf
+        d1[1, min(3, n - 1), 7 % desc] = np.inf
+        s1[2, n - 1] = np.nan
+        if k == 0:
+            d0[2, min(5, m - 1)] = np.nan
+        d0, d1, s0, s1 = (t(x) for x in (d0, d1, s0, s1))
+        for use_dustbin in (True, False):
+            alpha = fm._alpha(1.0, use_dustbin)
+            lc = fm.col_lse_plain(d0, d1, 10.0, alpha)
+            split = fm.topk_split(d0, d1) if use_dustbin else None
+            if split is not None:
+                fm.col_lse(d0, d1, 10.0, alpha, split)
+            call = lambda: fm.pair_topk(d0, d1, s0, s1, lc, 10.0, alpha, topl, split)  # noqa: E731
+            out = call()
+            what = f"pair_topk, M {m}, N {n}, dustbin {use_dustbin}"
+            worst = max(worst, _topk_checked(out, fm.pair_topk_plain(d0, d1, s0, s1, lc, 10.0, alpha, topl), what))
+            _bitwise(call, out, what)
+    return worst
 
 
 def _attn_err(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
@@ -570,9 +694,12 @@ def _close_nan(a: torch.Tensor, b: torch.Tensor, what: str, rtol: float = RTOL) 
 def check_matcher_kernels(inp, tin) -> dict:
     """``--matcher``: K2a (col_lse) against its plain version at RTOL at the
     serving shape and at the training shape (the dense training route runs it
-    there), K4 (pair_softmax) at DS_RTOL at the training shape; two launches
-    of each bitwise equal (no atomics, a fixed order of the chunks' sums).
-    Returns name -> max |diff|."""
+    there), K4 (pair_softmax) at DS_RTOL at the training shape; K2b
+    (pair_topk, on K2a's split) by ``_topk_checked`` at both shapes (split
+    in column chunks at the serving shape, one launch at the training shape,
+    where its lse_row is K4's bit for bit: the same correlation and sweep);
+    two launches of each bitwise equal (no atomics, a fixed order of the
+    chunks' sums). Returns name -> max |diff|."""
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     res = {}
@@ -590,10 +717,19 @@ def check_matcher_kernels(inp, tin) -> dict:
     again = fm.pair_softmax(d0, d1, lc, 10.0, 1.0)
     if not (torch.equal(again[0], out) and torch.equal(again[1], lse_row)):
         raise SmokeError("pair_softmax: two launches differ")
+    for shape, x in (("serving", inp), ("training", tin)):
+        a0, a1, s0, s1 = (x[k] for k in ("dsc0", "dsc1", "scr0", "scr1"))
+        lc = fm.col_lse_plain(a0, a1, 10.0, 1.0)
+        split = fm.topk_split(a0, a1)
+        fm.col_lse(a0, a1, 10.0, 1.0, split)
+        call = lambda: fm.pair_topk(a0, a1, s0, s1, lc, 10.0, 1.0, inp["topl"], split)  # noqa: E731
+        k2b = call()
+        res[f"pair_topk {shape}"] = _topk_checked(k2b, fm.pair_topk_plain(a0, a1, s0, s1, lc, 10.0, 1.0, inp["topl"]),
+                                                  f"pair_topk, {shape} shape")
+        _bitwise(call, k2b, f"pair_topk, {shape} shape")
+    if not torch.equal(k2b[3], fm.pair_softmax(d0, d1, lc, 10.0, 1.0)[1]):
+        raise SmokeError("pair_topk's lse_row differs from pair_softmax's at the training shape")
     return res
-
-
-MATCHER_SIZES = (1938, 129, 128, 127, 65, 64, 1)  # whole 64-row tiles, one over, one under, a single row
 
 
 def check_matcher_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, seed: int = SEED) -> float:
@@ -1384,23 +1520,46 @@ def lse_bwd_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
     return _bound(passes * 3 * 2.0 * B * M * N * C, (2 * (B * M * C + B * N * C) + 2 * B * M + 2 * B * N) * 4, peak)
 
 
-def kernel_bounds(inp, tin) -> dict:
+def pair_topk_bound(dsc0, dsc1, topl: int, peak: float = PEAK_TF32, passes: float = 3.0):
+    """K2b's bound: one correlation (its second sweep is the kernel's
+    choice) at fp32 accuracy, three TF32 passes at 495 TFLOP/s
+    (``peak=PEAK_FP32, passes=1``: the FFMA bound of the body it replaced), against
+    the descriptors, scr0, scr1 and lse_col read and the (B, L, M) values and
+    indices, the stats and lse_row written once."""
+    B, M, C = dsc0.shape
+    N = dsc1.shape[1]
+    return _bound(passes * 2.0 * B * M * N * C,
+                  (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * topl * M + 4 * B * M) * 4, peak)
+
+
+SM_COUNT = 132  # an H100 SXM's SMs
+SFU_PER_CLOCK = 16  # special-function results a clock on each SM (sm_90)
+H100_MAX_SM_HZ = 1.98e9  # the SM clock's maximum (nvidia-smi clocks.max.sm: 1980 MHz)
+
+
+def hypothesis_bound(X, R, sm_hz: float = H100_MAX_SM_HZ):
+    """K3's bound: per (point set, hypothesis, sample) term ~30 fp32
+    operations at 67 TFLOP/s and 3 special-function ones (the square root,
+    the exponential and the reciprocal) at SFU_PER_CLOCK a clock on each of
+    SM_COUNT SMs at ``sm_hz`` (the clock measured under load), against X, Y,
+    the poses read and the (E, R) scores written once."""
+    E, S = X.shape[:2]
+    nR = R.shape[1]
+    terms = E * nR * S
+    ms, by = _bound(30.0 * terms, (2 * E * S * 3 + E * nR * 12 + E * nR) * 4, PEAK_FP32)
+    sfu_ms = 3.0 * terms / (SFU_PER_CLOCK * SM_COUNT * sm_hz) * 1e3
+    return (sfu_ms, "operations") if sfu_ms > ms else (ms, by)
+
+
+def kernel_bounds(inp, tin, sm_hz: float = H100_MAX_SM_HZ) -> dict:
     """name -> (bound_ms, bound_by) at this run's kernel inputs. Operations
     counted: the matrix products (2 flops per multiply-add; K1's two products
-    on bf16 tensor cores; K1f's, K2a's, K4's, K5's and K6's at fp32 accuracy
-    as 3xTF32, three TF32 passes each; K1-old's on bf16 tensor cores,
-    ``k1_old_bound``;
-    the others fp32 FMA) and, for K3, the ~30 fp32 operations of one
-    soft-inlier term; exponentials are left out."""
-    f32 = 4
-    imgs, seq, three_c = inp["qkv"].shape
+    on bf16 tensor cores; K1f's, K2a's, K2b's, K4's, K5's and K6's at fp32
+    accuracy as 3xTF32, three TF32 passes each; K1-old's on bf16 tensor
+    cores, ``k1_old_bound``) and, for K3, the ~30 fp32 operations and 3
+    special-function ones of one soft-inlier term (``hypothesis_bound``, at
+    the SM clock ``sm_hz``); the matcher's exponentials are left out."""
     heads = inp["heads"]
-    d = three_c // 3 // heads
-    B, M, C = inp["dsc0"].shape
-    N = inp["dsc1"].shape[1]
-    L = inp["topl"]
-    hb, hs = inp["X"].shape[:2]
-    hr = inp["R"].shape[1]
     attn = _attention_bound(inp["qkv"], heads, PEAK_BF16)
     attn32 = _attention_bound(inp["qkv32"], heads, PEAK_TF32, passes=3)
     return {
@@ -1410,9 +1569,8 @@ def kernel_bounds(inp, tin) -> dict:
         "flash_attention_f32": attn32,
         "flash_attention_packed_upcast": k1_old_bound(inp),
         "col_lse": col_lse_bound(inp["dsc0"], inp["dsc1"]),
-        "pair_topk": _bound(2.0 * B * M * N * C,
-                            (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * L * M + 4 * B * M) * f32, PEAK_FP32),
-        "hypothesis_scores": _bound(30.0 * hb * hr * hs, (2 * hb * hs * 3 + hb * hr * 12 + hb * hr) * f32, PEAK_FP32),
+        "pair_topk": pair_topk_bound(inp["dsc0"], inp["dsc1"], inp["topl"]),
+        "hypothesis_scores": hypothesis_bound(inp["X"], inp["R"], sm_hz),
         "pair_softmax": pair_softmax_bound(tin["dsc0"], tin["dsc1"]),
         "dual_softmax_bwd_sums": bwd_sums_bound(tin["dsc0"], tin["dsc1"]),
         "dual_softmax_bwd_grads": bwd_grads_bound(tin["dsc0"], tin["dsc1"]),
@@ -1442,6 +1600,19 @@ def _launched(launches: dict, path: str, needed, absent=()) -> dict:
     if missing or extra:
         raise SmokeError(f"{path}: kernels never launched {missing}, launched but off this path {extra}")
     return launches
+
+
+def _once_per_solve(launches: dict, path: str, solves: int) -> None:
+    """Fail unless K3 was launched once for each of the path's ``solves``
+    solves: the solver scores all its outer draws in one launch."""
+    if launches["hypothesis_scores"] != solves:
+        raise SmokeError(f"{path}: hypothesis_scores launched {launches['hypothesis_scores']} times for {solves} solves")
+
+
+def sm_clock_hz(fn, launches: int = 3000) -> float:
+    """The SM clock (Hz) ``nvidia-smi`` reads while ``launches`` calls of
+    ``fn()`` are queued and running."""
+    return float(clocks_under(fn, launches).split(",")[0].split()[0]) * 1e6
 
 
 def _counted(fn):
@@ -1476,8 +1647,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = default_config()
-    inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=16,
-                        prefilter=4096, samples=2048, hyps=100, old_images=16, old_seq=2048, old_len=1939)
+    inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
+                        prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
+                        samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
+                        old_images=16, old_seq=2048, old_len=1939)
     if "--attention" in sys.argv[1:]:
         return attention_report(inp, card)
     if "--attention-f32" in sys.argv[1:]:
@@ -1486,6 +1659,8 @@ def main() -> int:
         return matcher_report(inp, train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128), card)
     if "--matcher-bwd" in sys.argv[1:]:
         return matcher_bwd_report(train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128), card)
+    if "--scoring" in sys.argv[1:]:
+        return scoring_report(inp, card)
     errs = check_kernels(inp)
     ragged = check_attention_shapes(dev)
     ragged32 = check_attention_shapes(dev, torch.float32)
@@ -1504,11 +1679,13 @@ def main() -> int:
     image0, image1, K0, K1 = slice_inputs(dev, pairs=2, height=714, width=532)
     outs, serve_launches = _counted(lambda: run_slice(model, image0, image1, K0, K1))
     _launched(serve_launches, "serving", SERVING_KERNELS, ("flash_attention",))
+    _once_per_solve(serve_launches, "serving", 2)  # general and shared keyframe
     cfg_u = cfg.clone()
     cfg_u.TPU.PACKED_ATTENTION = False
     model_u = MickeyRelativePose(cfg_u, model.params, device=dev)  # the same weights
     outs_u, unpacked_launches = _counted(lambda: run_slice(model_u, image0, image1, K0, K1, ("general",)))
     _launched(unpacked_launches, "serving, unpacked attention", UNPACKED_SERVING_KERNELS, ("flash_attention_packed",))
+    _once_per_solve(unpacked_launches, "serving, unpacked attention", 1)
     # K1b against K1 on the same images: one body, bf16 either way
     unpacked = compare_backbones(model, model_u, image0, image1, "unpacked backbone")
     cpu_model = build_model(cfg, params, device="cpu")
@@ -1532,6 +1709,7 @@ def main() -> int:
     (full_x, outs_xd), exact_launches = _counted(
         lambda: (run_full(model_x, image0, image1, K0, K1), run_slice(model_xd, image0, image1, K0, K1)))
     _launched(exact_launches, "exact path", EXACT_KERNELS, EXACT_ABSENT)
+    _once_per_solve(exact_launches, "exact path", 3)  # the full output, the dense lite outputs in both layouts
     cfg_xu = cfg_x.clone()
     cfg_xu.TPU.PACKED_ATTENTION = False
     model_xu = MickeyRelativePose(cfg_xu, model.params, device=dev)
@@ -1583,7 +1761,8 @@ def main() -> int:
     # kernels, plain versions and library calls alike: per call of 10 enqueued back to back
     kt = {name: (time_many_ms(k, reps=10), time_many_ms(p, reps=10)) for name, (k, p) in calls.items()}
     lib_ms = {name: time_many_ms(f, reps=10) for name, f in library_calls(inp).items()}
-    bounds = kernel_bounds(inp, tin)
+    sm_hz = sm_clock_hz(calls["hypothesis_scores"][0])
+    bounds = kernel_bounds(inp, tin, sm_hz)
     # the tools' K1-old A/B at its shape: K1's body in bf16 (through K1b, the
     # entry with seq_len) against K1-old's counterpart, in turns
     ab, ablation_launches = _counted(lambda: ablation_times(inp))
@@ -1594,7 +1773,7 @@ def main() -> int:
           f"exact path (FLOAT16=False, full output) {B / t_exact * 1e3:.3f} pairs/s ({t_exact:.3f} ms) | "
           f"default config, full output {B / t_full * 1e3:.3f} pairs/s ({t_full:.3f} ms) | "
           f"stages ms {stages} | exact stages ms {exact_stages} | K1-old A/B ms {ab} | "
-          f"train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | "
+          f"train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | SM clock under K3 {sm_hz / 1e6:.0f} MHz | "
           + " ".join(f"{n} {k:.4f}/{p:.4f} ms kernel/plain" for n, (k, p) in kt.items())
           + " | " + " ".join(f"{n} library {t:.4f} ms" for n, t in lib_ms.items()), flush=True)
 
@@ -1782,29 +1961,104 @@ def matcher_fp64_errors(tin) -> dict:
     return out
 
 
-# csrc/corr_tf32.cuh (K2a in fused_topk.cu, K4 in dual_softmax.cu)
+def topk_fp64_shares(x, topl: int) -> dict:
+    """How close K2b's and its plain version's values come to the exact
+    function (on ``x``'s descriptors and scores, K2a's plain lse_col as
+    their input): each side's (B, L, M) values against the final scores
+    recomputed in fp64 at its own indices, as the largest share of the RTOL
+    bound (1e-5 |ref| + 1e-6 max|ref|), as ``check_dense_table`` reads it."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    d0, d1, s0, s1 = (x[k] for k in ("dsc0", "dsc1", "scr0", "scr1"))
+    lc = fm.col_lse_plain(d0, d1, 10.0, 1.0)
+    s64 = torch.matmul(d0.double(), d1.double().transpose(1, 2)) * 10.0
+    f64 = torch.exp(2.0 * s64 - fm._row_lse(s64, 1.0)[..., None] - lc.double()[:, None, :])
+    f64 = (f64 * s0.double()[..., None] * s1.double()[:, None, :]).reshape(s64.shape[0], -1)
+    del s64
+    out = {}
+    for name, fn in (("kernel", fm.pair_topk), ("plain", fm.pair_topk_plain)):
+        v, i = fn(d0, d1, s0, s1, lc, 10.0, 1.0, topl)[:2]
+        want = torch.gather(f64, 1, i.reshape(i.shape[0], -1).long()).reshape(v.shape)
+        out[name] = ((v.double() - want).abs() / (RTOL * want.abs() + 1e-6 * want.abs().max())).max().item()
+    return out
+
+
+def _topk_entry(variant, x, topl: int, chunks: int):
+    """A call of ``variant``'s ``mk_pair_topk_f32`` on ``x``'s descriptors and
+    scores in ``chunks`` column chunks, on K2a's split (made here) and the
+    plain lse_col, into buffers of its own: K2b without its wrapper."""
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    d0, d1, s0, s1 = (x[k] for k in ("dsc0", "dsc1", "scr0", "scr1"))
+    B, M, C = d0.shape
+    N = d1.shape[1]
+    dev = d0.device
+    lc = fm.col_lse_plain(d0, d1, 10.0, 1.0)
+    split = fm.topk_split(d0, d1)
+    fm.col_lse(d0, d1, 10.0, 1.0, split)
+    outs = (torch.empty((B, topl, M), device=dev), torch.empty((B, topl, M), dtype=torch.int32, device=dev),
+            torch.empty((B, M, 3), device=dev), torch.empty((B, M), device=dev))
+    work = fm._topk_work(B, M, topl, chunks, dev)
+    ptrs = [t.data_ptr() for t in (d0, d1, s0, s1, lc, *outs, split)] + [None if work is None else work.data_ptr()]
+    geom, stream = fm.corr_geometry(B, M, N), _cuda.stream_ptr(d0)
+    return lambda: _cuda.check(variant.mk_pair_topk_f32(*ptrs, geom, B, M, N, C, topl, chunks, 10.0, 1.0, 0, stream),
+                               "pair_topk")
+
+
+def topk_merge_counts(inp, tin) -> dict:
+    """K2b's selection at work (a build with MK_COUNT_MERGES): per row, the
+    scores that passed its floor into the lists, and how many of them found
+    a list full, at the serving shape in one launch and in the wrapper's
+    chunks, and at the training shape."""
+    import ctypes
+
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    variant = _cuda.build_variant("fused_topk.cu", ("MK_COUNT_MERGES",))
+    counts = (ctypes.c_ulonglong * 2)()
+    out = {}
+    for name, x in (("serving", inp), ("training", tin)):
+        B, M, _ = x["dsc0"].shape
+        for chunks in sorted({1, fm.pair_topk_chunks(fm._sm_count(x["dsc0"].device), B, M, x["dsc1"].shape[1])}):
+            call = _topk_entry(variant, x, inp["topl"], chunks)
+            _cuda.check(variant.mk_pair_topk_merge_counts(ctypes.cast(counts, ctypes.c_void_p)), "counts")
+            call()
+            _cuda.check(variant.mk_pair_topk_merge_counts(ctypes.cast(counts, ctypes.c_void_p)), "counts")
+            out[f"{name}, {chunks} chunks"] = {"passed_per_row": counts[0] / (B * M), "found_full": counts[1]}
+    return out
+
+
+# csrc/corr_tf32.cuh (K2a, K2b in fused_topk.cu, K4 in dual_softmax.cu); MK_ABLATE_SELECT: K2b's lists
 MATCHER_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOADS",),
-                     "one_tf32_pass": ("MK_ABLATE_1XTF32",)}
+                     "one_tf32_pass": ("MK_ABLATE_1XTF32",), "no_selection": ("MK_ABLATE_SELECT",)}
 
 
 def matcher_report(inp, tin, card: str) -> int:
     """``python3 chip_smoke.py --matcher``: the matcher's forward kernels on
-    the correlation engine alone. K2a and K4 against their plain versions
-    (``check_matcher_kernels``, ``check_matcher_shapes``); CUDA-event medians
-    per call of 20 enqueued back to back (``time_many_ms``) in turns: K2a
-    and its plain version at the serving shape, K4 and its plain version at
-    the training shape; the dense route's forward (K2a + K4, ``_forward``) at
-    the training shape; both kernels' and their plain versions' errors from
-    fp64 (``matcher_fp64_errors``); the bounds at the 3xTF32 rate beside the
-    fp32 FMA ones; and the timing ablations (``MATCHER_ABLATIONS``) of both
-    kernels (``_kernel_loop``)."""
+    the correlation engine alone. K2a, K2b and K4 against their plain
+    versions (``check_matcher_kernels``, ``check_matcher_shapes``,
+    ``check_topk_shapes``); CUDA-event medians per call of 20 enqueued back
+    to back (``time_many_ms``) in turns: K2a and K2b and their plain versions
+    at the serving shape, K4 and its plain version at the training shape;
+    K2b at the training shape, and at the serving shape in one launch and in
+    the wrapper's column chunks (``_topk_entry``); the dense route's forward
+    (K2a + K4, ``_forward``) and the fused route's table (K2a + K2b + top-P,
+    ``_topk_table``) at both shapes; the kernels' and their plain versions'
+    errors from fp64 (``matcher_fp64_errors``, ``topk_fp64_shares``); K2b's
+    merge counts (``topk_merge_counts``); the bounds at the 3xTF32 rate
+    beside the fp32 FMA ones; and the timing ablations
+    (``MATCHER_ABLATIONS``) of the three kernels (``_kernel_loop``)."""
     from mickey_tpu_torch.ops import _cuda
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     checks = {"max_abs_err": check_matcher_kernels(inp, tin),
-              "ragged_max_abs_err": check_matcher_shapes(inp["dsc0"].device)}
+              "ragged_max_abs_err": max(check_matcher_shapes(inp["dsc0"].device),
+                                        check_topk_shapes(inp["dsc0"].device))}
     calls = {**kernel_calls(inp), **train_kernel_calls(tin)}
     fns = {"col_lse plain": calls["col_lse"][1], "col_lse": calls["col_lse"][0],
+           "pair_topk plain": calls["pair_topk"][1], "pair_topk": calls["pair_topk"][0],
            "pair_softmax plain": calls["pair_softmax"][1], "pair_softmax": calls["pair_softmax"][0]}
     s0, s1, t0, t1 = inp["dsc0"], inp["dsc1"], tin["dsc0"], tin["dsc1"]
     B, M, C = s0.shape
@@ -1813,12 +2067,25 @@ def matcher_report(inp, tin, card: str) -> int:
     Nt = t1.shape[1]
     dev = s0.device
     chunks = fm.col_lse_chunks(fm._sm_count(dev), B, M, N)
+    topl = inp["topl"]
+    k2b_chunks = fm.pair_topk_chunks(fm._sm_count(dev), B, M, N)
+    lib = _cuda.lib()
+    table = lambda x: fm._topk_table(x["dsc0"], x["dsc1"], x["scr0"], x["scr1"], 10.0, 1.0, inp["prefilter"], topl)  # noqa: E731
+    k2b = {f"{c} chunks": _topk_entry(lib, inp, topl, c) for c in sorted({1, k2b_chunks})}
     extra = {"p_rel_err_vs_fp64": matcher_fp64_errors(tin),
-             "timed_shapes": {"col_lse": list(s0.shape), "pair_softmax": list(t0.shape)},
-             "col_lse_chunks": chunks,
+             "pair_topk_share_of_rtol_vs_fp64": topk_fp64_shares(inp, topl),
+             "pair_topk_merge_counts": topk_merge_counts(inp, tin),
+             "timed_shapes": {"col_lse": list(s0.shape), "pair_topk": list(s0.shape), "pair_softmax": list(t0.shape)},
+             "col_lse_chunks": chunks, "pair_topk_chunks": k2b_chunks,
+             "pair_topk_entry_serving_back_to_back_ms": {k: round(time_many_ms(f), 4) for k, f in k2b.items()},
+             "pair_topk_entry_training_back_to_back_ms": round(time_many_ms(_topk_entry(lib, tin, topl, 1)), 4),
              "dense_forward_back_to_back_ms": round(time_many_ms(lambda: fm._forward(t0, t1, 10.0, 1.0)), 4),
-             "bound_ms": {"col_lse": col_lse_bound(s0, s1), "pair_softmax": pair_softmax_bound(t0, t1)},
+             "fused_table_back_to_back_ms": {"serving": round(time_many_ms(lambda: table(inp)), 4),
+                                             "training": round(time_many_ms(lambda: table(tin)), 4)},
+             "bound_ms": {"col_lse": col_lse_bound(s0, s1), "pair_topk": pair_topk_bound(s0, s1, topl),
+                          "pair_topk_training": pair_topk_bound(t0, t1, topl), "pair_softmax": pair_softmax_bound(t0, t1)},
              "ffma_bound_ms": {"col_lse": col_lse_bound(s0, s1, PEAK_FP32, 1.0),
+                               "pair_topk": pair_topk_bound(s0, s1, topl, PEAK_FP32, 1.0),
                                "pair_softmax": pair_softmax_bound(t0, t1, PEAK_FP32, 1.0)}}
 
     lse = torch.empty((B, N), dtype=torch.float32, device=dev)
@@ -1829,16 +2096,20 @@ def matcher_report(inp, tin, card: str) -> int:
     stream = _cuda.stream_ptr(s0)
 
     def launch(defines, name):
-        k2a = _cuda.build_variant("fused_topk.cu", defines).mk_col_lse_f32
-        k4 = _cuda.build_variant("dual_softmax.cu", defines).mk_pair_softmax_f32
-        return {f"col_lse {name}": lambda: _cuda.check(k2a(
-                    s0.data_ptr(), s1.data_ptr(), lse.data_ptr(), scratch_s.data_ptr(), geom_s, B, M, N, C, chunks,
-                    10.0, 1.0, stream), name),
-                f"pair_softmax {name}": lambda: _cuda.check(k4(
-                    t0.data_ptr(), t1.data_ptr(), tin["lse_col"].data_ptr(), out.data_ptr(), lse_row.data_ptr(),
-                    scratch_t.data_ptr(), geom_t, Bt, Mt, Nt, C, 10.0, 1.0, stream), name)}
-    return _kernel_loop(card, checks, fns, time_many_ms, ["col_lse", "pair_softmax"], 3000, MATCHER_ABLATIONS,
-                        launch, extra)
+        topk = _cuda.build_variant("fused_topk.cu", defines)
+        k2a = topk.mk_col_lse_f32
+        calls = {f"col_lse {name}": lambda: _cuda.check(k2a(
+                     s0.data_ptr(), s1.data_ptr(), lse.data_ptr(), scratch_s.data_ptr(), geom_s, B, M, N, C, chunks,
+                     10.0, 1.0, stream), name),
+                 f"pair_topk {name}": _topk_entry(topk, inp, topl, k2b_chunks)}
+        if "MK_ABLATE_SELECT" not in defines:  # K4 has no selection
+            k4 = _cuda.build_variant("dual_softmax.cu", defines).mk_pair_softmax_f32
+            calls[f"pair_softmax {name}"] = lambda: _cuda.check(k4(
+                t0.data_ptr(), t1.data_ptr(), tin["lse_col"].data_ptr(), out.data_ptr(), lse_row.data_ptr(),
+                scratch_t.data_ptr(), geom_t, Bt, Mt, Nt, C, 10.0, 1.0, stream), name)
+        return calls
+    return _kernel_loop(card, checks, fns, time_many_ms, ["col_lse", "pair_topk", "pair_softmax"], 3000,
+                        MATCHER_ABLATIONS, launch, extra)
 
 
 def _fp64_distance(x: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -1957,6 +2228,77 @@ def matcher_bwd_report(tin, card: str) -> int:
                 f"lse_bwd {name}": lambda: _cuda.check(v.mk_lse_bwd_f32(
                     *p(d0, d1, gr, gc, lr, lc, dd0, dd1, split, xt), geom_bwd, B, M, N, C, it, 1, stream), name)}
     return _kernel_loop(card, checks, fns, time_many_ms, list(names), 1000, MATCHER_BWD_ABLATIONS, launch, extra)
+
+
+# csrc/hypothesis_scoring.cu (K3): () the kernel as the port builds it, through its C entry
+SCORING_ABLATIONS = {"entry": (), "no_sfu": ("MK_ABLATE_SFU",), "fast_intrinsics": ("MK_FAST_INTRINSICS",),
+                     "staging_only": ("MK_ABLATE_SCORING",)}
+
+
+def check_scoring_kernel(inp, seed: int = SEED) -> dict:
+    """K3 against its plain version (K3_RTOL, K3_ATOL) at the solver's shape
+    (the outer draws times the pairs, stacked) and on ragged shapes: 1001
+    samples (a point set of 3003 floats, staged 4 bytes at a time), 3001
+    (two staged chunks of 2048), hypotheses not a multiple of a CTA's 16, a
+    single sample and hypothesis; two launches bitwise equal at the solver's
+    shape. Returns shape -> max |diff|."""
+    from mickey_tpu_torch.ops.hypothesis_scoring import hypothesis_scores, hypothesis_scores_plain
+
+    call = kernel_calls(inp)["hypothesis_scores"]
+    out = call[0]()
+    res = {"solver": _close_k3(out, call[1](), "hypothesis_scores, the solver's shape")}
+    _bitwise(call[0], out, "hypothesis_scores")
+    rng = np.random.default_rng(seed + 12)
+    dev = inp["X"].device
+    for E, S, nR in ((3, 1001, 13), (2, 3001, 17), (1, 1, 1)):
+        X = rng.uniform(-2, 2, (E, S, 3)).astype(np.float32)
+        Y = X + rng.normal(0, 0.2, X.shape).astype(np.float32)
+        R = np.stack([_rot(a) for a in rng.uniform(-0.2, 0.2, (E * nR, 3))]).reshape(E, nR, 3, 3).astype(np.float32)
+        t = rng.uniform(-0.1, 0.1, (E, nR, 1, 3)).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev) for a in (X, Y, R, t)]
+        res[f"{E}x{S}x{nR}"] = _close_k3(hypothesis_scores(*args, 0.3), hypothesis_scores_plain(*args, 0.3),
+                                         f"hypothesis_scores, {E} sets of {S} samples, {nR} hypotheses")
+    return res
+
+
+def scoring_report(inp, card: str) -> int:
+    """``python3 chip_smoke.py --scoring``: the RANSAC scoring kernel K3
+    alone. Its checks (``check_scoring_kernel``); CUDA-event medians in
+    turns (``time_many_ms``, the 20 a solve per call of 5 solves back to
+    back): one launch on a solve's stacked point sets, the 20 launches of
+    one a draw that the solver made before, the plain version; the SM clock
+    under load and the bound at it (``hypothesis_bound``); the timing
+    ablations (``SCORING_ABLATIONS``, through the C entry, without the
+    wrapper's host work) and the error of the fast intrinsics' build."""
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.ops.hypothesis_scoring import hypothesis_scores, hypothesis_scores_plain
+
+    checks = {"max_abs_err": check_scoring_kernel(inp)}
+    kernel, plain = kernel_calls(inp)["hypothesis_scores"]
+    X, Y, R, t = (inp[k] for k in ("X", "Y", "R", "t"))
+    E, S, _ = X.shape
+    nR = R.shape[1]
+    draws = [tuple(a[d * (E // inp["draws"]):(d + 1) * (E // inp["draws"])] for a in (X, Y, R, t))
+             for d in range(inp["draws"])]
+    fns = {"plain": plain, "one_launch": kernel, "one_launch_a_draw": lambda: [hypothesis_scores(*d, 0.3) for d in draws]}
+    sm_hz = sm_clock_hz(kernel)
+    R9, t3 = R.reshape(E, nR, 9).contiguous(), t.reshape(E, nR, 3).contiguous()
+    out = torch.empty((E, nR), dtype=torch.float32, device=X.device)
+    stream = _cuda.stream_ptr(X)
+
+    def launch(defines, name):
+        entry = _cuda.build_variant("hypothesis_scoring.cu", defines).mk_hypothesis_scores_f32
+        return {name: lambda: _cuda.check(entry(X.data_ptr(), Y.data_ptr(), R9.data_ptr(), t3.data_ptr(),
+                                                out.data_ptr(), E, S, nR, 0.3, stream), name)}
+    fast = launch(SCORING_ABLATIONS["fast_intrinsics"], "fast_intrinsics")["fast_intrinsics"]
+    fast()
+    ref = hypothesis_scores_plain(X, Y, R, t, 0.3)
+    extra = {"timed_shape": {"point_sets": E, "samples": S, "hypotheses": nR, "draws_a_solve": inp["draws"]},
+             "sm_clock_mhz": sm_hz / 1e6, "bound_ms": hypothesis_bound(X, R, sm_hz),
+             "fp32_only_bound_ms": _bound(30.0 * E * nR * S, 0.0, PEAK_FP32)[0],
+             "fast_intrinsics_max_abs_err": (out - ref).abs().max().item(),
+             "fast_intrinsics_max_rel_err": ((out - ref).abs() / ref.abs()).max().item()}
+    return _kernel_loop(card, checks, fns, time_many_ms, ["one_launch"], 3000, SCORING_ABLATIONS, launch, extra)
 
 
 def _stage_times(model, image0, image1, K0, K1, fused: bool = True) -> dict:

@@ -1,12 +1,14 @@
 // The matcher's correlation engine: s = X_own X_oth^T * inv_temp at fp32
 // accuracy on the tensor cores (3xTF32 wgmma), with a logsumexp along the
-// other axis kept in registers. Two forward kernels run on it:
+// other axis kept in registers. Three forward kernels run on it:
 //   K2a col_lse (fused_topk.cu): own = dsc1, other = dsc0; per column j the
 //       partial (max, sum) of a chunk of dsc0's rows, combined in a fixed
 //       order by a second small launch;
 //   K4 pair_softmax (dual_softmax.cu): own = dsc0, other = dsc1; sweep 1
 //       gives lse_row with the dustbin, sweep 2 recomputes S and writes
-//       P = exp(2 s - lse_row - lse_col).
+//       P = exp(2 s - lse_row - lse_col);
+//   K2b pair_topk (fused_topk.cu, topk_tf32_kernel): K4's sweeps on K2a's
+//       split, sweep 2 keeping each row's top-L instead of writing P.
 // The gradient kernels K5 and K6 (dual_softmax.cu, corr_bwd_kernel) run the
 // same correlation (issue_corr) and add a second product, dd_own += dS X_oth,
 // with dS as the register A operand (issue_dd) and X_oth^T from a transposed
@@ -333,6 +335,63 @@ struct CorrMaps {
 // exp2(inf - inf).
 __device__ __forceinline__ float corr_shift(float m) { return isinf(m) ? 0.f : m; }
 
+// One tile of an online logsumexp along the other axis (K2a's sweep, the
+// first sweep of K4 and K2b), in the accumulator layout below: s (raw dot
+// products) scaled in place to u = s c, its columns from `valid` on (a
+// ragged last tile) set to -inf; the running max m and this thread's share
+// l of sum exp2(u - shift) of rows g (m0, l0) and g + 8 (m1, l1) updated.
+__device__ __forceinline__ void corr_lse_tile(float (&s)[32], float c, int valid, int t4, float& m0, float& m1,
+                                              float& l0, float& l1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = __fmul_rn(s[i], c);  // rounded here whatever else reads u: K4's and K2b's lse_row agree bitwise
+    if (valid < CORR_BN && 8 * (i >> 2) + 2 * t4 + (i & 1) >= valid) s[i] = -INFINITY;  // ragged last tile
+    if (i & 2) {
+      mx1 = fmaxf(mx1, s[i]);
+    } else {
+      mx0 = fmaxf(mx0, s[i]);
+    }
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float sh0 = corr_shift(mn0), sh1 = corr_shift(mn1);
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (i & 2) {
+      sum1 += corr_ex2(s[i] - sh1);
+    } else {
+      sum0 += corr_ex2(s[i] - sh0);
+    }
+  }
+  // a share that has seen no finite u is 0 (or NaN, which stays NaN)
+  l0 = l0 * (m0 == -INFINITY ? 0.f : corr_ex2(corr_shift(m0) - sh0)) + sum0;
+  l1 = l1 * (m1 == -INFINITY ? 0.f : corr_ex2(corr_shift(m1) - sh1)) + sum1;
+  m0 = mn0;
+  m1 = mn1;
+}
+
+// The row logsumexps after the last tile, the dustbin folded in as the TPU
+// kernel does (alpha2 = alpha log2 e): the shares l summed over the row's
+// four lanes, then ln(sum exp(s) + exp(alpha)) of rows g (.x) and g + 8 (.y).
+// A row of -inf scores only (sum 0) adds 0, not 0 * exp2(-alpha2), which is
+// NaN without a dustbin (alpha2 = -1e30 log2 e): its lse_row is alpha.
+__device__ __forceinline__ float2 corr_lse_row(float m0, float m1, float l0, float l1, float alpha2) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float rm0 = fmaxf(m0, alpha2), rm1 = fmaxf(m1, alpha2);
+  const float a0 = l0 == 0.f ? 0.f : l0 * exp2f(corr_shift(m0) - rm0);
+  const float a1 = l1 == 0.f ? 0.f : l1 * exp2f(corr_shift(m1) - rm1);
+  return make_float2((log2f(a0 + exp2f(alpha2 - rm0)) + rm0) * CORR_LN2,
+                     (log2f(a1 + exp2f(alpha2 - rm1)) + rm1) * CORR_LN2);
+}
+
 // Thread (warp w, lane 4 g + t4) holds accumulator columns 8 j + 2 t4 + {0, 1}
 // of rows 16 w + g (registers 4 j, 4 j + 1) and 16 w + g + 8 (4 j + 2,
 // 4 j + 3). One CTA owns 64 rows (blockIdx.x) of one image (blockIdx.z).
@@ -407,50 +466,13 @@ corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, in
     corr_sum(s, x, h);
 
     if (!kPair || t < nt) {
-      const int valid = n_oth - j0;
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        s[i] *= c;
-        if (valid < CORR_BN && 8 * (i >> 2) + 2 * t4 + (i & 1) >= valid) s[i] = -INFINITY;  // ragged last tile
-        if (i & 2) {
-          mx1 = fmaxf(mx1, s[i]);
-        } else {
-          mx0 = fmaxf(mx0, s[i]);
-        }
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float sh0 = corr_shift(mn0), sh1 = corr_shift(mn1);
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        if (i & 2) {
-          sum1 += corr_ex2(s[i] - sh1);
-        } else {
-          sum0 += corr_ex2(s[i] - sh0);
-        }
-      }
-      // a share that has seen no finite u is 0 (or NaN, which stays NaN)
-      l0 = l0 * (m0 == -INFINITY ? 0.f : corr_ex2(corr_shift(m0) - sh0)) + sum0;
-      l1 = l1 * (m1 == -INFINITY ? 0.f : corr_ex2(corr_shift(m1) - sh1)) + sum1;
-      m0 = mn0;
-      m1 = mn1;
+      corr_lse_tile(s, c, n_oth - j0, t4, m0, m1, l0, l1);
       if (kPair && t == nt - 1) {  // lse_row, the dustbin folded in as the TPU kernel does
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        const float rm0 = fmaxf(m0, alpha2), rm1 = fmaxf(m1, alpha2);
-        const float lse0 = (log2f(l0 * exp2f(corr_shift(m0) - rm0) + exp2f(alpha2 - rm0)) + rm0) * CORR_LN2;
-        const float lse1 = (log2f(l1 * exp2f(corr_shift(m1) - rm1) + exp2f(alpha2 - rm1)) + rm1) * CORR_LN2;
-        if (t4 == 0 && r0 < n_own) lse_row[static_cast<long long>(b) * n_own + r0] = lse0;
-        if (t4 == 0 && r1 < n_own) lse_row[static_cast<long long>(b) * n_own + r1] = lse1;
-        ar0 = -lse0 * CORR_LOG2E;
-        ar1 = -lse1 * CORR_LOG2E;
+        const float2 lse = corr_lse_row(m0, m1, l0, l1, alpha2);
+        if (t4 == 0 && r0 < n_own) lse_row[static_cast<long long>(b) * n_own + r0] = lse.x;
+        if (t4 == 0 && r1 < n_own) lse_row[static_cast<long long>(b) * n_own + r1] = lse.y;
+        ar0 = -lse.x * CORR_LOG2E;
+        ar1 = -lse.y * CORR_LOG2E;
       }
     } else {
       // P = exp2(2 u - (lse_row + lse_col) log2 e); float2 stores where rows
@@ -519,6 +541,23 @@ inline long long corr_split_floats(int B, int M, int N) {
   return 2LL * (static_cast<long long>(B) * M + static_cast<long long>(B) * N) * CORR_C;
 }
 
+// The prep kernel: d0 (B, M, C) and d1 (B, N, C) split into scratch
+// (corr_split_floats). Returns 0 or a cudaError_t.
+inline int corr_split(const float* d0, const float* d1, float* scratch, int B, int M, int N, int C, cudaStream_t st) {
+  const long long rows0 = static_cast<long long>(B) * M, rows1 = static_cast<long long>(B) * N;
+  const long long most = rows0 > rows1 ? rows0 : rows1;
+  split_desc_kernel<<<dim3(static_cast<unsigned>((most * (CORR_C / 4) + 255) / 256), 2), 256, 0, st>>>(
+      d0, d1, scratch, static_cast<int>(rows0), static_cast<int>(rows1), C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The hi and lo maps of one split set (`part` floats apart) from its 14-entry geometry.
+inline int encode_pair(CUtensorMap* hi, CUtensorMap* lo, const float* split, long long part, const long long* geom) {
+  int rc = encode_map(hi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, split, geom, geom + 5, geom + 9);
+  if (rc == 0) rc = encode_map(lo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, split + part, geom, geom + 5, geom + 9);
+  return rc;
+}
+
 // The engine on descriptors d0 (B, M, C) and d1 (B, N, C): the prep kernel
 // into scratch (corr_split_floats), then corr_tf32_kernel<kPair> with
 // own = d1 (!kPair) or d0 (kPair) over `chunks` chunks of the other rows, each
@@ -535,27 +574,18 @@ int corr_launch(const float* d0, const float* d1, float* scratch, const long lon
       (chunks - 1) * per >= tiles || !corr_geometry_ok(geom, B, n_own, CORR_BM) ||
       !corr_geometry_ok(geom + 14, B, n_oth, CORR_BN))
     return static_cast<int>(cudaErrorInvalidValue);
+  int rc = corr_split(d0, d1, scratch, B, M, N, C, st);
+  if (rc != 0) return rc;
   const long long rows0 = static_cast<long long>(B) * M, rows1 = static_cast<long long>(B) * N;
-  const long long most = rows0 > rows1 ? rows0 : rows1;
-  split_desc_kernel<<<dim3(static_cast<unsigned>((most * (CORR_C / 4) + 255) / 256), 2), 256, 0, st>>>(
-      d0, d1, scratch, static_cast<int>(rows0), static_cast<int>(rows1), C);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
   float* h0 = scratch;
   float* h1 = scratch + corr_split_floats(B, M, 0);
-  float* own = kPair ? h0 : h1;
-  float* oth = kPair ? h1 : h0;
-  const long long own_part = (kPair ? rows0 : rows1) * CORR_C, oth_part = (kPair ? rows1 : rows0) * CORR_C;
-  const long long *og = geom, *tg = geom + 14;
   CorrMaps maps;
-  int rc = encode_map(&maps.own_hi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, own, og, og + 5, og + 9);
-  if (rc == 0) rc = encode_map(&maps.own_lo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, own + own_part, og, og + 5, og + 9);
-  if (rc == 0) rc = encode_map(&maps.oth_hi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, oth, tg, tg + 5, tg + 9);
-  if (rc == 0) rc = encode_map(&maps.oth_lo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, oth + oth_part, tg, tg + 5, tg + 9);
+  rc = encode_pair(&maps.own_hi, &maps.own_lo, kPair ? h0 : h1, (kPair ? rows0 : rows1) * CORR_C, geom);
+  if (rc == 0) rc = encode_pair(&maps.oth_hi, &maps.oth_lo, kPair ? h1 : h0, (kPair ? rows1 : rows0) * CORR_C, geom + 14);
   if (rc != 0) return rc;
   // per launch: the attribute belongs to the current device
-  e = cudaFuncSetAttribute(corr_tf32_kernel<kPair>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(CORR_SMEM));
+  const cudaError_t e = cudaFuncSetAttribute(corr_tf32_kernel<kPair>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(CORR_SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
   corr_tf32_kernel<kPair><<<dim3((n_own + CORR_BM - 1) / CORR_BM, chunks, B), CORR_NT, CORR_SMEM, st>>>(
       maps, n_own, n_oth, per, inv_temp * CORR_LOG2E, part, lse_col, out, lse_row, alpha * CORR_LOG2E);

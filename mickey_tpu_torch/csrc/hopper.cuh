@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the attention kernels
-// (flash_attention_packed.cu, bf16; flash_attention_f32.cu, fp32 operands)
-// and the matcher's correlation engine (corr_tf32.cuh): mbarriers, the
-// shared-memory matrix descriptor of a 128-byte-swizzled tile, the wgmma
-// fence / commit / wait, the conversion to TF32 (cvt.rna), the 5-D TMA
-// load, the 4- and 8-byte cp.async, and the tensor-map encoder looked up in
-// libcuda.
+// (flash_attention_packed.cu, bf16; flash_attention_f32.cu, fp32 operands),
+// the matcher's correlation engine (corr_tf32.cuh) and the hypothesis
+// scoring (hypothesis_scoring.cu): mbarriers, the shared-memory matrix
+// descriptor of a 128-byte-swizzled tile, the wgmma fence / commit / wait,
+// the conversion to TF32 (cvt.rna), the 5-D TMA load, the 4-, 8- and 16-byte
+// cp.async, and the tensor-map encoder looked up in libcuda.
 
 #pragma once
 
@@ -82,13 +82,13 @@ __device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map, 
       : "memory");
 }
 
-// `bytes` (4 or 8, kBytes) from `src` into shared memory at `dst`, the rest
-// of the kBytes zero-filled (bytes = 0: no read, all zero), asynchronously;
+// `bytes` (4, 8 or 16, kBytes) from `src` into shared memory at `dst`, the
+// rest of the kBytes zero-filled (bytes = 0: no read, all zero), asynchronously;
 // cp_async_commit closes this thread's group of copies, cp_async_wait<n>
 // waits until at most n of its groups are in flight.
 template <int kBytes>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, uint32_t bytes) {
-  static_assert(kBytes == 4 || kBytes == 8, "cp.async.ca of 4 or 8 bytes");
+  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "cp.async.ca of 4, 8 or 16 bytes");
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst), "l"(src), "n"(kBytes), "r"(bytes)
                : "memory");
 }

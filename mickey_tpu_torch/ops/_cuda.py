@@ -40,7 +40,7 @@ LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "flash_attention_
             "hypothesis_scores": 0, "pair_softmax": 0, "dual_softmax_bwd_sums": 0,
             "dual_softmax_bwd_grads": 0, "lse_bwd": 0}
 
-_P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "mk_flash_attention_bf16": [_P] * 4 + [_LLP, _I, _F, _P],
@@ -48,7 +48,8 @@ _SIGNATURES = {
     "mk_flash_attention_f32": [_P] * 4 + [_LLP, _P, _LLP] + [_I] * 4 + [_F, _P],
     "mk_flash_attention_packed_upcast_bf16": [_P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "mk_col_lse_f32": [_P] * 4 + [_LLP] + [_I] * 5 + [_F, _F, _P],
-    "mk_pair_topk_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+    "mk_pair_topk_f32": [_P] * 11 + [_LLP] + [_I] * 6 + [_F, _F, _I, _P],
+    "mk_pair_topk_merge_counts": [_P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
     "mk_pair_softmax_f32": [_P] * 6 + [_LLP] + [_I] * 4 + [_F, _F, _P],
     "mk_dual_softmax_bwd_sums_f32": [_P] * 9 + [_LLP] + [_I] * 4 + [_F, _I, _P],
@@ -122,8 +123,6 @@ def build() -> tuple:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.mk_pair_topk_smem_bytes.argtypes = [_I, _I]
-    lib.mk_pair_topk_smem_bytes.restype = _S
     lib.mk_dual_softmax_row_blocks.argtypes = [_I]
     lib.mk_dual_softmax_row_blocks.restype = _I
     return lib, log
@@ -136,8 +135,9 @@ def lib():
 def build_variant(source: str, defines: tuple):
     """``source`` compiled alone with ``-D`` ``defines`` into a library of
     its own, loaded with the entries' signatures set: the timing ablations
-    of ``chip_smoke.py --attention``, ``--attention-f32``, ``--matcher`` and
-    ``--matcher-bwd``. The port itself loads only ``lib()``."""
+    of ``chip_smoke.py --attention``, ``--attention-f32``, ``--matcher``,
+    ``--matcher-bwd`` and ``--scoring``. The port itself loads only
+    ``lib()``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = hashlib.sha256((_source_hash() + " ".join(defines)).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{Path(source).stem}_{tag}.so"

@@ -11,6 +11,12 @@ Two kernels (``csrc/fused_topk.cu``) replace its two Pallas passes:
   ``pair_topk`` (K2b) row logsumexp, final scores, per-row top-L candidates
                 (value, flat index ``i*N + j``) and per-row validity partials.
 
+Both run on the correlation engine below, on one split of the descriptors:
+``_topk_table`` hands K2a's scratch (``topk_split``) to K2b, which splits
+nothing itself. ``pair_topk_3xtf32_plain`` repeats K2b's arithmetic on the
+CPU, ``topk_lists_plain`` its selection (per-row lists in chunks of columns,
+merged; ``pair_topk_chunks``).
+
 The exact top-P over the L*M candidates (``exact_topk_desc``) is glue in
 plain PyTorch, as it is XLA glue in the JAX package.
 
@@ -24,12 +30,13 @@ P = A*B and upstream cotangent G,
     d alpha = -sum_j exp(a - lse_col_j) c_j - sum_i exp(a - lse_row_i) r_i
 
 Forward (K4): ``col_lse`` again, then ``pair_softmax`` (``csrc/dual_softmax.cu``).
-K2a and K4 compute the correlation at fp32 accuracy as 3xTF32 on the tensor
-cores (the engine of ``csrc/corr_tf32.cuh``): each wrapper splits the
-descriptors once into TF32 hi / lo parts in a scratch buffer that its kernels
-read through TMA tensor maps (``corr_geometry``). ``corr_3xtf32_plain``,
-``col_lse_3xtf32_plain`` and ``pair_softmax_3xtf32_plain`` repeat that
-arithmetic on the CPU, for the tests.
+K2a, K2b and K4 compute the correlation at fp32 accuracy as 3xTF32 on the
+tensor cores (the engine of ``csrc/corr_tf32.cuh``): the descriptors are
+split once into TF32 hi / lo parts in a scratch buffer that the kernels read
+through TMA tensor maps (``corr_geometry``). ``corr_3xtf32_plain``,
+``col_lse_3xtf32_plain``, ``pair_topk_3xtf32_plain`` and
+``pair_softmax_3xtf32_plain`` repeat that arithmetic on the CPU, for the
+tests.
 Backward (K5): ``dual_softmax_bwd_sums`` (r, c) and ``dual_softmax_bwd_grads``
 (dd0, dd1), both recomputing the correlation from the saved logsumexps on
 the same engine; the gradients' dS products are 3xTF32 too, dS split in
@@ -145,6 +152,33 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+PAIR_TOPK_MAX_CHUNKS = 4  # csrc/fused_topk.cu TOPK_MAX_CHUNKS
+PAIR_TOPK_MAX_L = 16  # csrc/fused_topk.cu TOPK_MAX_L: a CTA's 128 threads keep 2 lists of 16 each in 32 KB
+
+
+def pair_topk_chunks(sms: int, b: int, m: int, n: int) -> int:
+    """How many chunks K2b splits dsc1's column tiles into: about enough
+    CTAs (B times M / 64 row tiles, times the chunks) for one wave on
+    ``sms`` SMs at one CTA an SM, at most ``PAIR_TOPK_MAX_CHUNKS``; every
+    chunk the same whole number of 64-column tiles (the last one's columns
+    may run out sooner), none empty. One chunk runs both sweeps in one
+    launch; more add a launch of row partials before and a merge after."""
+    col_tiles = math.ceil(n / CORR_ROWS)
+    want = max(1, min(col_tiles, PAIR_TOPK_MAX_CHUNKS, sms // (b * math.ceil(m / CORR_ROWS))))
+    per = math.ceil(col_tiles / want)
+    return math.ceil(col_tiles / per)
+
+
+def topk_split(dsc0: torch.Tensor, dsc1: torch.Tensor):
+    """The scratch that K2a splits dsc0 and dsc1 into and K2b reads
+    (``_corr_scratch`` with K2a's partials); None on the CPU."""
+    if not dsc0.is_cuda:
+        return None
+    b, m, _ = dsc0.shape
+    n = dsc1.shape[1]
+    return _corr_scratch(b, m, n, dsc0.device, col_lse_chunks(_sm_count(dsc0.device), b, m, n))
+
+
 def col_lse_chunks(sms: int, b: int, m: int, n: int) -> int:
     """How many chunks K2a splits dsc0's rows into: about enough CTAs (B
     times N / 64 column tiles, times the chunks) for one wave on ``sms`` SMs
@@ -235,17 +269,25 @@ def _row_lse(s: torch.Tensor, alpha: float) -> torch.Tensor:
     return torch.log(row_sum) + row_max
 
 
-def pair_topk_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int):
-    """Plain version of ``pair_topk``: the same four outputs from the dense
-    (B, M, N) final scores, with the kernel's selection rounds written out."""
-    s = _correlation(dsc0, dsc1, inv_temp)
-    B, M, N = s.shape
+def _pair_topk_from(s: torch.Tensor, scr0, scr1, lse_col, alpha: float, topl: int, select):
+    """K2b's four outputs from the correlation ``s``: f in the JAX order,
+    the row stats, and the selection ``select(f, topl)``."""
     lse_row = _row_lse(s, alpha)
     f = torch.exp(s - lse_row[..., None]) * torch.exp(s - lse_col[:, None, :])
     f = f * scr0[..., None] * scr1[:, None, :]
     stats = torch.stack(
         [f.sum(dim=2), (~torch.isfinite(f)).sum(dim=2).float(), f.amin(dim=2)], dim=-1
     )
+    vals, idxs = select(f, topl)
+    return vals, idxs, stats, lse_row
+
+
+def _topk_rounds(f: torch.Tensor, topl: int):
+    """The TPU kernel's selection: ``topl`` rounds of (max, first index
+    attaining it, mask with -inf) over each row of f (B, M, N), values
+    clamped at 0, a NaN max's index clamped to N - 1. Returns (vals (B, L, M),
+    idxs (B, L, M) i32 flat ``i*N + j``)."""
+    B, M, N = f.shape
     col = torch.arange(N, device=f.device)
     row = torch.arange(M, device=f.device, dtype=torch.int32)
     sel = f.clone()
@@ -256,34 +298,97 @@ def pair_topk_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: flo
         vals.append(torch.where(torch.isnan(m), m, torch.clamp(m, min=0.0)))
         idxs.append(row * N + idx.to(torch.int32))
         sel = sel.scatter(2, idx[..., None], float("-inf"))
-    return torch.stack(vals, dim=1), torch.stack(idxs, dim=1), stats, lse_row
+    return torch.stack(vals, dim=1), torch.stack(idxs, dim=1)
 
 
-def pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int):
+def topk_lists_plain(f: torch.Tensor, topl: int, chunks: int = 1):
+    """K2b's selection as its kernels make it, on the CPU: per row and chunk
+    of 64-column tiles (``chunks`` as ``pair_topk_chunks`` gives) a list of
+    the ``topl`` first scores above -inf by (value desc, column asc), NaN
+    left out, and two flags (a NaN before the last column; in it); the
+    chunks' lists merged in order; then the rounds: all (NaN, N - 1) for the
+    first flag, (NaN, N - 1) first for the second alone, then the list,
+    values clamped at 0, and (0, column 0) once it runs out. It gives what
+    ``_topk_rounds`` gives."""
+    B, M, N = f.shape
+    per = math.ceil(math.ceil(N / CORR_ROWS) / chunks) * CORR_ROWS
+    nan = torch.isnan(f)
+    nan_other, nan_last = nan[..., :-1].any(-1, keepdim=True), nan[..., -1:]
+    # left out: NaN and -inf, keyed -inf, behind every entry kept
+    out = nan | (f == float("-inf"))
+    key = torch.where(out, torch.full_like(f, float("-inf")), f)
+
+    def first(key, out, cols):  # a stable sort on the value keeps ties in column order
+        order = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :topl]
+        return torch.gather(key, -1, order), torch.gather(out, -1, order), torch.gather(cols, -1, order)
+
+    cols = torch.arange(N, device=f.device).expand(B, M, N)
+    lists = [first(key[..., c:c + per], out[..., c:c + per], cols[..., c:c + per]) for c in range(0, N, per)]
+    v, o, j = first(*(torch.cat(x, -1) for x in zip(*lists)))  # the merge, chunks in column order
+    v = torch.where(o, torch.zeros_like(v), torch.clamp(v, min=0.0))
+    j = torch.where(o, torch.zeros_like(j), j)
+    short = topl + 1 - v.shape[-1]  # a list shorter than the rounds: (0, column 0) after it
+    v, j = (torch.nn.functional.pad(x, (0, short)) for x in (v, j))
+    head_v, head_j = torch.full_like(v[..., :1], float("nan")), torch.full_like(j[..., :1], N - 1)
+    v = torch.where(nan_last, torch.cat([head_v, v[..., :-1]], -1), v)[..., :topl]
+    j = torch.where(nan_last, torch.cat([head_j, j[..., :-1]], -1), j)[..., :topl]
+    v = torch.where(nan_other, torch.full_like(v, float("nan")), v)
+    j = torch.where(nan_other, torch.full_like(j, N - 1), j)
+    row = torch.arange(M, device=f.device)[None, :, None]
+    return v.transpose(1, 2).contiguous(), (row * N + j).to(torch.int32).transpose(1, 2).contiguous()
+
+
+def pair_topk_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int):
+    """Plain version of ``pair_topk``: the same four outputs from the dense
+    (B, M, N) final scores, with the TPU kernel's selection rounds written
+    out."""
+    return _pair_topk_from(_correlation(dsc0, dsc1, inv_temp), scr0, scr1, lse_col, alpha, topl, _topk_rounds)
+
+
+def pair_topk_3xtf32_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int,
+                           passes: int = 3, chunks: int = 1):
+    """K2b's arithmetic on the CPU: the engine's correlation (own = dsc0),
+    the same f and stats, and the kernel's selection (``topk_lists_plain``
+    in ``chunks``)."""
+    return _pair_topk_from(corr_3xtf32_plain(dsc0, dsc1, inv_temp, passes), scr0, scr1, lse_col, alpha, topl,
+                           lambda f, topl: topk_lists_plain(f, topl, chunks))
+
+
+def _topk_work(b: int, m: int, topl: int, chunks: int, device):
+    """A split K2b's partials: per (b, chunk, row) the stats (4 floats),
+    lse_row's (max, sum) (2), sweep 1's 16 keys and the list (``topl`` x 2),
+    then per (b, row) a bar; None for one chunk, which needs none."""
+    if chunks == 1:
+        return None
+    return torch.empty(b * chunks * m * (22 + 2 * topl) + b * m, dtype=torch.float32, device=device)
+
+
+def pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int, split=None):
     """Returns (vals (B, L, M) f32, idxs (B, L, M) i32 flat ``i*N + j``,
-    stats (B, M, 3) = per-row (mass, non-finite count, min), lse_row (B, M))."""
+    stats (B, M, 3) = per-row (mass, non-finite count, min), lse_row (B, M)).
+    ``split``: ``col_lse``'s scratch after its launch on these descriptors
+    (``topk_split``), whose split the kernel reads; without it the wrapper
+    splits them first."""
     if dsc0.device.type == "cpu":
         return pair_topk_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp, alpha, topl)
-    B, M, C = dsc0.shape
-    N = dsc1.shape[1]
-    for t, name, shape in (
-        (dsc0, "dsc0", (B, M, C)), (dsc1, "dsc1", (B, N, C)), (scr0, "scr0", (B, M)),
-        (scr1, "scr1", (B, N)), (lse_col, "lse_col", (B, N)),
-    ):
+    B, M, N, C = _require_descs(dsc0, dsc1, "pair_topk")
+    for t, name, shape in ((scr0, "scr0", (B, M)), (scr1, "scr1", (B, N)), (lse_col, "lse_col", (B, N))):
         _cuda.require(t, name, torch.float32, shape, dsc0.device)
-    lib = _cuda.lib()
-    smem = lib.mk_pair_topk_smem_bytes(N, C)
-    if smem > 232448:
-        raise ValueError(f"pair_topk: N={N}, C={C} needs {smem} B of shared memory (> 227 KB)")
+    if not 1 <= topl <= PAIR_TOPK_MAX_L:
+        raise ValueError(f"pair_topk: row_topl {topl} outside 1..{PAIR_TOPK_MAX_L}")
     dev = dsc0.device
+    chunks = pair_topk_chunks(_sm_count(dev), B, M, N)
     vals = torch.empty((B, topl, M), dtype=torch.float32, device=dev)
     idxs = torch.empty((B, topl, M), dtype=torch.int32, device=dev)
     stats = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
     lse_row = torch.empty((B, M), dtype=torch.float32, device=dev)
-    rc = lib.mk_pair_topk_f32(
+    split, do_split = _split_for(split, B, M, N, dev)
+    work = _topk_work(B, M, topl, chunks, dev)
+    rc = _cuda.lib().mk_pair_topk_f32(
         dsc0.data_ptr(), dsc1.data_ptr(), scr0.data_ptr(), scr1.data_ptr(), lse_col.data_ptr(),
-        vals.data_ptr(), idxs.data_ptr(), stats.data_ptr(), lse_row.data_ptr(),
-        B, M, N, C, topl, float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
+        vals.data_ptr(), idxs.data_ptr(), stats.data_ptr(), lse_row.data_ptr(), split.data_ptr(),
+        None if work is None else work.data_ptr(), corr_geometry(B, M, N), B, M, N, C, topl, chunks,
+        float(inv_temp), float(alpha), do_split, _cuda.stream_ptr(dsc0),
     )
     _cuda.check(rc, "pair_topk")
     _cuda.LAUNCHES["pair_topk"] += 1
@@ -307,12 +412,14 @@ def exact_topk_desc(vals: torch.Tensor, k: int):
 
 def _topk_table(dsc0, dsc1, scr0, scr1, inv_temp: float, alpha: float, prefilter: int, row_topl: int, split=None):
     """K2a, K2b and the top-P glue: (top_scores, top_idx, row_ok, lse_row,
-    lse_col); K2a's split descriptors into ``split`` where it is given."""
+    lse_col); K2a splits the descriptors into ``split`` (``topk_split``,
+    made here where it is not given) and K2b reads them there."""
     B, M, _ = dsc0.shape
     scr0 = scr0.float().contiguous()
     scr1 = scr1.float().contiguous()
+    split = topk_split(dsc0, dsc1) if split is None else split
     lse_col = col_lse(dsc0, dsc1, inv_temp, alpha, split)
-    vals, idxs, stats, lse_row = pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp, alpha, row_topl)
+    vals, idxs, stats, lse_row = pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp, alpha, row_topl, split)
     row_ok = (
         (stats[..., 1].sum(dim=-1) == 0)  # all finite
         & (stats[..., 2].amin(dim=-1) >= 0)  # nonnegative
@@ -610,11 +717,8 @@ class _FusedTopKTrain(torch.autograd.Function):
                 row_topl: int):
         d0, d1 = (d.float().contiguous() for d in (dsc0, dsc1))
         alpha = _alpha(dustbin, use_dustbin)
-        # K2a's split descriptors, kept for the backward's kernels
-        ctx.split = None
-        if d0.is_cuda:
-            b, m, n = d0.shape[0], d0.shape[1], d1.shape[1]
-            ctx.split = _corr_scratch(b, m, n, d0.device, col_lse_chunks(_sm_count(d0.device), b, m, n))
+        # K2a's split descriptors, read by K2b and kept for the backward's kernels
+        ctx.split = topk_split(d0, d1)
         top_scores, top_idx, row_ok, lse_row, lse_col = _topk_table(d0, d1, scr0, scr1, inv_temp, alpha,
                                                                     prefilter, row_topl, ctx.split)
         ctx.save_for_backward(d0, d1, lse_row, lse_col)

@@ -4,7 +4,8 @@ Counterpart of ``mickey_tpu/ops/hypothesis_scoring.py::fused_hypothesis_scores``
 On a CUDA tensor the wrapper launches ``csrc/hypothesis_scoring.cu``; on a
 CPU tensor it takes the plain version, ``geometry.soft_inlier_counting_3d``
 in broadcast form, which writes the (B, R, S) residuals the kernel never
-materializes.
+materializes. The batch axis is any stack of point sets: the solver passes
+its it_matches outer draws times B pairs at once.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The TF32 split of the port's 3xTF32 kernels, on the CPU.
 
-The fp32-accurate kernels (K1f in ``csrc/flash_attention_f32.cu``; K2a, K4,
-K5 and K6 on the correlation engine of ``csrc/corr_tf32.cuh``) split every
+The fp32-accurate kernels (K1f in ``csrc/flash_attention_f32.cu``; K2a, K2b,
+K4, K5 and K6 on the correlation engine of ``csrc/corr_tf32.cuh``) split every
 fp32 operand into two TF32 values and run each product as three TF32 passes
 on the tensor cores. These functions repeat that split bit for bit, so that
 the plain versions that mimic the kernels' arithmetic

@@ -15,10 +15,13 @@ sorted descending, where the JAX package takes
 With ``prefilter`` 0 (or at least N0 * N1) the draws sample the whole flat
 matrix and index it directly.
 
-All it_matches x it_RANSAC minimal Kabsch solves run as one batched call;
-the fused scoring kernel (``ops.hypothesis_scoring``) runs once per outer
-draw, as in the JAX scan. Refinement is the same fixed-trip masked loop, and
-the zero-pose fallback is per batch element.
+All it_matches x it_RANSAC minimal Kabsch solves run as one batched call,
+and so does their scoring: the fused scoring kernel
+(``ops.hypothesis_scoring``) takes the it_matches x B point sets of a solve
+in one launch, where the JAX package scores them draw by draw in a
+``lax.scan``; each (draw, pair, hypothesis) sum is independent, so the
+scores are those of the per-draw calls. Refinement is the same fixed-trip
+masked loop, and the zero-pose fallback is per batch element.
 """
 
 from __future__ import annotations
@@ -101,9 +104,8 @@ def _solve_sampled(w_table, remap, row_ok, kps0, depth0, kps1, depth1, K0, K1,
     Yk = _rows(Y, flat).reshape(it, B, nR, C, 3)
     sol = weighted_procrustes(Xk, Yk, use_weights=False)  # R (it, B, R, 3, 3)
 
-    score = torch.stack(
-        [hypothesis_scores(X[s], Y[s], sol.R[s], sol.t[s], th_soft_inlier) for s in range(it)]
-    )  # (it, B, R)
+    score = hypothesis_scores(X.reshape(it * B, S, 3), Y.reshape(it * B, S, 3), sol.R.reshape(it * B, nR, 3, 3),
+                              sol.t.reshape(it * B, nR, 1, 3), th_soft_inlier).reshape(it, B, nR)
     hyp_ok = (
         sol.valid
         & torch.isfinite(sol.R).flatten(-2).all(-1)

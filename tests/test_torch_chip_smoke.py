@@ -48,12 +48,12 @@ def _tiny_params(cfg, depth=2):
 
 def _tiny_kernel_inputs():
     return chip_smoke.kernel_inputs("cpu", images=2, seq=37, heads=2, kpts=40, desc=16, topl=4, prefilter=64,
-                                    samples=50, hyps=7, old_images=2, old_seq=48, old_len=37)
+                                    draws=3, samples=50, hyps=7, old_images=2, old_seq=48, old_len=37)
 
 
 def test_kernel_phase_rehearsal():
     inp = _tiny_kernel_inputs()
-    errs = chip_smoke.check_kernels(inp)
+    errs = chip_smoke.check_kernels(inp, topk_sizes=(70, 65, 64, 1))
     assert set(errs) == set(chip_smoke.SERVING_KERNELS) | {"flash_attention", "flash_attention_packed_f32",
                                                              "flash_attention_f32", "flash_attention_packed_upcast"}
     # plain against plain: exact, except K1 / K1b where the bf16 output is held against fp32
@@ -334,7 +334,8 @@ def test_matcher_checks_rehearsal():
     inp = _tiny_kernel_inputs()
     tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
     errs = chip_smoke.check_matcher_kernels(inp, tin)
-    assert set(errs) == {"col_lse serving", "col_lse training", "pair_softmax training"}
+    assert set(errs) == {"col_lse serving", "col_lse training", "pair_softmax training", "pair_topk serving",
+                         "pair_topk training"}
     assert all(e == 0.0 for e in errs.values())
     assert chip_smoke.check_matcher_shapes("cpu", sizes=(70, 65, 64, 1), desc=16) == 0.0
 
@@ -499,3 +500,109 @@ def test_matcher_bwd_fp64_errors_rehearsal():
     ref = torch.tensor([1.0, -2.0, 4.0, 1e-9], dtype=torch.float64)
     d = chip_smoke._fp64_distance(ref * (1 + 1e-4), ref)
     assert d["rel_mean"] == pytest.approx(1e-4) and d["max_over_max"] == pytest.approx(1e-4)
+
+
+def test_topk_checks_catch_a_wrong_kernel(monkeypatch):
+    """K2b's checks on ragged sizes: a selection that breaks exact ties by
+    the higher column fails the rounds' order; one that takes a NaN in the
+    last column for one before it (every round NaN) fails the NaN pattern;
+    a K2b whose values drift from launch to launch fails the bitwise
+    check."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    plain = fm.pair_topk_plain
+
+    def high_ties(f, topl):  # the rounds on reversed columns, mapped back
+        n = f.shape[-1]
+        v, i = fm._topk_rounds(f.flip(-1), topl)
+        row = i // n
+        return v, (row * n + (n - 1 - i % n)).to(torch.int32)
+
+    monkeypatch.setattr(fm, "pair_topk", lambda d0, d1, s0, s1, lc, it, a, topl, split=None: fm._pair_topk_from(
+        fm._correlation(d0, d1, it), s0, s1, lc, a, topl, high_ties))
+    with pytest.raises(chip_smoke.SmokeError, match="order|another index"):
+        chip_smoke.check_topk_shapes("cpu", sizes=(70, 65), desc=16)
+
+    def nan_anywhere(f, topl):
+        nan = torch.isnan(f).any(-1, keepdim=True)
+        return fm._topk_rounds(torch.where(nan, torch.full_like(f, float("nan")), f), topl)
+
+    monkeypatch.setattr(fm, "pair_topk", lambda d0, d1, s0, s1, lc, it, a, topl, split=None: fm._pair_topk_from(
+        fm._correlation(d0, d1, it), s0, s1, lc, a, topl, nan_anywhere))
+    with pytest.raises(chip_smoke.SmokeError, match="NaN or infinite"):
+        chip_smoke.check_topk_shapes("cpu", sizes=(70, 65), desc=16)
+    calls = []
+
+    def drifting(*a, **k):
+        calls.append(0)
+        v, i, st, lr = plain(*a[:8])
+        return v * (1 + 1e-7 * (len(calls) % 2)), i, st, lr
+
+    monkeypatch.setattr(fm, "pair_topk", drifting)
+    with pytest.raises(chip_smoke.SmokeError, match="two launches"):
+        chip_smoke.check_topk_shapes("cpu", sizes=(70, 65), desc=16)
+
+
+def test_scoring_checks_rehearsal():
+    """``--scoring``'s checks at a tiny solver shape and on the ragged
+    shapes (4-byte staging, two staged chunks, partial hypothesis groups, a
+    single sample), plain against plain."""
+    errs = chip_smoke.check_scoring_kernel(_tiny_kernel_inputs())
+    assert set(errs) == {"solver", "3x1001x13", "2x3001x17", "1x1x1"} and all(e == 0.0 for e in errs.values())
+
+
+def test_scoring_checks_catch_a_wrong_kernel(monkeypatch):
+    """A K3 that stops at 2048 samples (one staged chunk) fails the ragged
+    shapes' check."""
+    from mickey_tpu_torch.ops import hypothesis_scoring as hs
+
+    plain = hs.hypothesis_scores_plain
+    monkeypatch.setattr(hs, "hypothesis_scores", lambda X, Y, R, t, th: plain(X[:, :2048], Y[:, :2048], R, t, th))
+    with pytest.raises(chip_smoke.SmokeError, match="3001 samples"):
+        chip_smoke.check_scoring_kernel(_tiny_kernel_inputs())
+
+
+def test_once_per_solve():
+    """The serving paths' launch check: K3 once a solve, not once a draw."""
+    counts = {name: 1 for name, _, _ in chip_smoke.KERNELS}
+    chip_smoke._once_per_solve(dict(counts, hypothesis_scores=2), "x", 2)
+    with pytest.raises(chip_smoke.SmokeError, match="40 times for 2 solves"):
+        chip_smoke._once_per_solve(dict(counts, hypothesis_scores=40), "x", 2)
+
+
+def test_topk_and_scoring_bounds():
+    """K2b's bound is three TF32 passes of one correlation at 495 TFLOP/s
+    (its FFMA bound one pass at 67 TFLOP/s) against the bytes read and
+    written once; K3's adds to the fp32 operations (30 a term at 67 TFLOP/s)
+    three special-function operations a term at 16 a clock on each of 132
+    SMs at the measured clock, which binds at a solve's shape."""
+    inp = _tiny_kernel_inputs()
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    b, m, c = inp["dsc0"].shape
+    n, L = inp["dsc1"].shape[1], inp["topl"]
+    nbytes = (b * m * c + b * n * c + b * m + 2 * b * n + 2 * b * L * m + 4 * b * m) * 4
+    flops = 2.0 * b * m * n * c
+    bounds = chip_smoke.kernel_bounds(inp, tin, sm_hz=1.5e9)
+    assert bounds["pair_topk"][0] == pytest.approx(
+        max(3 * flops / chip_smoke.PEAK_TF32, nbytes / chip_smoke.PEAK_BYTES) * 1e3)
+    assert chip_smoke.pair_topk_bound(inp["dsc0"], inp["dsc1"], L, chip_smoke.PEAK_FP32, 1.0)[0] == pytest.approx(
+        max(flops / chip_smoke.PEAK_FP32, nbytes / chip_smoke.PEAK_BYTES) * 1e3)
+    e, s = inp["X"].shape[:2]
+    r = inp["R"].shape[1]
+    terms = e * r * s
+    sfu = 3 * terms / (16 * 132 * 1.5e9) * 1e3
+    fp32 = max(30 * terms / chip_smoke.PEAK_FP32, (2 * e * s * 3 + e * r * 13) * 4 / chip_smoke.PEAK_BYTES) * 1e3
+    assert bounds["hypothesis_scores"][0] == pytest.approx(max(sfu, fp32))
+    X, R = torch.empty((40, 2048, 3), device="meta"), torch.empty((40, 100, 3, 3), device="meta")
+    ms, by = chip_smoke.hypothesis_bound(X, R, 1.98e9)
+    assert by == "operations" and ms == pytest.approx(3 * 40 * 100 * 2048 / (16 * 132 * 1.98e9) * 1e3)
+    big = torch.empty((2, 1938, 128), device="meta")
+    ms, by = chip_smoke.pair_topk_bound(big, big, 16)
+    assert by == "operations" and ms == pytest.approx(3 * 2.0 * 2 * 1938 ** 2 * 128 / chip_smoke.PEAK_TF32 * 1e3)
+
+
+def test_topk_fp64_shares_rehearsal():
+    """``--matcher``'s K2b distance from fp64 at a tiny size: the plain
+    version on both sides, within fp32 rounding of it."""
+    shares = chip_smoke.topk_fp64_shares(_tiny_kernel_inputs(), 4)
+    assert shares["kernel"] == shares["plain"] and 0.0 < shares["plain"] < 1.0

@@ -200,3 +200,145 @@ def test_col_lse_chunks():
     assert fm.col_lse_chunks(132, 1, 70, 64) == 2
     assert fm.col_lse_chunks(132, 1, 1, 1) == 1
     assert fm.col_lse_chunks(132, 1, 320, 1920) == 3
+
+
+# -- K2b's arithmetic: 3xTF32 on the correlation engine, the selection in lists ------
+
+
+def _topk_inputs(shape, case, seed):
+    """Seeded unit descriptors and uniform scores of ``shape`` (B, M, N, C):
+    ``ties`` makes column 7 a copy of column 3 (every row ties them
+    exactly), ``nan`` poisons row 5 of pair 0, ``nan_last`` makes scr1's
+    last entry NaN (the rows' only NaN, in their last column)."""
+    b, m, n, c = shape
+    d0, d1, s0, s1 = _inputs(b, m, n, c, seed=seed, ties=case == "ties")
+    if case == "nan":
+        d0[0, min(5, m - 1)] = np.nan
+    if case == "nan_last":
+        s1[:, n - 1] = np.nan
+    return d0, d1, s0, s1
+
+
+def _rounds_exact_where_apart(idx, ref_idx, ref_vals, rel=1e-4):
+    """Rounds (B, L, M) whose reference value is apart from each other
+    value of its row's rounds by ``rel`` (relative), ties exactly, or is
+    NaN: the same index."""
+    v = ref_vals.transpose(0, 2, 1).astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(v[..., :, None] - v[..., None, :])
+    gap = np.where(np.eye(v.shape[-1], dtype=bool), np.inf, gap)
+    gap = np.nan_to_num(gap, nan=np.inf).min(-1)
+    keep = (gap > rel * np.abs(v)) | (gap == 0) | np.isnan(v)
+    np.testing.assert_array_equal(np.where(keep, idx.transpose(0, 2, 1), 0), np.where(keep, ref_idx.transpose(0, 2, 1), 0))
+
+
+@pytest.mark.parametrize("case", ["plain", "ties", "nan", "nan_last"])
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_pair_topk_3xtf32_plain_matches_jax_interpret(shape, case):
+    """K2b's arithmetic (the engine's correlation, f in the JAX order, the
+    selection in lists merged by rank) against the JAX kernel's candidate
+    table on the JAX lse_col: values at RTOL (1e-5 |ref| + 1e-6 max|ref|)
+    with NaN where the JAX kernel has it, indices exact where values are
+    apart or tie exactly; one TF32 pass misses RTOL (negative control)."""
+    b, m, n, c = shape
+    d0, d1, s0, s1 = _topk_inputs(shape, case, seed=40 + m)
+    L = 16
+    cv, ci, _, _, lse_col = jfm._topk_candidates(*(jnp.asarray(a) for a in (d0, d1, s0, s1)), jnp.float32(0.7),
+                                                 0.1, True, L, 128, True)
+    ref_v = np.asarray(cv).reshape(b, L, -1)[:, :, :m]
+    ref_i = np.asarray(ci).reshape(b, L, -1)[:, :, :m]
+    lc = torch.from_numpy(np.array(lse_col)[:, 0, :n])
+    t = [torch.from_numpy(a) for a in (d0, d1, s0, s1)]
+    v, i, stats, _ = fm.pair_topk_3xtf32_plain(*t, lc, 10.0, 0.7, L)
+    v = v.numpy()
+    np.testing.assert_array_equal(np.isnan(v), np.isnan(ref_v))
+    fin = np.isfinite(ref_v)
+    if fin.any():
+        assert _ratio(v[fin], ref_v[fin], 1e-5) <= 1.0
+    _rounds_exact_where_apart(i.numpy(), ref_i, ref_v)
+    if case == "nan":
+        assert np.isnan(v[0, :, min(5, m - 1)]).all() and (i[0, :, min(5, m - 1)] % n == n - 1).all()
+    if case == "nan_last":  # (NaN, N - 1) first, then the normal order of the rest
+        assert np.isnan(v[:, 0]).all() and np.isfinite(v[:, 1:]).all() and (i[:, 0] % n == n - 1).all()
+    if case == "plain":
+        one = fm.pair_topk_3xtf32_plain(*t, lc, 10.0, 0.7, L, passes=1)[0].numpy()
+        assert _ratio(one, ref_v, 1e-5) > 1.0
+
+
+def _awkward_scores(seed):
+    """Integer scores (exact ties everywhere), NaN before and in the last
+    column, -inf, +inf and negative rows, at widths below and above 64
+    columns and below L."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in (1, 5, 37, 70, 130):
+        f = rng.integers(0, 6, (2, 9, n)).astype(np.float32)
+        f[0, 1, min(3, n - 1)] = np.nan
+        f[0, 2, n - 1] = np.nan
+        f[1, 3, 0] = -np.inf
+        f[1, 4] = -np.inf
+        f[1, 5, min(2, n - 1)] = np.inf
+        f[1, 6] = -1.0 - f[1, 6]
+        out.append(torch.from_numpy(f))
+    return out
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4])
+def test_topk_lists_equal_the_rounds(chunks):
+    """K2b's selection (per-chunk lists of the best scores above -inf, NaN
+    left out, merged; the rounds' rules at the end) gives exactly what L
+    rounds of (max, first index attaining it, mask with -inf) give, in one
+    launch and in column chunks: on exact ties, NaN rows, a NaN only in the
+    last column, -inf, +inf and negative scores, and rows shorter than L."""
+    shape_scores = []
+    for shape in TF32_SHAPES:
+        for case in ("ties", "nan", "nan_last"):
+            d0, d1, s0, s1 = (torch.from_numpy(a) for a in _topk_inputs(shape, case, seed=7))
+            s = fm._correlation(d0, d1, 10.0)
+            lse_row = fm._row_lse(s, 0.7)
+            lc = fm.col_lse_plain(d0, d1, 10.0, 0.7)
+            shape_scores.append(torch.exp(s - lse_row[..., None]) * torch.exp(s - lc[:, None, :]) * s0[..., None]
+                                * s1[:, None, :])
+    for f in shape_scores + _awkward_scores(chunks):
+        for L in (1, 4, 16):
+            rv, ri = fm._topk_rounds(f, L)
+            v, i = fm.topk_lists_plain(f, L, chunks)
+            assert torch.equal(i, ri)
+            torch.testing.assert_close(v, rv, rtol=0, atol=0, equal_nan=True)
+
+
+def test_pair_topk_chunks():
+    """K2b splits the column tiles into chunks only where its row tiles
+    leave SMs idle: 2 x 31 row tiles x 2 chunks = 124 CTAs on 132 SMs at the
+    serving shape, none at the training shape (8 x 31); at most 4 chunks,
+    each the same number of tiles, none empty."""
+    assert fm.pair_topk_chunks(132, 2, 1938, 1938) == 2
+    assert fm.pair_topk_chunks(132, 8, 1938, 1938) == 1
+    assert fm.pair_topk_chunks(132, 1, 64, 70) == 2
+    assert fm.pair_topk_chunks(132, 1, 1, 1) == 1
+    assert fm.pair_topk_chunks(132, 1, 64, 1938) == 4
+    assert fm.pair_topk_chunks(132, 1, 64, 320) == 3  # 5 tiles for 4 wanted: 3 chunks of 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "ties", "nan", "nan_last"])
+def test_pair_topk_kernel_matches_3xtf32_plain(cuda, case):
+    """On the card, K2b on K2a's split against its arithmetic's CPU mimic
+    at the serving shape: values at RTOL, NaN where the mimic has it,
+    indices exact where values are apart or tie exactly; two launches
+    bitwise equal."""
+    d0, d1, s0, s1 = (torch.from_numpy(a) for a in _topk_inputs((2, 1938, 1938, 128), case, seed=3))
+    lc = fm.col_lse_plain(d0, d1, 10.0, 1.0)
+    ref_v, ref_i = fm.pair_topk_3xtf32_plain(d0, d1, s0, s1, lc, 10.0, 1.0, 16)[:2]
+    g = [x.to(cuda) for x in (d0, d1, s0, s1, lc)]
+    split = fm.topk_split(g[0], g[1])
+    fm.col_lse(g[0], g[1], 10.0, 1.0, split)
+    out = fm.pair_topk(*g, 10.0, 1.0, 16, split)
+    again = fm.pair_topk(*g, 10.0, 1.0, 16, split)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out, again))
+    v = out[0].cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(v), np.isnan(ref_v.numpy()))
+    fin = np.isfinite(ref_v.numpy())
+    assert _ratio(v[fin], ref_v.numpy()[fin], 1e-5) <= 1.0
+    _rounds_exact_where_apart(out[1].cpu().numpy(), ref_i.numpy(), ref_v.numpy())

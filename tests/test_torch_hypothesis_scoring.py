@@ -47,3 +47,47 @@ def test_kernel_matches_plain(cuda):
     ref = hypothesis_scores_plain(X, Y, R, t, 0.3)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+def _solve_inputs(it=20, b=2, s=2048, r=100, seed=3):
+    """A solve's point sets as the solver stacks them: (it, B, S, 3) and
+    (it, B, R, 3, 3) poses, (it, B, R, 1, 3) translations."""
+    X, Y, R, t = _inputs(b=it * b, s=s, r=r, seed=seed)
+    return (X.reshape(it, b, s, 3), Y.reshape(it, b, s, 3), R.reshape(it, b, r, 3, 3), t.reshape(it, b, r, 1, 3))
+
+
+def test_stacked_draws_equal_the_calls_a_draw():
+    """The solver scores its it x B point sets in one call: on the plain path
+    every (draw, pair, hypothesis) sum is bitwise the one that a call a draw
+    gives (each sum is independent of the others)."""
+    X, Y, R, t = (torch.from_numpy(a) for a in _solve_inputs())
+    it, b, s, _ = X.shape
+    r = R.shape[2]
+    one = hypothesis_scores(X.reshape(it * b, s, 3), Y.reshape(it * b, s, 3), R.reshape(it * b, r, 3, 3),
+                            t.reshape(it * b, r, 1, 3), 0.3).reshape(it, b, r)
+    per_draw = torch.stack([hypothesis_scores(X[d], Y[d], R[d], t[d], 0.3) for d in range(it)])
+    assert torch.equal(one, per_draw)
+
+
+def test_plain_at_the_solver_shape_matches_jax_interpret():
+    """At a solve's shape (20 draws x 2 pairs stacked, 2048 samples, 100
+    hypotheses) the plain version matches the JAX kernel in interpret mode
+    at 1e-5 relative."""
+    X, Y, R, t = (a.reshape(-1, *a.shape[2:]) for a in _solve_inputs())
+    ref = np.asarray(fused_hypothesis_scores(*(jnp.asarray(a) for a in (X, Y, R, t)), th=0.3, interpret=True))
+    out = hypothesis_scores(*(torch.from_numpy(a) for a in (X, Y, R, t)), 0.3)
+    assert out.shape == (40, 100)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_solver_shape(cuda):
+    """On the card, one launch on a solve's 40 stacked point sets against
+    the plain version at rtol 1e-5, atol 1e-4; two launches bitwise equal."""
+    X, Y, R, t = (torch.from_numpy(a.reshape(-1, *a.shape[2:])).to(cuda) for a in _solve_inputs())
+    out = hypothesis_scores(X, Y, R, t, 0.3)
+    again = hypothesis_scores(X, Y, R, t, 0.3)
+    ref = hypothesis_scores_plain(X, Y, R, t, 0.3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, again)

@@ -147,3 +147,33 @@ def test_solver_draws_from_a_generator():
     a = estimate_pose_topk(*args, generator=torch.Generator().manual_seed(0), **kw)
     b = estimate_pose_topk(*args, generator=torch.Generator().manual_seed(0), **kw)
     assert torch.equal(a.R, b.R) and a.valid.all()
+
+
+def test_solver_scores_a_solve_in_one_launch(monkeypatch):
+    """The scoring kernel takes all it_matches x B point sets of a solve in
+    one call (its launch count rises by one a solve), and the pose, scores
+    and every output are bitwise those of scoring draw by draw."""
+    from mickey_tpu_torch.ops.hypothesis_scoring import hypothesis_scores
+    from mickey_tpu_torch.solver import procrustes_ransac as pr
+
+    args = [T(np.asarray(a)) for a in _scene(7)]
+    kw = dict(n1=60, it_matches=5, it_ransac=32, num_samples=128)
+    draws = pr.draw_samples(torch.Generator().manual_seed(0), args[0], 5, 32, 128, 3)
+    calls = []
+
+    def counted(X, Y, R, t, th):
+        calls.append(X.shape[0])
+        return hypothesis_scores(X, Y, R, t, th)
+
+    monkeypatch.setattr(pr, "hypothesis_scores", counted)
+    one = estimate_pose_topk(*args, draws=draws, **kw)
+    assert calls == [5 * 2]  # one call for the 5 draws x 2 pairs
+
+    def a_draw(X, Y, R, t, th, b=2):
+        return torch.cat([hypothesis_scores(X[d:d + b], Y[d:d + b], R[d:d + b], t[d:d + b], th)
+                          for d in range(0, X.shape[0], b)])
+
+    monkeypatch.setattr(pr, "hypothesis_scores", a_draw)
+    per_draw = estimate_pose_topk(*args, draws=draws, **kw)
+    for name, x, y in zip(one._fields, one, per_draw):
+        assert torch.equal(x, y), name
