@@ -67,7 +67,7 @@ on the 3xTF32 correlation engine, K2a, K2b and K4 (``matcher_report``): their
 checks on ragged sizes, NaN and infinities (K2b's with exact ties and a NaN
 in the last column), their times back to back beside the plain versions
 (K2b's in one launch and split in column chunks), their bounds, timing
-ablations, K2b's merge counts and distances from fp64.
+ablations and distances from fp64.
 ``python3 chip_smoke.py --scoring`` does it for the RANSAC scoring kernel K3
 (``scoring_report``): its checks, one launch a solve against the 20
 launches of one a draw, its bound and timing ablations.
@@ -1537,28 +1537,30 @@ SFU_PER_CLOCK = 16  # special-function results a clock on each SM (sm_90)
 H100_MAX_SM_HZ = 1.98e9  # the SM clock's maximum (nvidia-smi clocks.max.sm: 1980 MHz)
 
 
-def hypothesis_bound(X, R, sm_hz: float = H100_MAX_SM_HZ):
+def hypothesis_bound(X, R):
     """K3's bound: per (point set, hypothesis, sample) term ~30 fp32
     operations at 67 TFLOP/s and 3 special-function ones (the square root,
     the exponential and the reciprocal) at SFU_PER_CLOCK a clock on each of
-    SM_COUNT SMs at ``sm_hz`` (the clock measured under load), against X, Y,
-    the poses read and the (E, R) scores written once."""
+    SM_COUNT SMs at the card's peak clock H100_MAX_SM_HZ (as every other
+    bound takes the card's peak rate; the clock under load is printed
+    beside it), against X, Y, the poses read and the (E, R) scores written
+    once."""
     E, S = X.shape[:2]
     nR = R.shape[1]
     terms = E * nR * S
     ms, by = _bound(30.0 * terms, (2 * E * S * 3 + E * nR * 12 + E * nR) * 4, PEAK_FP32)
-    sfu_ms = 3.0 * terms / (SFU_PER_CLOCK * SM_COUNT * sm_hz) * 1e3
+    sfu_ms = 3.0 * terms / (SFU_PER_CLOCK * SM_COUNT * H100_MAX_SM_HZ) * 1e3
     return (sfu_ms, "operations") if sfu_ms > ms else (ms, by)
 
 
-def kernel_bounds(inp, tin, sm_hz: float = H100_MAX_SM_HZ) -> dict:
+def kernel_bounds(inp, tin) -> dict:
     """name -> (bound_ms, bound_by) at this run's kernel inputs. Operations
     counted: the matrix products (2 flops per multiply-add; K1's two products
     on bf16 tensor cores; K1f's, K2a's, K2b's, K4's, K5's and K6's at fp32
     accuracy as 3xTF32, three TF32 passes each; K1-old's on bf16 tensor
     cores, ``k1_old_bound``) and, for K3, the ~30 fp32 operations and 3
     special-function ones of one soft-inlier term (``hypothesis_bound``, at
-    the SM clock ``sm_hz``); the matcher's exponentials are left out."""
+    the peak SM clock); the matcher's exponentials are left out."""
     heads = inp["heads"]
     attn = _attention_bound(inp["qkv"], heads, PEAK_BF16)
     attn32 = _attention_bound(inp["qkv32"], heads, PEAK_TF32, passes=3)
@@ -1570,7 +1572,7 @@ def kernel_bounds(inp, tin, sm_hz: float = H100_MAX_SM_HZ) -> dict:
         "flash_attention_packed_upcast": k1_old_bound(inp),
         "col_lse": col_lse_bound(inp["dsc0"], inp["dsc1"]),
         "pair_topk": pair_topk_bound(inp["dsc0"], inp["dsc1"], inp["topl"]),
-        "hypothesis_scores": hypothesis_bound(inp["X"], inp["R"], sm_hz),
+        "hypothesis_scores": hypothesis_bound(inp["X"], inp["R"]),
         "pair_softmax": pair_softmax_bound(tin["dsc0"], tin["dsc1"]),
         "dual_softmax_bwd_sums": bwd_sums_bound(tin["dsc0"], tin["dsc1"]),
         "dual_softmax_bwd_grads": bwd_grads_bound(tin["dsc0"], tin["dsc1"]),
@@ -1762,7 +1764,7 @@ def main() -> int:
     kt = {name: (time_many_ms(k, reps=10), time_many_ms(p, reps=10)) for name, (k, p) in calls.items()}
     lib_ms = {name: time_many_ms(f, reps=10) for name, f in library_calls(inp).items()}
     sm_hz = sm_clock_hz(calls["hypothesis_scores"][0])
-    bounds = kernel_bounds(inp, tin, sm_hz)
+    bounds = kernel_bounds(inp, tin)
     # the tools' K1-old A/B at its shape: K1's body in bf16 (through K1b, the
     # entry with seq_len) against K1-old's counterpart, in turns
     ab, ablation_launches = _counted(lambda: ablation_times(inp))
@@ -1773,7 +1775,8 @@ def main() -> int:
           f"exact path (FLOAT16=False, full output) {B / t_exact * 1e3:.3f} pairs/s ({t_exact:.3f} ms) | "
           f"default config, full output {B / t_full * 1e3:.3f} pairs/s ({t_full:.3f} ms) | "
           f"stages ms {stages} | exact stages ms {exact_stages} | K1-old A/B ms {ab} | "
-          f"train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | SM clock under K3 {sm_hz / 1e6:.0f} MHz | "
+          f"train ms (B = {cfg.TRAINING.BATCH_SIZE}) {train_stages} | SM clock under K3 {sm_hz / 1e6:.0f} MHz "
+          f"(its bound at the peak {H100_MAX_SM_HZ / 1e6:.0f}) | "
           + " ".join(f"{n} {k:.4f}/{p:.4f} ms kernel/plain" for n, (k, p) in kt.items())
           + " | " + " ".join(f"{n} library {t:.4f} ms" for n, t in lib_ms.items()), flush=True)
 
@@ -2006,30 +2009,6 @@ def _topk_entry(variant, x, topl: int, chunks: int):
                                "pair_topk")
 
 
-def topk_merge_counts(inp, tin) -> dict:
-    """K2b's selection at work (a build with MK_COUNT_MERGES): per row, the
-    scores that passed its floor into the lists, and how many of them found
-    a list full, at the serving shape in one launch and in the wrapper's
-    chunks, and at the training shape."""
-    import ctypes
-
-    from mickey_tpu_torch.ops import _cuda
-    from mickey_tpu_torch.ops import fused_matcher as fm
-
-    variant = _cuda.build_variant("fused_topk.cu", ("MK_COUNT_MERGES",))
-    counts = (ctypes.c_ulonglong * 2)()
-    out = {}
-    for name, x in (("serving", inp), ("training", tin)):
-        B, M, _ = x["dsc0"].shape
-        for chunks in sorted({1, fm.pair_topk_chunks(fm._sm_count(x["dsc0"].device), B, M, x["dsc1"].shape[1])}):
-            call = _topk_entry(variant, x, inp["topl"], chunks)
-            _cuda.check(variant.mk_pair_topk_merge_counts(ctypes.cast(counts, ctypes.c_void_p)), "counts")
-            call()
-            _cuda.check(variant.mk_pair_topk_merge_counts(ctypes.cast(counts, ctypes.c_void_p)), "counts")
-            out[f"{name}, {chunks} chunks"] = {"passed_per_row": counts[0] / (B * M), "found_full": counts[1]}
-    return out
-
-
 # csrc/corr_tf32.cuh (K2a, K2b in fused_topk.cu, K4 in dual_softmax.cu); MK_ABLATE_SELECT: K2b's lists
 MATCHER_ABLATIONS = {"no_exp": ("MK_ABLATE_EXP",), "no_loads": ("MK_ABLATE_LOADS",),
                      "one_tf32_pass": ("MK_ABLATE_1XTF32",), "no_selection": ("MK_ABLATE_SELECT",)}
@@ -2046,8 +2025,8 @@ def matcher_report(inp, tin, card: str) -> int:
     the wrapper's column chunks (``_topk_entry``); the dense route's forward
     (K2a + K4, ``_forward``) and the fused route's table (K2a + K2b + top-P,
     ``_topk_table``) at both shapes; the kernels' and their plain versions'
-    errors from fp64 (``matcher_fp64_errors``, ``topk_fp64_shares``); K2b's
-    merge counts (``topk_merge_counts``); the bounds at the 3xTF32 rate
+    errors from fp64 (``matcher_fp64_errors``, ``topk_fp64_shares``); the
+    bounds at the 3xTF32 rate
     beside the fp32 FMA ones; and the timing ablations
     (``MATCHER_ABLATIONS``) of the three kernels (``_kernel_loop``)."""
     from mickey_tpu_torch.ops import _cuda
@@ -2068,13 +2047,12 @@ def matcher_report(inp, tin, card: str) -> int:
     dev = s0.device
     chunks = fm.col_lse_chunks(fm._sm_count(dev), B, M, N)
     topl = inp["topl"]
-    k2b_chunks = fm.pair_topk_chunks(fm._sm_count(dev), B, M, N)
+    k2b_chunks = fm.topk_chunks(B, M, N, dev)
     lib = _cuda.lib()
     table = lambda x: fm._topk_table(x["dsc0"], x["dsc1"], x["scr0"], x["scr1"], 10.0, 1.0, inp["prefilter"], topl)  # noqa: E731
     k2b = {f"{c} chunks": _topk_entry(lib, inp, topl, c) for c in sorted({1, k2b_chunks})}
     extra = {"p_rel_err_vs_fp64": matcher_fp64_errors(tin),
              "pair_topk_share_of_rtol_vs_fp64": topk_fp64_shares(inp, topl),
-             "pair_topk_merge_counts": topk_merge_counts(inp, tin),
              "timed_shapes": {"col_lse": list(s0.shape), "pair_topk": list(s0.shape), "pair_softmax": list(t0.shape)},
              "col_lse_chunks": chunks, "pair_topk_chunks": k2b_chunks,
              "pair_topk_entry_serving_back_to_back_ms": {k: round(time_many_ms(f), 4) for k, f in k2b.items()},
@@ -2266,8 +2244,9 @@ def scoring_report(inp, card: str) -> int:
     alone. Its checks (``check_scoring_kernel``); CUDA-event medians in
     turns (``time_many_ms``, the 20 a solve per call of 5 solves back to
     back): one launch on a solve's stacked point sets, the 20 launches of
-    one a draw that the solver made before, the plain version; the SM clock
-    under load and the bound at it (``hypothesis_bound``); the timing
+    one a draw that the solver made before, the plain version; the bound
+    (``hypothesis_bound``, at the peak clock) and the SM clock under load
+    beside it; the timing
     ablations (``SCORING_ABLATIONS``, through the C entry, without the
     wrapper's host work) and the error of the fast intrinsics' build."""
     from mickey_tpu_torch.ops import _cuda
@@ -2294,7 +2273,7 @@ def scoring_report(inp, card: str) -> int:
     fast()
     ref = hypothesis_scores_plain(X, Y, R, t, 0.3)
     extra = {"timed_shape": {"point_sets": E, "samples": S, "hypotheses": nR, "draws_a_solve": inp["draws"]},
-             "sm_clock_mhz": sm_hz / 1e6, "bound_ms": hypothesis_bound(X, R, sm_hz),
+             "sm_clock_mhz": sm_hz / 1e6, "bound_ms": hypothesis_bound(X, R),
              "fp32_only_bound_ms": _bound(30.0 * E * nR * S, 0.0, PEAK_FP32)[0],
              "fast_intrinsics_max_abs_err": (out - ref).abs().max().item(),
              "fast_intrinsics_max_rel_err": ((out - ref).abs() / ref.abs()).max().item()}

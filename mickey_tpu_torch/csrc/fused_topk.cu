@@ -76,7 +76,9 @@
 namespace {
 
 constexpr int TOPK_MAX_L = 16;       // row_topl a list in shared memory holds
-constexpr int TOPK_MAX_CHUNKS = 4;   // column chunks of a split launch
+// column chunks of a split launch: two at the serving shape beat one, three
+// and four did not (PERF.md)
+constexpr int TOPK_MAX_CHUNKS = 2;
 constexpr int TOPK_KEYS = 16;        // sweep 1's keys a row: 4 a thread, 4 threads
 constexpr int TOPK_NONE = INT_MAX;   // the column of an empty list entry
 constexpr int TOPK_NAN_OTHER = 1;    // a row's flags: a NaN score before its last column,
@@ -89,6 +91,8 @@ constexpr float TOPK_KEY_MARGIN = 1e-3f;
 // of 8 bytes each
 constexpr size_t TOPK_LIST_BYTES = CORR_NT * 2 * TOPK_MAX_L * 8;
 static_assert(CORR_SMEM + TOPK_LIST_BYTES <= 232448, "one CTA an SM");
+static_assert(TOPK_MAX_CHUNKS * TOPK_KEYS <= 64 && TOPK_MAX_CHUNKS * TOPK_MAX_L <= 64,
+              "the fold and the merge rank two entries a lane");
 enum TopkMode : int { TOPK_BOTH = 0, TOPK_SWEEP1 = 1, TOPK_SWEEP2 = 2 };
 
 __device__ __forceinline__ float logaddexp(float x, float y) {
@@ -116,11 +120,6 @@ __global__ void col_lse_combine_kernel(const float2* __restrict__ part, float* _
   }
   lse_col[e] = logaddexp((log2f(tot) + top) * CORR_LN2, alpha);
 }
-
-// Diagnostics of `chip_smoke.py --matcher` (a build with MK_COUNT_MERGES):
-// the scores that passed the floor, and those of them that found their
-// list full.
-__device__ unsigned long long topk_merges[2];
 
 // (v, j) comes before (bv, bj) in a row's rounds: a larger value, or the
 // lower column of an exact tie.
@@ -193,9 +192,6 @@ __device__ void topk_replace(int2* lst, int L, int lane, float v, int j) {
     }
   }
   if (topk_beats(v, j, __int_as_float(w.x), w.y)) lst[ws] = make_int2(__float_as_int(v), j);
-#ifdef MK_COUNT_MERGES
-  atomicAdd(&topk_merges[1], 1ull);
-#endif
 }
 
 // The minimum of a row's scores, NaN-propagating as torch.amin: NaN once
@@ -513,9 +509,6 @@ topk_tf32_kernel(const __grid_constant__ CorrMaps maps, const TopkArgs a) {
               make_int2(__float_as_int(s[i]), j0 + 8 * (i >> 2) + 2 * t4 + (i & 1));
         n += pass && room;
         ovf |= pass && !room ? 1u << i : 0u;
-#ifdef MK_COUNT_MERGES
-        if (pass) atomicAdd(&topk_merges[0], 1ull);
-#endif
       }
 #endif
 #ifndef MK_ABLATE_SELECT
@@ -682,15 +675,34 @@ extern "C" int mk_col_lse_f32(const void* d0, const void* d1, void* lse_col, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// A split launch's work buffer, in floats from its start: per (b, chunk,
+// row) a float4 of stats (pstat, at 0), a float2 of lse_row partials, 16
+// keys and L int2 list entries, then per (b, row) a bar. Every part starts
+// at a multiple of its type's size (the buffer at 16 bytes).
+struct TopkWork {
+  long long lse_part, keys, plist, bar, end;
+};
+
+static TopkWork topk_work(int B, int M, int L, int chunks) {
+  const long long parts = static_cast<long long>(B) * chunks * M;
+  TopkWork w;
+  w.lse_part = 4 * parts;
+  w.keys = w.lse_part + 2 * parts;
+  w.plist = w.keys + TOPK_KEYS * parts;
+  w.bar = w.plist + 2 * L * parts;
+  w.end = w.bar + static_cast<long long>(B) * M;
+  return w;
+}
+
 // d0 (B, M, C), d1 (B, N, C) fp32, C <= 128; scr0 (B, M), scr1 (B, N),
 // lse_col (B, N) from col_lse -> vals, idxs (B, L, M), stats (B, M, 3),
 // lse_row (B, M); L <= 16. split: corr_split_floats(B, M, N) floats,
 // written here with do_split, else holding these descriptors' split
 // (col_lse's scratch); geom: the maps of dsc0's split (own) then dsc1's;
-// chunks: how many chunks of dsc1's column tiles (at most 4, each the same
+// chunks: how many chunks of dsc1's column tiles (at most TOPK_MAX_CHUNKS, each the same
 // whole number of tiles, none empty: ops/fused_matcher.py::pair_topk_chunks);
-// work (chunks > 1): per (b, chunk, row) a float4 of stats, a float2 of
-// lse_row partials, 16 keys and L int2 list entries, then per (b, row) a bar.
+// work (chunks > 1): mk_pair_topk_work_floats(B, M, L, chunks) floats, laid
+// out by topk_work.
 extern "C" int mk_pair_topk_f32(const void* d0, const void* d1, const void* scr0, const void* scr1,
                                 const void* lse_col, void* vals, void* idxs, void* stats, void* lse_row, void* split,
                                 void* work, const long long* geom, int B, int M, int N, int C, int L, int chunks,
@@ -733,12 +745,13 @@ extern "C" int mk_pair_topk_f32(const void* d0, const void* d1, const void* scr0
     topk_tf32_kernel<TOPK_BOTH><<<grid, CORR_NT, smem, st>>>(maps, a);
     return static_cast<int>(cudaGetLastError());
   }
-  const long long parts = static_cast<long long>(B) * chunks * M;
-  a.pstat = static_cast<float4*>(work);
-  a.lse_part = reinterpret_cast<float2*>(a.pstat + parts);
-  a.keys = reinterpret_cast<float*>(a.lse_part + parts);
-  a.plist = reinterpret_cast<int2*>(a.keys + parts * TOPK_KEYS);
-  a.bar = reinterpret_cast<float*>(a.plist + parts * L);
+  const TopkWork w = topk_work(B, M, L, chunks);
+  float* wk = static_cast<float*>(work);
+  a.pstat = reinterpret_cast<float4*>(wk);
+  a.lse_part = reinterpret_cast<float2*>(wk + w.lse_part);
+  a.keys = wk + w.keys;
+  a.plist = reinterpret_cast<int2*>(wk + w.plist);
+  a.bar = wk + w.bar;
   cudaError_t e = cudaFuncSetAttribute(topk_tf32_kernel<TOPK_SWEEP1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e == cudaSuccess)
@@ -754,11 +767,13 @@ extern "C" int mk_pair_topk_f32(const void* d0, const void* d1, const void* scr0
   return static_cast<int>(cudaGetLastError());
 }
 
-// Reads and clears the MK_COUNT_MERGES build's counts into out[2] (host):
-// the scores that passed the bar, the full lists' replacements.
-extern "C" int mk_pair_topk_merge_counts(void* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, topk_merges, sizeof(topk_merges));
-  const unsigned long long zero[2] = {0, 0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(topk_merges, zero, sizeof(zero));
-  return static_cast<int>(e);
+// The limits of mk_pair_topk_f32 and the size of its work buffer, for its
+// wrapper (ops/fused_matcher.py): the most L and column chunks it takes, and
+// the floats a launch in `chunks` > 1 chunks needs (0 for one chunk, -1
+// outside the limits).
+extern "C" int mk_pair_topk_max_l() { return TOPK_MAX_L; }
+extern "C" int mk_pair_topk_max_chunks() { return TOPK_MAX_CHUNKS; }
+extern "C" long long mk_pair_topk_work_floats(int B, int M, int L, int chunks) {
+  if (B < 1 || M < 1 || L < 1 || L > TOPK_MAX_L || chunks < 1 || chunks > TOPK_MAX_CHUNKS) return -1;
+  return chunks == 1 ? 0 : topk_work(B, M, L, chunks).end;
 }

@@ -49,7 +49,6 @@ _SIGNATURES = {
     "mk_flash_attention_packed_upcast_bf16": [_P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "mk_col_lse_f32": [_P] * 4 + [_LLP] + [_I] * 5 + [_F, _F, _P],
     "mk_pair_topk_f32": [_P] * 11 + [_LLP] + [_I] * 6 + [_F, _F, _I, _P],
-    "mk_pair_topk_merge_counts": [_P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
     "mk_pair_softmax_f32": [_P] * 6 + [_LLP] + [_I] * 4 + [_F, _F, _P],
     "mk_dual_softmax_bwd_sums_f32": [_P] * 9 + [_LLP] + [_I] * 4 + [_F, _I, _P],
@@ -123,8 +122,13 @@ def build() -> tuple:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # the layout queries: sizes and limits, not launches
     lib.mk_dual_softmax_row_blocks.argtypes = [_I]
     lib.mk_dual_softmax_row_blocks.restype = _I
+    lib.mk_pair_topk_max_l.argtypes = lib.mk_pair_topk_max_chunks.argtypes = []
+    lib.mk_pair_topk_max_l.restype = lib.mk_pair_topk_max_chunks.restype = _I
+    lib.mk_pair_topk_work_floats.argtypes = [_I] * 4
+    lib.mk_pair_topk_work_floats.restype = ctypes.c_longlong
     return lib, log
 
 

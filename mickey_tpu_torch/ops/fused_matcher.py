@@ -152,19 +152,16 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-PAIR_TOPK_MAX_CHUNKS = 4  # csrc/fused_topk.cu TOPK_MAX_CHUNKS
-PAIR_TOPK_MAX_L = 16  # csrc/fused_topk.cu TOPK_MAX_L: a CTA's 128 threads keep 2 lists of 16 each in 32 KB
-
-
-def pair_topk_chunks(sms: int, b: int, m: int, n: int) -> int:
+def pair_topk_chunks(sms: int, b: int, m: int, n: int, most: int) -> int:
     """How many chunks K2b splits dsc1's column tiles into: about enough
     CTAs (B times M / 64 row tiles, times the chunks) for one wave on
-    ``sms`` SMs at one CTA an SM, at most ``PAIR_TOPK_MAX_CHUNKS``; every
-    chunk the same whole number of 64-column tiles (the last one's columns
-    may run out sooner), none empty. One chunk runs both sweeps in one
-    launch; more add a launch of row partials before and a merge after."""
+    ``sms`` SMs at one CTA an SM, at most ``most`` (the kernel's limit,
+    ``mk_pair_topk_max_chunks``); every chunk the same whole number of
+    64-column tiles (the last one's columns may run out sooner), none empty.
+    One chunk runs both sweeps in one launch; more add a launch of row
+    partials before and a merge after."""
     col_tiles = math.ceil(n / CORR_ROWS)
-    want = max(1, min(col_tiles, PAIR_TOPK_MAX_CHUNKS, sms // (b * math.ceil(m / CORR_ROWS))))
+    want = max(1, min(col_tiles, most, sms // (b * math.ceil(m / CORR_ROWS))))
     per = math.ceil(col_tiles / want)
     return math.ceil(col_tiles / per)
 
@@ -354,13 +351,18 @@ def pair_topk_3xtf32_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alp
                            lambda f, topl: topk_lists_plain(f, topl, chunks))
 
 
+def topk_chunks(b: int, m: int, n: int, device) -> int:
+    """``pair_topk_chunks`` on ``device``'s SMs within the kernel's limit."""
+    return pair_topk_chunks(_sm_count(device), b, m, n, _cuda.lib().mk_pair_topk_max_chunks())
+
+
 def _topk_work(b: int, m: int, topl: int, chunks: int, device):
-    """A split K2b's partials: per (b, chunk, row) the stats (4 floats),
-    lse_row's (max, sum) (2), sweep 1's 16 keys and the list (``topl`` x 2),
-    then per (b, row) a bar; None for one chunk, which needs none."""
-    if chunks == 1:
-        return None
-    return torch.empty(b * chunks * m * (22 + 2 * topl) + b * m, dtype=torch.float32, device=device)
+    """A split K2b's partials, as large as the kernel lays them out
+    (``mk_pair_topk_work_floats``); None for one chunk, which needs none."""
+    floats = _cuda.lib().mk_pair_topk_work_floats(b, m, topl, chunks)
+    if floats < 0:
+        raise ValueError(f"pair_topk: row_topl {topl} or {chunks} chunks outside the kernel's limits")
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
 
 def pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int, split=None):
@@ -374,10 +376,11 @@ def pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, to
     B, M, N, C = _require_descs(dsc0, dsc1, "pair_topk")
     for t, name, shape in ((scr0, "scr0", (B, M)), (scr1, "scr1", (B, N)), (lse_col, "lse_col", (B, N))):
         _cuda.require(t, name, torch.float32, shape, dsc0.device)
-    if not 1 <= topl <= PAIR_TOPK_MAX_L:
-        raise ValueError(f"pair_topk: row_topl {topl} outside 1..{PAIR_TOPK_MAX_L}")
+    most = _cuda.lib().mk_pair_topk_max_l()
+    if not 1 <= topl <= most:
+        raise ValueError(f"pair_topk: row_topl {topl} outside 1..{most}")
     dev = dsc0.device
-    chunks = pair_topk_chunks(_sm_count(dev), B, M, N)
+    chunks = topk_chunks(B, M, N, dev)
     vals = torch.empty((B, topl, M), dtype=torch.float32, device=dev)
     idxs = torch.empty((B, topl, M), dtype=torch.int32, device=dev)
     stats = torch.empty((B, M, 3), dtype=torch.float32, device=dev)

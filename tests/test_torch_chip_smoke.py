@@ -575,14 +575,15 @@ def test_topk_and_scoring_bounds():
     (its FFMA bound one pass at 67 TFLOP/s) against the bytes read and
     written once; K3's adds to the fp32 operations (30 a term at 67 TFLOP/s)
     three special-function operations a term at 16 a clock on each of 132
-    SMs at the measured clock, which binds at a solve's shape."""
+    SMs at the card's peak clock of 1980 MHz, which binds at a solve's
+    shape: 0.005877 ms."""
     inp = _tiny_kernel_inputs()
     tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
     b, m, c = inp["dsc0"].shape
     n, L = inp["dsc1"].shape[1], inp["topl"]
     nbytes = (b * m * c + b * n * c + b * m + 2 * b * n + 2 * b * L * m + 4 * b * m) * 4
     flops = 2.0 * b * m * n * c
-    bounds = chip_smoke.kernel_bounds(inp, tin, sm_hz=1.5e9)
+    bounds = chip_smoke.kernel_bounds(inp, tin)
     assert bounds["pair_topk"][0] == pytest.approx(
         max(3 * flops / chip_smoke.PEAK_TF32, nbytes / chip_smoke.PEAK_BYTES) * 1e3)
     assert chip_smoke.pair_topk_bound(inp["dsc0"], inp["dsc1"], L, chip_smoke.PEAK_FP32, 1.0)[0] == pytest.approx(
@@ -590,12 +591,13 @@ def test_topk_and_scoring_bounds():
     e, s = inp["X"].shape[:2]
     r = inp["R"].shape[1]
     terms = e * r * s
-    sfu = 3 * terms / (16 * 132 * 1.5e9) * 1e3
+    sfu = 3 * terms / (16 * 132 * 1.98e9) * 1e3
     fp32 = max(30 * terms / chip_smoke.PEAK_FP32, (2 * e * s * 3 + e * r * 13) * 4 / chip_smoke.PEAK_BYTES) * 1e3
     assert bounds["hypothesis_scores"][0] == pytest.approx(max(sfu, fp32))
     X, R = torch.empty((40, 2048, 3), device="meta"), torch.empty((40, 100, 3, 3), device="meta")
-    ms, by = chip_smoke.hypothesis_bound(X, R, 1.98e9)
+    ms, by = chip_smoke.hypothesis_bound(X, R)
     assert by == "operations" and ms == pytest.approx(3 * 40 * 100 * 2048 / (16 * 132 * 1.98e9) * 1e3)
+    assert ms == pytest.approx(0.005877, abs=5e-7)
     big = torch.empty((2, 1938, 128), device="meta")
     ms, by = chip_smoke.pair_topk_bound(big, big, 16)
     assert by == "operations" and ms == pytest.approx(3 * 2.0 * 2 * 1938 ** 2 * 128 / chip_smoke.PEAK_TF32 * 1e3)

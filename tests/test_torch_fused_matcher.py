@@ -310,14 +310,18 @@ def test_topk_lists_equal_the_rounds(chunks):
 def test_pair_topk_chunks():
     """K2b splits the column tiles into chunks only where its row tiles
     leave SMs idle: 2 x 31 row tiles x 2 chunks = 124 CTAs on 132 SMs at the
-    serving shape, none at the training shape (8 x 31); at most 4 chunks,
-    each the same number of tiles, none empty."""
-    assert fm.pair_topk_chunks(132, 2, 1938, 1938) == 2
-    assert fm.pair_topk_chunks(132, 8, 1938, 1938) == 1
-    assert fm.pair_topk_chunks(132, 1, 64, 70) == 2
-    assert fm.pair_topk_chunks(132, 1, 1, 1) == 1
-    assert fm.pair_topk_chunks(132, 1, 64, 1938) == 4
-    assert fm.pair_topk_chunks(132, 1, 64, 320) == 3  # 5 tiles for 4 wanted: 3 chunks of 2
+    serving shape, none at the training shape (8 x 31); at most the
+    kernel's limit (2, ``mk_pair_topk_max_chunks``), each the same number of
+    tiles, none empty."""
+    for most in (2, 4):
+        assert fm.pair_topk_chunks(132, 2, 1938, 1938, most) == 2
+        assert fm.pair_topk_chunks(132, 8, 1938, 1938, most) == 1
+        assert fm.pair_topk_chunks(132, 1, 64, 70, most) == 2
+        assert fm.pair_topk_chunks(132, 1, 1, 1, most) == 1
+    assert fm.pair_topk_chunks(132, 1, 64, 1938, 2) == 2
+    assert fm.pair_topk_chunks(132, 1, 64, 1938, 4) == 4
+    assert fm.pair_topk_chunks(132, 1, 64, 320, 2) == 2  # 5 tiles: chunks of 3 and 2
+    assert fm.pair_topk_chunks(132, 1, 64, 320, 4) == 3  # 5 tiles for 4 wanted: 3 chunks of 2
 
 
 @pytest.mark.cuda
