@@ -46,6 +46,19 @@ Phases, one line each, any failure exits non-zero:
              every kernel of the route launched and none of the other's;
              then one small-input step's loss, gradients and BN stats on each
              route on the card against the plain CPU path with injected draws;
+   submission - the Map-free submission CLI (``cli.submission.eval_split``
+             with the default config's model injected) on a synthetic val
+             split written to a temporary directory: two scenes, each a
+             keyframe and 65 queries of 540 x 720 held only in a raw-frame
+             cache (no decoder needed), 26 pairs after the x5
+             subsampling, batches of 12, 12 and 2 (the second spans both
+             scenes). The zip holds both scenes' pose files, every line
+             parses in the loader's order, the model saw 714 x 532 images,
+             the serving kernels launched and no dense-route or unpacked
+             one, K3 once a batch, each keyframe extracted once, a second
+             run gives the same zip byte for byte, ``--no_shared_ref`` the
+             same names in the same order (its largest |dt| printed), and
+             the evaluator scores the zip with every metric;
 4. timing  - CUDA-event medians of both serving layouts (pairs/s) and their
              stages, of the exact path and its stages, of the default
              config's full output, of the train step and its stages on both
@@ -54,8 +67,14 @@ Phases, one line each, any failure exits non-zero:
              that call (these three per call of 10 enqueued back to back, so
              that the host's launch work hides behind the queue as it does
              inside a model); and the tools' K1-old A/B (K1's bf16 body
-             against K1-old's counterpart at (16, 2048, 3072)).
+             against K1-old's counterpart at (16, 2048, 3072)); then the
+             submission path: ``predict`` end to end over the 26 pairs
+             (pairs/s and the share of it spent waiting on the loader), and
+             ``call_with_ref_feats`` and ``model(..., lite=True)`` alone at
+             B = 12.
 
+``python3 chip_smoke.py --submission`` runs the submission phase and its
+timing alone.
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
@@ -76,7 +95,8 @@ kernels on that engine, K5 (``dual_softmax_bwd_sums``,
 ``dual_softmax_bwd_grads``) and K6 (``lse_bwd``) (``matcher_bwd_report``),
 and adds their and their plain versions' distances from fp64.
 
-Prints the card's name and power limit first, a JSON line of per-kernel
+Prints the card's name and power limit first, then which of the image
+decoders ``cv2``, ``PIL`` and ``torchvision.io`` import, a JSON line of per-kernel
 results before the last line, and ``{"ok": true, "device": ...}`` last. There
 is no CPU mode: without CUDA it exits 1 before printing any result. The phase
 functions take the device and the sizes as arguments, so the CPU tests
@@ -91,6 +111,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1638,6 +1661,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     card = card_line()
     print(f"card: {card}", flush=True)
+    print(f"decoders: {decoders_line()}", flush=True)
 
     # 1. build
     lib, log = _cuda.build()
@@ -1649,6 +1673,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = default_config()
+    if "--submission" in sys.argv[1:]:
+        return submission_report(cfg, dev, card)
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
@@ -1746,6 +1772,13 @@ def main() -> int:
               f"small-input vs plain {small_train}", flush=True)
     del params
 
+    # 3d. the submission CLI at full width on a synthetic val split (two
+    #     scenes of 540 x 720 raw-cached frames, 26 pairs, batches of 12)
+    sub_dir = tempfile.TemporaryDirectory(prefix="mickey_submission_")
+    write_val_split(sub_dir.name)
+    sub = run_submission(model, cfg, sub_dir.name)
+    print(submission_line(sub), flush=True)
+
     # 4. timing
     B = image0.shape[0]
     key_feats = model.extract_feats(image0[:1])
@@ -1779,9 +1812,11 @@ def main() -> int:
           f"(its bound at the peak {H100_MAX_SM_HZ / 1e6:.0f}) | "
           + " ".join(f"{n} {k:.4f}/{p:.4f} ms kernel/plain" for n, (k, p) in kt.items())
           + " | " + " ".join(f"{n} library {t:.4f} ms" for n, t in lib_ms.items()), flush=True)
+    print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg, sub_dir.name))}", flush=True)
+    sub_dir.cleanup()
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
-            ablation_launches)
+            ablation_launches, *sub["launches"])
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r[n] for r in runs), "max_abs_err": errs[n], "ms": kt[n][0],
@@ -2391,6 +2426,283 @@ def _train_stage_times(trainer, batch, iters: int = 5) -> dict:
         out["step_peak_gib"] = torch.cuda.max_memory_allocated(fmap.device) / 2**30
     return {k: round(v, 3) for k, v in out.items()}
 
+
+# -- 3d. the Map-free submission CLI ------------------------------------------
+
+SUBMISSION_ABSENT = ("flash_attention", "pair_softmax")  # the serving route: packed attention, fused top-K
+SUBMISSION_SCENES = 2
+SUBMISSION_QUERIES = 65  # x5 subsampling: 13 pairs a scene
+
+
+def decoders_line() -> str:
+    """Which image decoders import here: ``cv2``, ``PIL``, ``torchvision.io``."""
+    import importlib
+
+    found = []
+    for name in ("cv2", "PIL.Image", "torchvision.io"):
+        try:
+            importlib.import_module(name)
+            found.append(f"{name} yes")
+        except Exception as e:  # a broken install raises more than ImportError; report it and go on
+            found.append(f"{name} no ({type(e).__name__}: {str(e).splitlines()[0] if str(e) else ''})")
+    return " | ".join(found)
+
+
+def write_val_split(root, scenes: int = SUBMISSION_SCENES, queries: int = SUBMISSION_QUERIES, height: int = 720,
+                    width: int = 540, seed: int = SEED):
+    """A Map-free val split under ``root/val``: each scene a keyframe
+    ``seq0/frame_00000`` and ``queries`` frames ``seq1/frame_*``, seeded
+    poses and intrinsics at ``width`` x ``height``, and its frames only in a
+    raw-frame cache (``rawcache_{W}x{H}.u8`` and its JSON index, written
+    here with numpy in ``data/raw_cache.py``'s layout): no JPEG, so the
+    split needs no decoder and its pixels are exact."""
+    from mickey_tpu_torch.data.raw_cache import cache_paths
+
+    rng = np.random.default_rng(seed + 2)
+    for s in range(scenes):
+        sdir = os.path.join(root, "val", f"s{s:05}")
+        os.makedirs(sdir)
+        names = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05}.jpg" for i in range(queries)]
+        q = rng.normal(size=(len(names), 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        t = rng.normal(size=(len(names), 3))
+        with open(os.path.join(sdir, "poses.txt"), "w") as f:
+            f.writelines(f"{n} " + " ".join(f"{v:.6f}" for v in [*q[i], *t[i]]) + "\n" for i, n in enumerate(names))
+        with open(os.path.join(sdir, "intrinsics.txt"), "w") as f:
+            f.writelines(f"{n} 590.0 590.0 {width / 2 - 0.5} {height / 2 - 0.5} {width} {height}\n" for n in names)
+        data_path, index_path = cache_paths(sdir, (width, height))
+        frames = np.lib.format.open_memmap(str(data_path), mode="w+", dtype=np.uint8,
+                                           shape=(len(names), height, width, 3))
+        for i in range(len(names)):
+            frames[i] = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+        frames.flush()
+        del frames
+        index_path.write_text(json.dumps({"frames": {n: i for i, n in enumerate(names)}}))
+
+
+class ServingProbe:
+    """The model as ``predict`` sees it: counts the images it extracts alone
+    (the keyframes) and records the image sizes it is given."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.device = model, model.cfg, model.device
+        self.keyframes, self.sizes = 0, set()
+
+    def extract_feats(self, images):
+        self.keyframes += images.shape[0]
+        self.sizes.add(tuple(images.shape[1:3]))
+        return self.model.extract_feats(images)
+
+    def call_with_ref_feats(self, ref_feats, image1, K0, K1, generator=None):
+        self.sizes.add(tuple(image1.shape[1:3]))
+        return self.model.call_with_ref_feats(ref_feats, image1, K0, K1, generator=generator)
+
+    def __call__(self, image0, image1, K0, K1, generator=None, lite=False):
+        self.sizes.update((tuple(image0.shape[1:3]), tuple(image1.shape[1:3])))
+        return self.model(image0, image1, K0, K1, generator=generator, lite=lite)
+
+
+def _zip_poses(path) -> dict:
+    """{member: its bytes} of a submission zip."""
+    from zipfile import ZipFile
+
+    with ZipFile(path) as zf:
+        return {n: zf.read(n) for n in sorted(zf.namelist())}
+
+
+def run_submission(model, cfg, root, batch: int | None = None) -> dict:
+    """Phase 3d: the val split under ``root`` through the submission CLI's
+    entry (``cli.submission.eval_split`` with the model injected): the zip
+    holds a pose file a scene whose every line parses (with confidence) in
+    the loader's order; the model saw the images cropped to the patch grid;
+    every serving kernel launched, no dense-route or unpacked one, K3 once a
+    batch (a solve); each keyframe extracted once; a second run gives the
+    same zip, byte for byte; ``--no_shared_ref`` the same names in the same
+    order (its largest |t| difference is reported, not held: the keyframe
+    runs the backbone alone in one path and stacked in the other); the
+    evaluator scores the zip with every metric. ``batch`` overrides the
+    split's batch of 12 (CPU rehearsal)."""
+    import argparse
+    from io import TextIOWrapper
+    from zipfile import ZipFile
+
+    from mickey_tpu_torch.cli import submission
+    from mickey_tpu_torch.data import MapFreeDataset
+    from mickey_tpu_torch.evaluation import METRIC_NAMES, evaluate, parse_pose_table, score_scene
+
+    cfg = cfg.clone()
+    cfg.DATASET.DATA_ROOT = str(root)
+    scenes = MapFreeDataset(cfg, "val").datasets
+    expected = {f"pose_{d.scene_root.name}.txt": d.paths1 for d in scenes}
+    pairs = sum(len(d) for d in scenes)
+    df = int(cfg.MICKEY.DINOV2.DOWN_FACTOR)
+    h, w = int(cfg.DATASET.HEIGHT), int(cfg.DATASET.WIDTH)
+    crop = (df * (h // df), df * (w // df))
+
+    def run(name, shared=True):
+        args = argparse.Namespace(config="", dataset_config="", checkpoint="", dinov2=None,
+                                  output_root=Path(root) / name, split="val", batch_size=batch,
+                                  no_shared_ref=not shared)
+        probe = ServingProbe(model)
+        _, launches = _counted(lambda: submission.eval_split(args, cfg=cfg.clone(), model=probe))
+        return Path(root) / name / "submission.zip", probe, launches
+
+    zip_a, probe, launches = run("a")
+    solves = -(-pairs // (batch or 12))
+    _launched(launches, "submission", SERVING_KERNELS, SUBMISSION_ABSENT)
+    _once_per_solve(launches, "submission", solves)
+    if probe.keyframes != len(scenes):
+        raise SmokeError(f"submission: {probe.keyframes} keyframes extracted for {len(scenes)} scenes")
+    if probe.sizes != {crop}:
+        raise SmokeError(f"submission: the model saw images of {sorted(probe.sizes)}, not {crop}")
+    poses = _zip_poses(zip_a)
+    if sorted(poses) != sorted(expected):
+        raise SmokeError(f"submission: the zip holds {sorted(poses)}, not {sorted(expected)}")
+    lines = 0
+    with ZipFile(zip_a) as zf:
+        for member, text in poses.items():
+            names = [ln.split(" ")[0] for ln in text.decode().splitlines()]
+            order = iter(expected[member])
+            if not all(n in order for n in names):  # a subsequence: skipped poses leave gaps
+                raise SmokeError(f"submission: {member} lines out of the loader's order")
+            table = parse_pose_table(TextIOWrapper(zf.open(member), encoding="utf-8"), with_confidence=True)
+            if len(table) != len(names):
+                raise SmokeError(f"submission: {member}: {len(table)} of {len(names)} lines parse")
+            lines += len(names)
+    zip_b, _, launches_b = run("b")
+    if zip_b.read_bytes() != zip_a.read_bytes():
+        differ = [m for m, v in _zip_poses(zip_b).items() if poses.get(m) != v]
+        raise SmokeError(f"submission: a second run gave another zip ({differ} differ)")
+    zip_p, _, launches_p = run("plain", shared=False)
+    _launched(launches_p, "submission, no_shared_ref", SERVING_KERNELS, SUBMISSION_ABSENT)
+    plain = _zip_poses(zip_p)
+    dt = 0.0
+    for member, text in poses.items():
+        a = [ln.split(" ") for ln in text.decode().splitlines()]
+        b = [ln.split(" ") for ln in plain.get(member, b"").decode().splitlines()]
+        if [x[0] for x in a] != [x[0] for x in b]:
+            raise SmokeError(f"submission: --no_shared_ref gave other names or order in {member}")
+        if a:
+            dt = max(dt, float(np.abs(np.array([x[5:8] for x in a], float) - np.array([x[5:8] for x in b], float)).max()))
+    metrics, _ = evaluate(zip_a, Path(root) / "val")
+    with ZipFile(zip_a) as zf:
+        scored = [score_scene(Path(root) / "val", zf, d.scene_root.name) for d in scenes]
+    if any(list(sc.metrics) != list(METRIC_NAMES) for sc in scored):
+        raise SmokeError(f"submission: the evaluator's metrics {[list(sc.metrics) for sc in scored]} != {METRIC_NAMES}")
+    return {"pairs": pairs, "poses": lines, "solves": solves, "keyframes": probe.keyframes, "crop": crop,
+            "launches": [launches, launches_b, launches_p], "no_shared_ref_max_dt": dt,
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+class _TimedLoader:
+    """A loader whose consumer's waits for batches are summed in ``wait_s``."""
+
+    def __init__(self, loader):
+        self.loader, self.wait_s = loader, 0.0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.wait_s += time.perf_counter() - t0
+            yield batch
+
+
+def _busy_s(prof) -> float:
+    """Seconds in which the device ran at least one kernel or copy: the
+    union of the profiled device events' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
+def submission_times(model, cfg, root, runs: int = 3) -> dict:
+    """The submission path on the card, after the phase's runs as warm-up:
+    ``predict`` end to end over the split (loader, crop, copies, model,
+    drain; host clock, it ends on the poses' copy to the host), median of
+    ``runs``, with the share of it spent waiting on the loader; one more run
+    under ``torch.profiler`` for the device's busy share (the union of its
+    kernels' and copies' intervals over that run's wall time, the
+    profiler's own cost included); and
+    ``call_with_ref_feats``, ``model(..., lite=True)`` and the general
+    layout's stages (``_stage_times``) alone at the split's batch on its
+    first batch's images (CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mickey_tpu_torch.cli.submission import predict
+    from mickey_tpu_torch.data import DataModule
+    from mickey_tpu_torch.data.io import pad_to_multiple
+
+    cfg = cfg.clone()
+    cfg.DATASET.DATA_ROOT = str(root)
+    cfg.TRAINING.BATCH_SIZE, cfg.TRAINING.NUM_WORKERS = 12, 8  # as eval_split sets them for val
+    loader = DataModule(cfg, drop_last_val=False).val_dataloader()
+    pairs = len(loader.dataset)
+    walls, waits = [], []
+    for _ in range(runs):
+        timed = _TimedLoader(loader)
+        t0 = time.perf_counter()
+        predict(timed, model, progress=False)
+        walls.append(time.perf_counter() - t0)
+        waits.append(timed.wait_s)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predict(loader, model, progress=False)
+        profiled_s = time.perf_counter() - t0
+    device_s = _busy_s(prof)
+    batch = next(iter(loader))
+    df = int(cfg.MICKEY.DINOV2.DOWN_FACTOR)
+    dev = model.device
+    im0, im1 = (torch.from_numpy(np.ascontiguousarray(pad_to_multiple(batch[k], df))).to(dev) for k in ("image0", "image1"))
+    K0, K1 = (torch.from_numpy(batch[k]).to(dev) for k in ("K_color0", "K_color1"))
+    B = im1.shape[0]
+    ref = tuple(f.expand(B, *f.shape[1:]) for f in model.extract_feats(im0[:1]))
+    gen = torch.Generator(device=dev)
+    shared = time_ms(lambda: model.call_with_ref_feats(ref, im1, K0, K1, generator=gen.manual_seed(SEED)), iters=5)
+    general = time_ms(lambda: model(im0, im1, K0, K1, generator=gen.manual_seed(SEED), lite=True), iters=5)
+    return {"pairs": pairs, "predict_s": [round(x, 4) for x in walls], "pairs_per_s": round(pairs / wall, 3),
+            "loader_wait_share": round(statistics.median(w / x for w, x in zip(waits, walls)), 4),
+            "profiled_predict_s": round(profiled_s, 4), "device_busy_share": round(device_s / profiled_s, 4),
+            "batch": B, "call_with_ref_feats_ms": round(shared, 3), "shared_pairs_per_s": round(B / shared * 1e3, 3),
+            "lite_call_ms": round(general, 3), "general_pairs_per_s": round(B / general * 1e3, 3),
+            "general_stages_ms": _stage_times(model, im0, im1, K0, K1)}
+
+
+def submission_line(sub: dict) -> str:
+    return (f"submission: ok | pairs {sub['pairs']} poses {sub['poses']} | solves {sub['solves']} | keyframes "
+            f"extracted {sub['keyframes']} | model saw {sub['crop']} | launches {sub['launches'][0]} | second run: "
+            f"the same zip | --no_shared_ref: the same names, max |dt| {sub['no_shared_ref_max_dt']:.3e} | "
+            f"evaluator {sub['metrics']}")
+
+
+def submission_report(cfg, dev, card: str) -> int:
+    """``--submission``: phase 3d and its timing alone, at full width with
+    the seeded random weights."""
+    from mickey_tpu_torch.models import build_model
+    from mickey_tpu_torch.weights import init_params_numpy
+
+    model = build_model(cfg, init_params_numpy(cfg, SEED), device=dev)
+    with tempfile.TemporaryDirectory(prefix="mickey_submission_") as root:
+        write_val_split(root)
+        print(submission_line(run_submission(model, cfg, root)), flush=True)
+        print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg, root))}", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 if __name__ == "__main__":
     sys.exit(main())

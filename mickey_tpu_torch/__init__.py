@@ -7,6 +7,6 @@ Procrustes RANSAC), with hand-written CUDA kernels for the hot spots
 imports torch and never jax.
 """
 
-from .config import Config, default_config, load_config
+from .config import Config, default_config, load_config, preset_path
 
-__all__ = ["Config", "default_config", "load_config"]
+__all__ = ["Config", "default_config", "load_config", "preset_path"]

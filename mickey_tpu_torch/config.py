@@ -12,9 +12,12 @@ from __future__ import annotations
 
 import copy
 import io
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import yaml
+
+PRESETS = Path(__file__).parent / "configs"
 
 
 class Config(dict):
@@ -246,6 +249,16 @@ def default_config() -> Config:
     )
 
 
+def preset_path(name: str) -> Path:
+    """The YAML preset shipped with the port, by its name under ``configs/``
+    without the suffix: ``MicKey/curriculum_learning``,
+    ``MicKey/curriculum_learning_warm_up``, ``MicKey/overlap_score``,
+    ``MicKey/overlap_score_warm_up`` or ``datasets/mapfree``."""
+    path = PRESETS / f"{name}.yaml"
+    if not path.is_file():
+        known = sorted(str(p.relative_to(PRESETS).with_suffix("")) for p in PRESETS.rglob("*.yaml"))
+        raise FileNotFoundError(f"no preset {name!r}; the presets are {known}")
+    return path
 
 
 def load_config(*yaml_paths: str, overrides=None) -> Config:

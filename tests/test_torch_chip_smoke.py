@@ -608,3 +608,66 @@ def test_topk_fp64_shares_rehearsal():
     version on both sides, within fp32 rounding of it."""
     shares = chip_smoke.topk_fp64_shares(_tiny_kernel_inputs(), 4)
     assert shares["kernel"] == shares["plain"] and 0.0 < shares["plain"] < 1.0
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The tier-1 run keeps several test workers on the machine's cores, and
+    torch's OpenMP threads in each spin against the others': the submission
+    phase's predicts took ~100 times as long as alone. One intra-op thread
+    a worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_submission_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
+    """Phase 3d at a tiny size on the CPU: the synthetic split (2 scenes of
+    11 queries at 130 x 116, raw caches only), the CLI's entry, the zip and
+    evaluator checks; batches of 2 (3 pairs a scene: 2, 2 spanning both
+    scenes, 2). The launch counts are the card's: here each kernel's plain
+    version runs, so the checks get the counts as the card would give them."""
+    cfg = _tiny_cfg()
+    cfg.DATASET.WIDTH, cfg.DATASET.HEIGHT = 116, 130
+    model = build_model(cfg, _tiny_params(cfg), device="cpu")
+    chip_smoke.write_val_split(str(tmp_path), queries=11, height=130, width=116)
+    assert sorted(p.name for p in (tmp_path / "val" / "s00000").iterdir()) == [
+        "intrinsics.txt", "poses.txt", "rawcache_116x130.json", "rawcache_116x130.u8"]
+    checked = []
+    monkeypatch.setattr(chip_smoke, "_launched", lambda launches, path, needed, absent=(): checked.append(
+        (path, needed, absent)))
+    monkeypatch.setattr(chip_smoke, "_once_per_solve", lambda launches, path, solves: checked.append((path, solves)))
+    sub = chip_smoke.run_submission(model, cfg, str(tmp_path), batch=2)
+    assert sub["pairs"] == 6 and sub["solves"] == 3 and sub["keyframes"] == 2 and sub["crop"] == (126, 112)
+    assert 0 < sub["poses"] <= 6 and set(sub["metrics"]) >= {"Estimates for % of frames"}
+    assert ("submission", 3) in checked
+    assert ("submission", chip_smoke.SERVING_KERNELS, ("flash_attention", "pair_softmax")) in checked
+    assert "submission: ok" in chip_smoke.submission_line(sub)
+    assert "cv2 yes" in chip_smoke.decoders_line()
+    with pytest.raises(chip_smoke.SmokeError, match="keyframes"):  # a probe that sees an extra extract
+        monkeypatch.setattr(chip_smoke.ServingProbe, "extract_feats", lambda self, images: (
+            setattr(self, "keyframes", self.keyframes + 9), self.model.extract_feats(images))[1])
+        chip_smoke.run_submission(model, cfg, str(tmp_path), batch=2)
+
+
+def test_submission_timing_rehearsal(tmp_path, monkeypatch, one_torch_thread):
+    cfg = _tiny_cfg()
+    cfg.DATASET.WIDTH, cfg.DATASET.HEIGHT = 116, 130
+    model = build_model(cfg, _tiny_params(cfg), device="cpu")
+    chip_smoke.write_val_split(str(tmp_path), queries=11, height=130, width=116)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters=10, warmup=2: _wall_ms(fn))  # CUDA events need the card
+    times = chip_smoke.submission_times(model, cfg, str(tmp_path), runs=1)
+    assert times["pairs"] == 6 and times["batch"] == 6 and 0 <= times["loader_wait_share"] < 1
+    assert set(times["general_stages_ms"]) == {"backbone", "heads", "matcher", "solver"}
+
+
+def test_busy_time_is_the_union_of_device_intervals():
+    from types import SimpleNamespace
+
+    def ev(a, b, dev=torch.autograd.DeviceType.CUDA):
+        return SimpleNamespace(time_range=SimpleNamespace(start=a, end=b), device_type=dev)
+
+    prof = SimpleNamespace(events=lambda: [ev(20, 30), ev(0, 10), ev(5, 12), ev(21, 22),
+                                           ev(0, 100, torch.autograd.DeviceType.CPU)])
+    assert chip_smoke._busy_s(prof) == 22e-6
