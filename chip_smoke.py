@@ -68,10 +68,12 @@ Phases, one line each, any failure exits non-zero:
              that the host's launch work hides behind the queue as it does
              inside a model); and the tools' K1-old A/B (K1's bf16 body
              against K1-old's counterpart at (16, 2048, 3072)); then the
-             submission path: ``predict`` end to end over the 26 pairs
-             (pairs/s and the share of it spent waiting on the loader), and
-             ``call_with_ref_feats`` and ``model(..., lite=True)`` alone at
-             B = 12.
+             submission path on a larger split of the same kind (five
+             scenes of 300 queries: 300 pairs, 25 full batches of 12):
+             ``predict`` end to end over all of it (pairs/s, the share of
+             it spent waiting on the loader, the device's busy share in one
+             profiled run), and ``call_with_ref_feats`` and
+             ``model(..., lite=True)`` alone at B = 12.
 
 ``python3 chip_smoke.py --submission`` runs the submission phase and its
 timing alone.
@@ -1812,8 +1814,8 @@ def main() -> int:
           f"(its bound at the peak {H100_MAX_SM_HZ / 1e6:.0f}) | "
           + " ".join(f"{n} {k:.4f}/{p:.4f} ms kernel/plain" for n, (k, p) in kt.items())
           + " | " + " ".join(f"{n} library {t:.4f} ms" for n, t in lib_ms.items()), flush=True)
-    print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg, sub_dir.name))}", flush=True)
     sub_dir.cleanup()
+    print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg))}", flush=True)
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
             ablation_launches, *sub["launches"])
@@ -2432,6 +2434,8 @@ def _train_stage_times(trainer, batch, iters: int = 5) -> dict:
 SUBMISSION_ABSENT = ("flash_attention", "pair_softmax")  # the serving route: packed attention, fused top-K
 SUBMISSION_SCENES = 2
 SUBMISSION_QUERIES = 65  # x5 subsampling: 13 pairs a scene
+TIMING_SCENES = 5
+TIMING_QUERIES = 300  # x5 subsampling: 60 pairs a scene, 300 in all: 25 full batches of 12
 
 
 def decoders_line() -> str:
@@ -2629,28 +2633,37 @@ def _busy_s(prof) -> float:
     return busy / 1e6
 
 
-def submission_times(model, cfg, root, runs: int = 3) -> dict:
-    """The submission path on the card, after the phase's runs as warm-up:
-    ``predict`` end to end over the split (loader, crop, copies, model,
-    drain; host clock, it ends on the poses' copy to the host), median of
-    ``runs``, with the share of it spent waiting on the loader; one more run
-    under ``torch.profiler`` for the device's busy share (the union of its
-    kernels' and copies' intervals over that run's wall time, the
-    profiler's own cost included); and
-    ``call_with_ref_feats``, ``model(..., lite=True)`` and the general
-    layout's stages (``_stage_times``) alone at the split's batch on its
-    first batch's images (CUDA events)."""
+def submission_times(model, cfg, runs: int = 3) -> dict:
+    """The submission path on the card, on its own split under a temporary
+    directory (``TIMING_SCENES`` scenes of ``TIMING_QUERIES`` queries written
+    as ``write_val_split`` writes them: only full batches of 12), after one
+    warm-up run over it: ``predict`` end to end over all of it
+    (loader, crop, copies, model, drain; host clock, it ends on the last
+    poses' copy to the host), each of ``runs`` runs, pairs/s from their
+    median, with the share of each spent waiting on the loader; one more
+    run under ``torch.profiler`` (CPU and CUDA activity) for the device's
+    busy seconds (the union of its kernels' and copies' intervals), over
+    that run's own wall time (the profiler's cost included) and over the
+    unprofiled median; and ``call_with_ref_feats``, ``model(..., lite=True)``
+    and the general layout's stages (``_stage_times``) alone at the split's
+    batch on its first batch's images (CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mickey_tpu_torch.cli.submission import predict
     from mickey_tpu_torch.data import DataModule
     from mickey_tpu_torch.data.io import pad_to_multiple
 
+    root = tempfile.TemporaryDirectory(prefix="mickey_submission_timing_")
+    t0 = time.perf_counter()
+    write_val_split(root.name, scenes=TIMING_SCENES, queries=TIMING_QUERIES, height=int(cfg.DATASET.HEIGHT),
+                    width=int(cfg.DATASET.WIDTH))
+    write_s = time.perf_counter() - t0
     cfg = cfg.clone()
-    cfg.DATASET.DATA_ROOT = str(root)
+    cfg.DATASET.DATA_ROOT = root.name
     cfg.TRAINING.BATCH_SIZE, cfg.TRAINING.NUM_WORKERS = 12, 8  # as eval_split sets them for val
     loader = DataModule(cfg, drop_last_val=False).val_dataloader()
-    pairs = len(loader.dataset)
+    pairs, batches = len(loader.dataset), len(loader)
+    predict(loader, model, progress=False)  # warm-up
     walls, waits = [], []
     for _ in range(runs):
         timed = _TimedLoader(loader)
@@ -2674,12 +2687,16 @@ def submission_times(model, cfg, root, runs: int = 3) -> dict:
     gen = torch.Generator(device=dev)
     shared = time_ms(lambda: model.call_with_ref_feats(ref, im1, K0, K1, generator=gen.manual_seed(SEED)), iters=5)
     general = time_ms(lambda: model(im0, im1, K0, K1, generator=gen.manual_seed(SEED), lite=True), iters=5)
-    return {"pairs": pairs, "predict_s": [round(x, 4) for x in walls], "pairs_per_s": round(pairs / wall, 3),
-            "loader_wait_share": round(statistics.median(w / x for w, x in zip(waits, walls)), 4),
-            "profiled_predict_s": round(profiled_s, 4), "device_busy_share": round(device_s / profiled_s, 4),
-            "batch": B, "call_with_ref_feats_ms": round(shared, 3), "shared_pairs_per_s": round(B / shared * 1e3, 3),
-            "lite_call_ms": round(general, 3), "general_pairs_per_s": round(B / general * 1e3, 3),
-            "general_stages_ms": _stage_times(model, im0, im1, K0, K1)}
+    stages = _stage_times(model, im0, im1, K0, K1)
+    root.cleanup()  # after the calls above: the loader's threads read ahead of the batch taken
+    return {"scenes": TIMING_SCENES, "pairs": pairs, "batches": batches, "split_write_s": write_s,
+            "predict_s": walls, "pairs_per_s": pairs / wall,
+            "loader_wait_share": [w / x for w, x in zip(waits, walls)],
+            "profiled_predict_s": profiled_s, "device_busy_s": device_s, "device_busy_share": device_s / profiled_s,
+            "device_busy_over_unprofiled_wall": device_s / wall,
+            "batch": B, "call_with_ref_feats_ms": shared, "shared_pairs_per_s": B / shared * 1e3,
+            "lite_call_ms": general, "general_pairs_per_s": B / general * 1e3,
+            "general_stages_ms": stages}
 
 
 def submission_line(sub: dict) -> str:
@@ -2699,7 +2716,7 @@ def submission_report(cfg, dev, card: str) -> int:
     with tempfile.TemporaryDirectory(prefix="mickey_submission_") as root:
         write_val_split(root)
         print(submission_line(run_submission(model, cfg, root)), flush=True)
-        print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg, root))}", flush=True)
+    print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg))}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -25,6 +25,7 @@ from ..data.io import pad_to_multiple
 from ..geometry.rotations import mat2quat
 
 MAX_REF_CACHE = 32  # keyframes whose extract outputs stay on the device (~1 MB each)
+SOLVER_SEED = 0  # the solver's draws: step_generator(SOLVER_SEED, step) for batch `step`
 
 
 @dataclass
@@ -47,7 +48,7 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(np.random.SeedSequence((seed, step)).generate_state(1)[0]))
 
 
-def predict(loader, model, progress: bool = True, shared_ref=None, seed: int = 0):
+def predict(loader, model, progress: bool = True, shared_ref: bool = True):
     """Batched inference on ``model.device`` -> {scene: [Pose, ...]}
     (reference submission.py:32-61).
 
@@ -58,20 +59,18 @@ def predict(loader, model, progress: bool = True, shared_ref=None, seed: int = 0
     come to the host, where a pose with a NaN or an infinity, or an all-zero
     rotation (no estimate), is skipped.
 
-    ``shared_ref`` (default on): every Map-free query pair takes its scene's
+    ``shared_ref``: every Map-free query pair takes its scene's
     seq0 keyframe as image0, so the keyframe's ``extract_feats`` outputs stay
     on the device per (scene, keyframe), at most ``MAX_REF_CACHE`` of them,
     and only the queries run the backbone (``call_with_ref_feats``); a batch
     extracts only its keyframes not yet held. ``shared_ref=False`` runs both
     images of every pair (``model(..., lite=True)``). The two agree up to the
     last bits of the keyframe's extract, taken alone or stacked with the
-    batch. The solver's draws come from ``step_generator(seed, step)``.
+    batch. The solver's draws come from ``step_generator(SOLVER_SEED, step)``.
     """
     device = torch.device(model.device)
     df = int(model.cfg.MICKEY.DINOV2.DOWN_FACTOR)
     results_dict = defaultdict(list)
-    if shared_ref is None:
-        shared_ref = True
     # (scene_id, ref_frame) -> the 4 extract maps, each (1, ...), on the
     # device; insertion-ordered, so eviction takes the oldest first
     ref_cache: dict = {}
@@ -130,7 +129,7 @@ def predict(loader, model, progress: bool = True, shared_ref=None, seed: int = 0
             image0 = pad_to_multiple(data["image0"], df)
             image1 = to_device(pad_to_multiple(data["image1"], df))
             K0, K1 = to_device(data["K_color0"]), to_device(data["K_color1"])
-            generator = step_generator(device, seed, step)
+            generator = step_generator(device, SOLVER_SEED, step)
             if shared_ref:
                 out = model.call_with_ref_feats(gather_ref_feats(data, image0), image1, K0, K1, generator=generator)
             else:
@@ -184,11 +183,7 @@ def eval_split(args, cfg=None, model=None):
 
     if model is None:
         model = build_model(cfg, checkpoint=args.checkpoint, dinov2_path=args.dinov2, device="cuda")
-    results_dict = predict(
-        loader,
-        model,
-        shared_ref=False if getattr(args, "no_shared_ref", False) else None,
-    )
+    results_dict = predict(loader, model, shared_ref=not args.no_shared_ref)
 
     args.output_root.mkdir(parents=True, exist_ok=True)
     save_submission(results_dict, args.output_root / "submission.zip")

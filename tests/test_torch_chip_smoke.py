@@ -651,14 +651,19 @@ def test_submission_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
         chip_smoke.run_submission(model, cfg, str(tmp_path), batch=2)
 
 
-def test_submission_timing_rehearsal(tmp_path, monkeypatch, one_torch_thread):
+def test_submission_timing_rehearsal(monkeypatch, one_torch_thread):
+    """The timing of the submission path on its own split, cut here to 3
+    scenes of 11 queries at 130 x 116: 9 pairs in one batch."""
     cfg = _tiny_cfg()
     cfg.DATASET.WIDTH, cfg.DATASET.HEIGHT = 116, 130
     model = build_model(cfg, _tiny_params(cfg), device="cpu")
-    chip_smoke.write_val_split(str(tmp_path), queries=11, height=130, width=116)
+    monkeypatch.setattr(chip_smoke, "TIMING_SCENES", 3)
+    monkeypatch.setattr(chip_smoke, "TIMING_QUERIES", 11)
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters=10, warmup=2: _wall_ms(fn))  # CUDA events need the card
-    times = chip_smoke.submission_times(model, cfg, str(tmp_path), runs=1)
-    assert times["pairs"] == 6 and times["batch"] == 6 and 0 <= times["loader_wait_share"] < 1
+    times = chip_smoke.submission_times(model, cfg, runs=1)
+    assert times["scenes"] == 3 and times["pairs"] == 9 and times["batches"] == 1 and times["batch"] == 9
+    assert len(times["predict_s"]) == 1 and times["pairs_per_s"] == 9 / times["predict_s"][0]
+    assert all(0 <= w < 1 for w in times["loader_wait_share"])
     assert set(times["general_stages_ms"]) == {"backbone", "heads", "matcher", "solver"}
 
 

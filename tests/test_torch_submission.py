@@ -205,17 +205,10 @@ class PadSmallExtracts(MickeyRelativePose):
         return tuple(f[:n] for f in super().extract_feats(padded))
 
 
-@pytest.mark.parametrize("fused_topk", [False, True])
-def test_predict_shared_ref_matches_plain(dataset, model, fused_topk):
-    """The keyframe cache against extracting the keyframe for every pair,
-    with the JAX package's locks (``test_predict_shared_ref_matches_plain``):
-    1e-6 on the dense route; 1e-5 on the fused one, whose descending sort
-    makes the sampled set sensitive to the last bits near ties (a flipped
-    draw moves a pose by far more than 1e-3)."""
-    cfg = tiny_cfg(dataset)
-    cfg.TPU.FUSED_TOPK = fused_topk
-    m = PadSmallExtracts(cfg, model.params, device="cpu")
-    atol = 1e-5 if fused_topk else 1e-6
+def assert_shared_matches_plain(m, cfg, atol):
+    """``predict`` with the keyframe cache against without: the same names in
+    the same order, q and t within ``atol``, inlier counts within 1e-4
+    relative."""
     loader = DataModule(cfg, drop_last_val=False).val_dataloader()
     plain = predict(loader, m, progress=False, shared_ref=False)
     shared = predict(loader, m, progress=False, shared_ref=True)
@@ -227,6 +220,31 @@ def test_predict_shared_ref_matches_plain(dataset, model, fused_topk):
             np.testing.assert_allclose(b.q, a.q, atol=atol)
             np.testing.assert_allclose(b.t, a.t, atol=atol)
             np.testing.assert_allclose(b.inliers, a.inliers, rtol=1e-4)
+
+
+@pytest.mark.parametrize("fused_topk", [False, True])
+def test_predict_shared_ref_matches_plain(dataset, model, fused_topk):
+    """The keyframe cache against extracting the keyframe for every pair,
+    with the JAX package's locks (``test_predict_shared_ref_matches_plain``):
+    1e-6 on the dense route; 1e-5 on the fused one, whose descending sort
+    makes the sampled set sensitive to the last bits near ties (a flipped
+    draw moves a pose by far more than 1e-3)."""
+    cfg = tiny_cfg(dataset)
+    cfg.TPU.FUSED_TOPK = fused_topk
+    assert_shared_matches_plain(PadSmallExtracts(cfg, model.params, device="cpu"), cfg,
+                                atol=1e-5 if fused_topk else 1e-6)
+
+
+@pytest.mark.parametrize("fused_topk", [False, True])
+def test_predict_shared_ref_unpadded_matches_plain(dataset, model, fused_topk):
+    """The path users run: the keyframe extracted alone (a batch of 1)
+    against the plain path, which stacks it with the batch. Same names and
+    order; q and t within 1e-4, the measured batch effect (at most 2.1e-5 on
+    q and 9.6e-6 on t at this size, on either route) with a margin of about
+    5; inlier counts within 1e-4 relative (measured 1.6e-7)."""
+    cfg = tiny_cfg(dataset)
+    cfg.TPU.FUSED_TOPK = fused_topk
+    assert_shared_matches_plain(MickeyRelativePose(cfg, model.params, device="cpu"), cfg, atol=1e-4)
 
 
 def test_predict_crops_to_the_patch_grid(dataset, model, tmp_path):
