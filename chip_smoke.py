@@ -59,6 +59,18 @@ Phases, one line each, any failure exits non-zero:
              run gives the same zip byte for byte, ``--no_shared_ref`` the
              same names in the same order (its largest |dt| printed), and
              the evaluator scores the zip with every metric;
+   fit     - the training CLI's entry (``cli.train.train_model`` on parsed
+             arguments: ``MicKeyTrainer.fit``) at full width on a synthetic
+             Map-free split of 540 x 720 raw-cached frames (2 train scenes
+             of 16 pairs, 4 steps of 8; 2 keyframe-shared val scenes, 2
+             validation batches): checkpoints, the curriculum, the LR
+             scalar, the dense route's kernels; ``--resume`` bitwise and a
+             bitwise step after it; cached validation against plain; the
+             feature cache's fp32 rows bitwise the train step's maps, a
+             cached step bitwise a staged one, bf16 rows their rounding, an
+             epoch with ``--feature_cache`` with no attention launch; the
+             image panels where matplotlib imports; K1 and K3 against their
+             plain versions at the fit's shapes first;
 4. timing  - CUDA-event medians of both serving layouts (pairs/s) and their
              stages, of the exact path and its stages, of the default
              config's full output, of the train step and its stages on both
@@ -73,10 +85,19 @@ Phases, one line each, any failure exits non-zero:
              ``predict`` end to end over all of it (pairs/s, the share of
              it spent waiting on the loader, the device's busy share in one
              profiled run), and ``call_with_ref_feats`` and
-             ``model(..., lite=True)`` alone at B = 12.
+             ``model(..., lite=True)`` alone at B = 12; and the training
+             entry point on a larger split of its own (two train scenes of
+             96 pairs: 24 steps an epoch; two val scenes of 96 pairs, drawn
+             in one shuffled order: 24 batches): ms a step inside
+             ``fit`` and its loader share, staged and from the bf16 cache,
+             validation pairs/s cached and plain with the cached runs'
+             keyframe hit share, the cache's build rate and bytes; the
+             staged step (in turns with it on PyTorch's default backward
+             kernels) against the cached-feature step, CUDA events; and
+             checkpoint save and restore seconds.
 
 ``python3 chip_smoke.py --submission`` runs the submission phase and its
-timing alone.
+timing alone; ``--fit`` the training entry point's.
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
@@ -98,8 +119,10 @@ kernels on that engine, K5 (``dual_softmax_bwd_sums``,
 and adds their and their plain versions' distances from fp64.
 
 Prints the card's name and power limit first, then which of the image
-decoders ``cv2``, ``PIL`` and ``torchvision.io`` import, a JSON line of per-kernel
-results before the last line, and ``{"ok": true, "device": ...}`` last. There
+decoders ``cv2``, ``PIL`` and ``torchvision.io`` import and whether the
+trainer's optional ``matplotlib`` and ``tensorboardX`` do, the script's
+seconds, a JSON line of per-kernel results before the last line, and
+``{"ok": true, "device": ...}`` last. There
 is no CPU mode: without CUDA it exits 1 before printing any result. The phase
 functions take the device and the sizes as arguments, so the CPU tests
 rehearse them at a tiny size, where every wrapper takes its plain version.
@@ -107,9 +130,12 @@ rehearse them at a tiny size, where every wrapper takes its plain version.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -1660,10 +1686,12 @@ def main() -> int:
     from mickey_tpu_torch.ops import _cuda
     from mickey_tpu_torch.weights import init_params_numpy
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"decoders: {decoders_line()}", flush=True)
+    print(f"optional: {optional_line()}", flush=True)
 
     # 1. build
     lib, log = _cuda.build()
@@ -1677,6 +1705,8 @@ def main() -> int:
     cfg = default_config()
     if "--submission" in sys.argv[1:]:
         return submission_report(cfg, dev, card)
+    if "--fit" in sys.argv[1:]:
+        return fit_report(cfg, dev, card)
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
@@ -1772,7 +1802,6 @@ def main() -> int:
         small_train = check_train_against_plain(small_loss_cfg(c), params, dev, pairs=2, height=224, width=252)
         print(f"train ({route}): ok | launches {train_launches[route]} | steps {steps} | "
               f"small-input vs plain {small_train}", flush=True)
-    del params
 
     # 3d. the submission CLI at full width on a synthetic val split (two
     #     scenes of 540 x 720 raw-cached frames, 26 pairs, batches of 12)
@@ -1780,6 +1809,18 @@ def main() -> int:
     write_val_split(sub_dir.name)
     sub = run_submission(model, cfg, sub_dir.name)
     print(submission_line(sub), flush=True)
+
+    # 3e. the training entry point at full width on a synthetic Map-free
+    #     split of 540 x 720 raw-cached frames: fit, resume, validation, the
+    #     feature cache (its kernels checked first, outside the counted run)
+    fit_errs = check_fit_kernels(fit_kernel_inputs(dev, cfg))
+    fit_dir = tempfile.TemporaryDirectory(prefix="mickey_fit_")
+    (fit, fit_ctx), fit_launches = _counted(lambda: run_fit(cfg, fit_dir.name, dev))
+    print(fit_line(fit, fit_errs), flush=True)
+    fit_timing = fit_times(fit_ctx)  # printed after phase 4; its trainers freed before phase 4 reads peak memory
+    del params, fit_ctx
+    gc.collect()
+    fit_dir.cleanup()
 
     # 4. timing
     B = image0.shape[0]
@@ -1816,9 +1857,13 @@ def main() -> int:
           + " | " + " ".join(f"{n} library {t:.4f} ms" for n, t in lib_ms.items()), flush=True)
     sub_dir.cleanup()
     print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg))}", flush=True)
+    print(fit_timing_line(fit, fit_timing, fit_window_times(cfg, dev), card), flush=True)
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
-            ablation_launches, *sub["launches"])
+            ablation_launches, *sub["launches"], fit_launches)
+    for n, e in fit_errs.items():  # the kernels checked again at the fit's shapes
+        errs[n] = max(errs[n], e)
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r[n] for r in runs), "max_abs_err": errs[n], "ms": kt[n][0],
@@ -2440,10 +2485,14 @@ TIMING_QUERIES = 300  # x5 subsampling: 60 pairs a scene, 300 in all: 25 full ba
 
 def decoders_line() -> str:
     """Which image decoders import here: ``cv2``, ``PIL``, ``torchvision.io``."""
+    return _imports(("cv2", "PIL.Image", "torchvision.io"))
+
+
+def _imports(names) -> str:
     import importlib
 
     found = []
-    for name in ("cv2", "PIL.Image", "torchvision.io"):
+    for name in names:
         try:
             importlib.import_module(name)
             found.append(f"{name} yes")
@@ -2460,28 +2509,45 @@ def write_val_split(root, scenes: int = SUBMISSION_SCENES, queries: int = SUBMIS
     raw-frame cache (``rawcache_{W}x{H}.u8`` and its JSON index, written
     here with numpy in ``data/raw_cache.py``'s layout): no JPEG, so the
     split needs no decoder and its pixels are exact."""
-    from mickey_tpu_torch.data.raw_cache import cache_paths
-
     rng = np.random.default_rng(seed + 2)
     for s in range(scenes):
-        sdir = os.path.join(root, "val", f"s{s:05}")
-        os.makedirs(sdir)
-        names = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05}.jpg" for i in range(queries)]
-        q = rng.normal(size=(len(names), 4))
-        q /= np.linalg.norm(q, axis=1, keepdims=True)
-        t = rng.normal(size=(len(names), 3))
-        with open(os.path.join(sdir, "poses.txt"), "w") as f:
-            f.writelines(f"{n} " + " ".join(f"{v:.6f}" for v in [*q[i], *t[i]]) + "\n" for i, n in enumerate(names))
-        with open(os.path.join(sdir, "intrinsics.txt"), "w") as f:
-            f.writelines(f"{n} 590.0 590.0 {width / 2 - 0.5} {height / 2 - 0.5} {width} {height}\n" for n in names)
-        data_path, index_path = cache_paths(sdir, (width, height))
-        frames = np.lib.format.open_memmap(str(data_path), mode="w+", dtype=np.uint8,
-                                           shape=(len(names), height, width, 3))
-        for i in range(len(names)):
-            frames[i] = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
-        frames.flush()
-        del frames
-        index_path.write_text(json.dumps({"frames": {n: i for i, n in enumerate(names)}}))
+        _write_scene(os.path.join(root, "val", f"s{s:05}"), queries, height, width, rng)
+
+
+def write_train_split(root, scenes: int, queries: int, height: int = 720, width: int = 540, seed: int = SEED):
+    """A Map-free train split under ``root/train``, written as
+    ``write_val_split`` writes its scenes, each with an ``overlaps.npz`` of
+    its ``queries - 1`` consecutive query pairs at overlap 0.5 (inside the
+    default 0.2-0.7 window)."""
+    rng = np.random.default_rng(seed + 4)
+    for s in range(scenes):
+        sdir = os.path.join(root, "train", f"t{s:05}")
+        _write_scene(sdir, queries, height, width, rng)
+        idxs = np.array([[1, i, 1, i + 1] for i in range(queries - 1)], dtype=np.uint16)
+        np.savez(os.path.join(sdir, "overlaps.npz"), idxs=idxs, overlaps=np.full(len(idxs), 0.5))
+
+
+def _write_scene(sdir, queries: int, height: int, width: int, rng) -> None:
+    """One scene: keyframe and queries, seeded poses and intrinsics, frames
+    of seeded random bytes in a raw-frame cache only."""
+    from mickey_tpu_torch.data.raw_cache import cache_paths
+
+    os.makedirs(sdir)
+    names = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05}.jpg" for i in range(queries)]
+    q = rng.normal(size=(len(names), 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = rng.normal(size=(len(names), 3))
+    with open(os.path.join(sdir, "poses.txt"), "w") as f:
+        f.writelines(f"{n} " + " ".join(f"{v:.6f}" for v in [*q[i], *t[i]]) + "\n" for i, n in enumerate(names))
+    with open(os.path.join(sdir, "intrinsics.txt"), "w") as f:
+        f.writelines(f"{n} 590.0 590.0 {width / 2 - 0.5} {height / 2 - 0.5} {width} {height}\n" for n in names)
+    data_path, index_path = cache_paths(sdir, (width, height))
+    frames = np.lib.format.open_memmap(str(data_path), mode="w+", dtype=np.uint8, shape=(len(names), height, width, 3))
+    for i in range(len(names)):
+        frames[i] = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+    frames.flush()
+    del frames
+    index_path.write_text(json.dumps({"frames": {n: i for i, n in enumerate(names)}}))
 
 
 class ServingProbe:
@@ -2599,10 +2665,21 @@ def run_submission(model, cfg, root, batch: int | None = None) -> dict:
 
 
 class _TimedLoader:
-    """A loader whose consumer's waits for batches are summed in ``wait_s``."""
+    """A loader whose consumer's waits for batches are summed in ``wait_s``
+    and kept one a batch in ``waits``. The trainer's feature cache reaches
+    the loader inside."""
 
     def __init__(self, loader):
-        self.loader, self.wait_s = loader, 0.0
+        self.loader, self.wait_s, self.waits = loader, 0.0, []
+        self.dataset = loader.dataset
+
+    @property
+    def feature_cache(self):
+        return self.loader.feature_cache
+
+    @feature_cache.setter
+    def feature_cache(self, cache):
+        self.loader.feature_cache = cache
 
     def __len__(self):
         return len(self.loader)
@@ -2617,6 +2694,7 @@ class _TimedLoader:
                 return
             finally:
                 self.wait_s += time.perf_counter() - t0
+            self.waits.append(time.perf_counter() - t0)
             yield batch
 
 
@@ -2651,7 +2729,7 @@ def submission_times(model, cfg, runs: int = 3) -> dict:
 
     from mickey_tpu_torch.cli.submission import predict
     from mickey_tpu_torch.data import DataModule
-    from mickey_tpu_torch.data.io import pad_to_multiple
+    from mickey_tpu_torch.data.io import crop_to_patches
 
     root = tempfile.TemporaryDirectory(prefix="mickey_submission_timing_")
     t0 = time.perf_counter()
@@ -2678,9 +2756,8 @@ def submission_times(model, cfg, runs: int = 3) -> dict:
         profiled_s = time.perf_counter() - t0
     device_s = _busy_s(prof)
     batch = next(iter(loader))
-    df = int(cfg.MICKEY.DINOV2.DOWN_FACTOR)
     dev = model.device
-    im0, im1 = (torch.from_numpy(np.ascontiguousarray(pad_to_multiple(batch[k], df))).to(dev) for k in ("image0", "image1"))
+    im0, im1 = (torch.from_numpy(np.ascontiguousarray(crop_to_patches(batch[k], cfg))).to(dev) for k in ("image0", "image1"))
     K0, K1 = (torch.from_numpy(batch[k]).to(dev) for k in ("K_color0", "K_color1"))
     B = im1.shape[0]
     ref = tuple(f.expand(B, *f.shape[1:]) for f in model.extract_feats(im0[:1]))
@@ -2720,6 +2797,491 @@ def submission_report(cfg, dev, card: str) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+# -- 3e. the training entry point: fit, resume, validation, the feature cache -----
+
+FIT_KERNELS = ("flash_attention_packed", "col_lse", "pair_softmax", "dual_softmax_bwd_sums",
+               "dual_softmax_bwd_grads", "hypothesis_scores")
+FIT_ABSENT = ("flash_attention", "pair_topk", "lse_bwd")  # the dense route on packed attention
+ATTENTION_KERNELS = ("flash_attention_packed", "flash_attention", "flash_attention_packed_f32", "flash_attention_f32",
+                     "flash_attention_packed_upcast")
+FIT_SCENES = 2
+FIT_TRAIN_QUERIES = 17  # 16 consecutive pairs a scene
+FIT_SAMPLES_A_SCENE = 16  # N_SAMPLES_SCENE: 32 pairs, 4 batches of 8
+FIT_VAL_QUERIES = 40  # x5 subsampling: 8 pairs a scene
+VAL_BATCHES = 2
+# the timing's own split (fit_window_times): FIT_SCENES scenes of each kind
+FIT_TIMING_TRAIN_QUERIES = 97  # 96 consecutive pairs a scene
+FIT_TIMING_SAMPLES = 96  # N_SAMPLES_SCENE: 192 pairs, 24 steps of 8
+FIT_TIMING_VAL_QUERIES = 480  # x5 subsampling: 96 pairs a scene, each drawn once
+VAL_TOL = 1e-5  # cached against plain validation: tests/test_training.py's lock (rtol, atol)
+
+
+def optional_line() -> str:
+    """Whether the trainer's optional packages import here: ``matplotlib``
+    (the image panels) and ``tensorboardX`` (the logs)."""
+    return _imports(("matplotlib", "tensorboardX"))
+
+
+def fit_config(cfg, root, batch: int, samples: int, val_batches: int):
+    """``cfg`` on the synthetic split under ``root``: batches of ``batch``
+    pairs, ``samples`` pairs drawn a scene an epoch, a log line every step,
+    ``val_batches`` validation batches, one epoch."""
+    cfg = cfg.clone()
+    cfg.DATASET.DATA_ROOT = str(root)
+    cfg.TRAINING.BATCH_SIZE = batch
+    cfg.TRAINING.N_SAMPLES_SCENE = samples
+    cfg.TRAINING.LOG_INTERVAL = 1
+    cfg.TRAINING.VAL_BATCHES = val_batches
+    cfg.TRAINING.EPOCHS = 1
+    return cfg
+
+
+class _TimedData:
+    """A datamodule whose train loader is a ``_TimedLoader`` (kept in ``train``)."""
+
+    def __init__(self, dm):
+        self.dm, self.train = dm, None
+
+    def train_dataloader(self):
+        self.train = _TimedLoader(self.dm.train_dataloader())
+        return self.train
+
+    def val_dataloader(self):
+        return self.dm.val_dataloader()
+
+
+class _StepProbe:
+    """Wraps a trainer's ``training_step``: each step's end on the host
+    clock, its kernel launches and its batch's keys."""
+
+    def __init__(self, trainer):
+        from mickey_tpu_torch.ops import _cuda
+
+        self.ends, self.launches, self.keys = [], [], []
+        step = trainer.training_step
+
+        def probed(batch):
+            before = dict(_cuda.LAUNCHES)
+            out = step(batch)
+            self.ends.append(time.perf_counter())
+            self.launches.append({k: v - before[k] for k, v in _cuda.LAUNCHES.items()})
+            self.keys.append(sorted(batch))
+            return out
+
+        trainer.training_step = probed
+
+    def summed(self) -> dict:
+        return {k: sum(d[k] for d in self.launches) for k in self.launches[0]}
+
+    def timing(self, loader: _TimedLoader) -> dict:
+        """ms a step after the first (host clock, logging included) and the
+        share of that time spent waiting on the loader."""
+        span = self.ends[-1] - self.ends[0]
+        return {"steps": len(self.ends), "step_ms": span / (len(self.ends) - 1) * 1e3,
+                "loader_wait_share": sum(loader.waits[1:len(self.ends)]) / span}
+
+
+class _CliRun:
+    """One run of the training CLI's entry, ``cli.train.train_model`` on
+    parsed ``argv`` and a clone of ``cfg``, on ``dev``, with the trainer it
+    builds probed: its steps (``trainer`` and ``probe``, a ``_StepProbe``),
+    its logged scalars (``logged``), the scenes it validates
+    (``val_scenes``) and its train loader timed (``data``, a ``_TimedData``);
+    ``seconds`` on the host clock."""
+
+    def __init__(self, argv, cfg, dev):
+        from mickey_tpu_torch.cli import train as cli
+        from mickey_tpu_torch.data import loader
+        from mickey_tpu_torch.models.training_model import MicKeyTrainer
+
+        self.logged, self.val_scenes = {}, set()
+        fit, make_data = MicKeyTrainer.fit, loader.DataModuleTraining
+
+        def probed_fit(trainer, datamodule, *args, **kwargs):
+            self.trainer, self.probe = trainer, _StepProbe(trainer)
+            log_scalar, validation_step = trainer.log_scalar, trainer.validation_step
+            trainer.log_scalar = lambda name, value, step=None: (self.logged.__setitem__(name, float(value)),
+                                                                 log_scalar(name, value, step))[1]
+            trainer.validation_step = lambda b: (self.val_scenes.update(b["scene_root"]), validation_step(b))[1]
+            try:
+                return fit(trainer, datamodule, *args, **kwargs)
+            finally:
+                del trainer.log_scalar, trainer.validation_step, trainer.training_step
+
+        def timed_data(c):
+            self.data = _TimedData(make_data(c))
+            return self.data
+
+        MicKeyTrainer.fit, loader.DataModuleTraining = probed_fit, timed_data
+        try:
+            t0 = time.perf_counter()
+            cli.train_model(cli.parser().parse_args(argv), cfg=cfg.clone(), device=dev)
+            self.seconds = time.perf_counter() - t0
+        finally:
+            MicKeyTrainer.fit, loader.DataModuleTraining = fit, make_data
+
+
+def _state_tensors(trainer) -> list:
+    from mickey_tpu_torch.weights import tree_leaves
+
+    opt = trainer.state.opt_state
+    return [t.detach() for _, t in tree_leaves(trainer.state.params)] + list(opt.mu) + list(opt.nu) + [opt.count]
+
+
+def _same_state(a, b, what: str) -> None:
+    differ = sum(not torch.equal(x, y) for x, y in zip(_state_tensors(a), _state_tensors(b)))
+    if differ:
+        raise SmokeError(f"{what}: {differ} parameter, moment or count tensors differ")
+
+
+def check_fit_kernels(inp) -> dict:
+    """K1 (bf16, packed) and K3 against their plain versions at the shapes
+    the training entry point gives them: the train step's 2B images, and a
+    validation solve's outer draws times B pairs. Returns name -> max |diff|."""
+    calls = kernel_calls(inp)
+    out = {"flash_attention_packed": _attn_err(*(f() for f in calls["flash_attention_packed"]),
+                                               "flash_attention_packed, the train step's images")}
+    out["hypothesis_scores"] = _close_k3(*(f() for f in calls["hypothesis_scores"]),
+                                         "hypothesis_scores, a validation solve")
+    return out
+
+
+def run_fit(cfg, root, dev, *, batch: int = 8, samples: int = FIT_SAMPLES_A_SCENE,
+            val_batches: int = VAL_BATCHES, train_queries: int = FIT_TRAIN_QUERIES,
+            val_queries: int = FIT_VAL_QUERIES):
+    """Phase 3e: the training entry point at ``cfg``'s width on a synthetic
+    Map-free split under ``root`` (frames of ``cfg``'s size in raw-frame
+    caches: ``FIT_SCENES`` train scenes of ``train_queries`` queries with
+    overlaps, ``FIT_SCENES`` keyframe-shared val scenes of ``val_queries``):
+
+    - one epoch of training through the CLI's entry, ``cli.train.train_model``
+      on parsed arguments (``MicKeyTrainer.fit``, a log line every step):
+      ``last/`` and a ``best_*/`` written, topk advanced once, ``train/lr``
+      logged, the dense route's kernels launched (K3 once a validation
+      batch), no K1b, K2b, K6; the keyframe cache one entry a validated scene;
+    - a second run of the entry with ``--resume`` on ``last/``: its trainer's
+      parameters, moments, count, step, topk and epoch bitwise the first's,
+      and one more step of each from one generator seed bitwise equal;
+    - cached validation against plain on one val batch (one generator seed)
+      within VAL_TOL, the memory hit path too;
+    - the feature cache over the train split: fp32 rows bitwise the train
+      step's backbone maps, a cached step's metrics bitwise a staged step's,
+      bf16 rows bitwise the fp32 rows' rounding (within one bf16 ulp), then one
+      epoch through the entry with ``--feature_cache`` on the bf16 cache,
+      whose train steps launch no attention kernel and read no image;
+    - the image panels, where ``matplotlib`` imports.
+
+    Returns (results, the trainers and batches ``fit_times`` times)."""
+    from mickey_tpu_torch.data import DataModuleTraining
+    from mickey_tpu_torch.models import MicKeyTrainer
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.training.feature_cache import build_feature_cache, frame_key
+
+    h, w = int(cfg.DATASET.HEIGHT), int(cfg.DATASET.WIDTH)
+    write_train_split(root, FIT_SCENES, train_queries, h, w)
+    write_val_split(root, FIT_SCENES, val_queries, h, w)
+    cfg = fit_config(cfg, root, batch, samples, val_batches)
+    res, steps = {}, FIT_SCENES * samples // batch
+    argv = ["--path_weights", os.path.join(root, "weights"), "--seed", str(SEED)]
+    random.seed(SEED)  # train_model draws the sampler's seed from it
+
+    # one epoch through the CLI's entry; its trainer, like every one built
+    # below, starts from init_params_numpy(cfg, SEED) and the DINOv2 file
+    # resolve_dinov2_weights finds, if any
+    before = dict(_cuda.LAUNCHES)
+    first = _CliRun(argv + ["--experiment", "smoke"], cfg, dev)
+    launches = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()}
+    tr, logged, val_scenes = first.trainer, first.logged, first.val_scenes
+    _launched(launches, "fit", FIT_KERNELS, FIT_ABSENT)
+    _once_per_solve(launches, "fit", val_batches)
+    best = [d for d in ("best_vcre", "best_pose") if os.path.isdir(os.path.join(tr.out_dir, d))]
+    if tr.global_step != steps or not os.path.isdir(os.path.join(tr.out_dir, "last")) or not best:
+        raise SmokeError(f"fit: {tr.global_step} steps for {steps}, checkpoints {os.listdir(tr.out_dir)}")
+    topk0 = float(cfg.LOSS_CLASS.CURRICULUM_LEARNING.TOPK_INIT)
+    if tr.topk != topk0 + 5 or logged.get("train/lr") != float(cfg.TRAINING.LR):
+        raise SmokeError(f"fit: topk {tr.topk} (not {topk0 + 5}) or train/lr {logged.get('train/lr')} "
+                         f"(not {cfg.TRAINING.LR})")
+    if sorted(tr._val_kf_cache) != sorted(frame_key(r, "seq0/frame_00000.jpg") for r in val_scenes):
+        raise SmokeError(f"fit: keyframe cache {sorted(tr._val_kf_cache)} for the val scenes {sorted(val_scenes)}")
+    res.update(launches=launches, timing=first.probe.timing(first.data.train), keyframes=len(tr._val_kf_cache),
+               val_auc_vcre=logged["val_vcre/auc_vcre"], best=best)
+
+    # the entry again with --resume on last/ (the one epoch is done: it only
+    # resumes), bitwise; then a step of each from one generator seed
+    last = os.path.join(tr.out_dir, "last")
+    tr2 = _CliRun(argv + ["--experiment", "smoke", "--resume", last], cfg, dev).trainer
+    if (tr2.topk, tr2.global_step, tr2.state.step) != (tr.topk, tr.global_step, tr.state.step):
+        raise SmokeError(f"resume: topk {tr2.topk}, step {tr2.global_step} / {tr2.state.step}")
+    _same_state(tr2, tr, "resume")
+    t0 = time.perf_counter()
+    epoch = tr2.resume(last)
+    res["restore_s"] = time.perf_counter() - t0
+    if epoch != 0:
+        raise SmokeError(f"resume: epoch {epoch}, not 0")
+    tb = next(iter(DataModuleTraining(cfg).train_dataloader()))
+    for t in (tr, tr2):
+        t.generator.manual_seed(SEED + 11)
+        t.training_step(tb)
+    _same_state(tr2, tr, "resume, one step each")
+    del tr2
+    t0 = time.perf_counter()
+    tr.maybe_checkpoint({}, epoch=1)  # no AUC given: last/ alone, with the moments
+    res["save_s"] = time.perf_counter() - t0
+
+    # cached validation against plain on one val batch
+    vbatches = [b for _, b in zip(range(val_batches), DataModuleTraining(cfg).val_dataloader())]
+    outs = {}
+    for name, cached in (("cached", True), ("cached, memory hit", True), ("plain", False)):
+        if name == "cached":
+            tr._val_kf_cache.clear()
+        tr._cached_val = cached
+        tr.generator.manual_seed(SEED + 13)
+        outs[name] = tr.validation_step(vbatches[0])
+    val_err = 0.0
+    for name in ("cached", "cached, memory hit"):
+        for k, ref in outs["plain"].items():
+            err = np.abs(outs[name][k] - ref)
+            if not np.all(err <= VAL_TOL + VAL_TOL * np.abs(ref)):
+                raise SmokeError(f"validation, {name} against plain: {k} max |diff| {err.max():.3e}")
+            val_err = max(val_err, float(err.max()))
+    res["val_cached_vs_plain"] = val_err
+
+    # the feature cache: fp32 rows against the train step's maps, a cached
+    # step against a staged one, bf16 rows, then an epoch from the cache
+    train_ds = DataModuleTraining(cfg).train_dataloader().dataset
+    c32 = build_feature_cache(cfg, tr.backbone, train_ds, os.path.join(root, "fc32"), batch_size=2 * batch,
+                              dtype="float32")
+    res["cache_frames"] = len(c32)
+    res["cache_bytes_fp32"] = os.path.getsize(os.path.join(root, "fc32", "features.dat"))
+    pairs = list(zip(tb["scene_root"], tb["pair_names"]))
+    keys = [frame_key(sr, p[half]) for half in (0, 1) for sr, p in pairs]
+    db = tr.device_batch(tb)
+    fmap = tr.train_step.backbone_fwd(tr.backbone, db["image0"], db["image1"])
+    rows = c32.gather(keys).to(dev)
+    if not torch.equal(rows, fmap):
+        raise SmokeError(f"feature cache: fp32 rows differ from the train step's maps, max |diff| "
+                         f"{(rows - fmap).abs().max().item():.3e}")
+    staged = MicKeyTrainer(cfg, seed=SEED, device=dev, out_dir=os.path.join(root, "run3"))
+    cached = MicKeyTrainer(cfg, seed=SEED, device=dev, out_dir=os.path.join(root, "run4"))
+    cached.feature_cache = c32
+    m_staged = staged.training_step(tb)
+    m_cached = cached.training_step({k: v for k, v in tb.items() if not k.startswith("image")})
+    if m_staged != m_cached:
+        raise SmokeError(f"feature cache: the cached step's metrics {m_cached} differ from the staged step's {m_staged}")
+    _same_state(cached, staged, "feature cache, a cached step against a staged one")
+    res["cached_step_loss"] = m_cached["loss"]
+    c16 = build_feature_cache(cfg, tr.backbone, train_ds, os.path.join(root, "fc16"), batch_size=2 * batch,
+                              dtype="bfloat16")
+    res["cache_bytes_bf16"] = os.path.getsize(os.path.join(root, "fc16", "features.dat"))
+    all32, all16 = c32.gather(list(c32.index)), c16.gather(list(c32.index))
+    res["bf16_rows_max_diff"] = _within_bf16_ulp(all16, all32, "feature cache, bf16 rows")
+    if not torch.equal(all16, all32.to(torch.bfloat16)):
+        raise SmokeError("feature cache: bf16 rows are not the round-to-nearest-even of the fp32 rows")
+    del all32, all16
+
+    cfg.TPU.FEATURE_CACHE_DTYPE = "bfloat16"
+    run = _CliRun(argv + ["--experiment", "smoke_cached", "--feature_cache", os.path.join(root, "fc16")], cfg, dev)
+    from_cache, cprobe, cdata = run.trainer, run.probe, run.data
+    step_launches = cprobe.summed()
+    _launched(step_launches, "fit from the feature cache, train steps", DENSE_MATCHER_KERNELS, ATTENTION_KERNELS)
+    if from_cache.global_step != steps or any("image0" in k or "fmap" not in k for k in cprobe.keys):
+        raise SmokeError(f"fit from the feature cache: {from_cache.global_step} steps, batches {cprobe.keys[:1]}")
+    res.update(cached_step_launches=step_launches, cached_timing=cprobe.timing(cdata.train))
+
+    # the image panels (LOG_IMAGES, off by default), where matplotlib and cv2 import
+    missing = [m for m in ("matplotlib", "cv2") if " yes" not in _imports((m,))]
+    if missing:
+        res["image_panels"] = f"skipped: {' and '.join(missing)} {'does' if len(missing) == 1 else 'do'} not import"
+    else:
+        panels = []
+        tr.log_image = lambda name, img, step=None: panels.append(name)
+        tr.log_training_images(tb)
+        del tr.log_image
+        res["image_panels"] = f"ran: {len(panels)} panels"
+    ctx = {"trainer": tr, "staged": staged, "cached": cached, "batch": tb, "fmap": rows, "val": vbatches}
+    return res, ctx
+
+
+def fit_times(ctx, runs: int = 3, iters: int = 10) -> dict:
+    """The train step's pieces on the card, CUDA-event medians at B of
+    ``iters`` steps: the staged step (backbone, heads, matcher, loss, backward,
+    optimizer) in ``runs`` turns with the same step on PyTorch's default
+    backward kernels (each turn's median kept), each mode's peak memory, and
+    the gradient leaves two equal backward passes leave apart on each (none
+    allowed on the deterministic ones); and the cached-feature step on a
+    device feature map."""
+    from mickey_tpu_torch.training import train_step
+
+    staged, cached, tb = ctx["staged"], ctx["cached"], ctx["batch"]
+    db = staged.device_batch(tb)
+    meta = {k: v for k, v in db.items() if not k.startswith("image")}
+    gen = staged.generator
+    out = {"cached_step_ms": time_ms(lambda: cached.train_step.grad_step(cached.state, ctx["fmap"], meta, gen,
+                                                                         cached.topk), iters=iters, warmup=1)}
+    # the staged step, and in turns with it the same step on PyTorch's default
+    # (atomic) backward kernels: what the deterministic backward costs, in
+    # time and on the card in one step's peak memory
+    deterministic, steps = train_step.deterministic_backward, {"staged_step_ms": [], "staged_default_bwd_ms": []}
+
+    def step():
+        return staged.train_step(staged.state, staged.backbone, db, gen, staged.topk)
+
+    for name in ("staged_step_ms", "staged_default_bwd_ms") * runs:
+        train_step.deterministic_backward = deterministic if name == "staged_step_ms" else contextlib.nullcontext
+        try:
+            steps[name].append(time_ms(step, iters=iters, warmup=1))
+            if db["T_0to1"].is_cuda:
+                torch.cuda.reset_peak_memory_stats(db["T_0to1"].device)
+                step()
+                out[name.replace("_ms", "_peak_gib")] = torch.cuda.max_memory_allocated(db["T_0to1"].device) / 2**30
+        finally:
+            train_step.deterministic_backward = deterministic
+    out.update({k: statistics.median(v) for k, v in steps.items()})
+    out.update({f"{k}_turns": v for k, v in steps.items()})
+    # why the backward is deterministic: two equal backward passes, the
+    # gradient leaves they leave apart on each mode's kernels
+    from mickey_tpu_torch.weights import tree_leaves
+
+    fmap = staged.train_step.backbone_fwd(staged.backbone, db["image0"], db["image1"])
+
+    def grads():
+        gen.manual_seed(SEED + 17)
+        return tree_leaves(train_step.loss_and_grads(staged.state.params, fmap, db, staged.cfg, staged.train_step.lc,
+                                                     staged.topk, gen)[3])
+
+    for mode, ctx_fn in (("deterministic", deterministic), ("default", contextlib.nullcontext)):
+        train_step.deterministic_backward = ctx_fn
+        try:
+            a, b = grads(), grads()
+        finally:
+            train_step.deterministic_backward = deterministic
+        out[f"grad_leaves_apart_{mode}"] = sum(not torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+    out["grad_leaves"] = len(a)
+    if out["grad_leaves_apart_deterministic"]:
+        raise SmokeError(f"two equal backward passes left {out['grad_leaves_apart_deterministic']} gradient leaves apart")
+    return out
+
+
+def fit_window_times(cfg, dev, runs: int = 2, batch: int = 8) -> dict:
+    """The training entry point timed on its own split under a temporary
+    directory, long enough to read rates: ``FIT_SCENES`` train scenes of
+    ``FIT_TIMING_TRAIN_QUERIES`` queries and ``FIT_SCENES`` val scenes of
+    ``FIT_TIMING_VAL_QUERIES`` (each scene's pairs sharing its keyframe),
+    ``FIT_TIMING_SAMPLES`` pairs drawn a scene, written as
+    ``write_train_split`` and ``write_val_split`` write them, at ``cfg``'s
+    frame size and width with its seeded random weights:
+
+    - one epoch through the CLI's entry (``cli.train.train_model``, a log
+      line every step, validation over every val batch): ms a step after the
+      first (host clock) and the share of it spent waiting on the loader;
+    - the feature cache over the train split at fp32 and at bf16: frames/s
+      and bytes;
+    - one epoch through the entry from the bf16 cache: ms a step, loader share;
+    - the validation epoch over every val batch, the batches held in memory
+      (host clock: each step ends on its metrics' copy to the host), plain
+      and cached in turns (plain, cached, cached, plain for ``runs`` = 2),
+      the keyframe cache emptied before each cached run; the share of a
+      cached run's batches whose keyframes were all held already (hits)."""
+    from mickey_tpu_torch.data import DataModuleTraining
+    from mickey_tpu_torch.training.feature_cache import build_feature_cache, frame_key
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mickey_fit_timing_") as root:
+        h, w = int(cfg.DATASET.HEIGHT), int(cfg.DATASET.WIDTH)
+        t0 = time.perf_counter()
+        write_train_split(root, FIT_SCENES, FIT_TIMING_TRAIN_QUERIES, h, w)
+        write_val_split(root, FIT_SCENES, FIT_TIMING_VAL_QUERIES, h, w)
+        out["split_write_s"] = time.perf_counter() - t0
+        cfg = fit_config(cfg, root, batch, FIT_TIMING_SAMPLES, val_batches=0)  # 0: every val batch
+        argv = ["--path_weights", os.path.join(root, "weights"), "--seed", str(SEED)]
+        random.seed(SEED)
+        run = _CliRun(argv + ["--experiment", "timing"], cfg, dev)
+        out["fit"], out["train_model_s"] = run.probe.timing(run.data.train), run.seconds
+        tr = run.trainer
+        del run
+        train_ds = DataModuleTraining(cfg).train_dataloader().dataset
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cache = build_feature_cache(cfg, tr.backbone, train_ds, os.path.join(root, dtype), batch_size=2 * batch,
+                                        dtype=dtype)
+            s = time.perf_counter() - t0
+            out[f"cache_{dtype}"] = {"frames": len(cache), "s": s, "frames_per_s": len(cache) / s,
+                                     "bytes": os.path.getsize(os.path.join(root, dtype, "features.dat"))}
+            del cache
+        cfg.TPU.FEATURE_CACHE_DTYPE = "bfloat16"
+        run = _CliRun(argv + ["--experiment", "timing_cached", "--feature_cache", os.path.join(root, "bfloat16")],
+                      cfg, dev)
+        out["fit_from_cache"] = run.probe.timing(run.data.train)
+        del run
+
+        vbatches = list(DataModuleTraining(cfg).val_dataloader())
+        walls, hits = {"plain": [], "cached": []}, []
+        for name in (["plain", "cached", "cached", "plain"] * runs)[: 2 * runs]:
+            tr._cached_val, tr._val_kf_cache = name == "cached", {}
+            held = 0
+            t0 = time.perf_counter()
+            for b in vbatches:
+                held += all(frame_key(sr, p[0]) in tr._val_kf_cache for sr, p in zip(b["scene_root"], b["pair_names"]))
+                tr.validation_step(b)
+            walls[name].append(time.perf_counter() - t0)
+            if name == "cached":
+                hits.append(held / len(vbatches))
+        pairs = sum(len(b["scene_root"]) for b in vbatches)
+        out.update(val_pairs=pairs, val_batches=len(vbatches), val_keyframe_hit_share=hits)
+        for name, wall in walls.items():
+            out[f"val_{name}_s"] = wall
+            out[f"val_{name}_pairs_per_s"] = pairs / statistics.median(wall)
+        del tr, vbatches
+    gc.collect()
+    return out
+
+
+def fit_line(res: dict, errs: dict) -> str:
+    return (f"fit: ok | steps {res['timing']['steps']} | launches {res['launches']} | checkpoints last, {res['best']} | "
+            f"resume bitwise, one more step bitwise | validation cached vs plain max |diff| "
+            f"{res['val_cached_vs_plain']:.3e} (keyframes cached {res['keyframes']}) | feature cache "
+            f"{res['cache_frames']} frames, fp32 rows bitwise, cached step = staged step (loss "
+            f"{res['cached_step_loss']:.6f}), bf16 rows the fp32 rows' rounding (max |diff| "
+            f"{res['bf16_rows_max_diff']:.3e}) | epoch from the cache: step launches {res['cached_step_launches']} | "
+            f"image panels {res['image_panels']} | kernels at the fit's shapes "
+            + " ".join(f"{k} max|diff|={v:.3e}" for k, v in errs.items()))
+
+
+def fit_timing_line(res: dict, times: dict, window: dict, card: str) -> str:
+    """``fit_window_times``' rates, ``fit_times``' step timings, and from
+    phase 3e the checkpoint's save and restore seconds."""
+    keep = {k: res[k] for k in ("restore_s", "save_s")}
+    return f"timing (fit): ok | {card} | " + json.dumps({**window, **keep, **times})
+
+
+def fit_report(cfg, dev, card: str) -> int:
+    """``--fit``: phase 3e and its timing alone, at full width with the
+    seeded random weights (``run_fit``)."""
+    t_start = time.perf_counter()
+    errs = check_fit_kernels(fit_kernel_inputs(dev, cfg))
+    with tempfile.TemporaryDirectory(prefix="mickey_fit_") as root:
+        (res, ctx), launches = _counted(lambda: run_fit(cfg, root, dev))
+        print(fit_line(res, errs), flush=True)
+        times = fit_times(ctx)
+        del ctx
+        print(fit_timing_line(res, times, fit_window_times(cfg, dev), card), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s after the build | phase launches {launches}", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def fit_kernel_inputs(dev, cfg):
+    """``kernel_inputs`` at the training entry point's shapes: 2B images, B
+    pairs, a validation solve's outer draws (K1-old's inputs, unused here,
+    at a token size)."""
+    b = int(cfg.TRAINING.BATCH_SIZE)
+    return kernel_inputs(dev, images=2 * b, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
+                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
+                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
+                         old_images=1, old_seq=64, old_len=37)
+
 
 if __name__ == "__main__":
     sys.exit(main())

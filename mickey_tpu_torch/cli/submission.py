@@ -21,7 +21,7 @@ from zipfile import ZipFile, ZipInfo
 import numpy as np
 import torch
 
-from ..data.io import pad_to_multiple
+from ..data.io import crop_to_patches
 from ..geometry.rotations import mat2quat
 
 MAX_REF_CACHE = 32  # keyframes whose extract outputs stay on the device (~1 MB each)
@@ -53,7 +53,7 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True):
     (reference submission.py:32-61).
 
     Each batch is cropped on the host to multiples of the backbone's patch
-    size (``pad_to_multiple``: from the bottom and the right, so K holds),
+    size (``crop_to_patches``: from the bottom and the right, so K holds),
     then copied to the device, from pinned memory where that is a CUDA
     device. Double-buffered: batch i + 1 is enqueued before batch i's poses
     come to the host, where a pose with a NaN or an infinity, or an all-zero
@@ -69,7 +69,6 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True):
     batch. The solver's draws come from ``step_generator(SOLVER_SEED, step)``.
     """
     device = torch.device(model.device)
-    df = int(model.cfg.MICKEY.DINOV2.DOWN_FACTOR)
     results_dict = defaultdict(list)
     # (scene_id, ref_frame) -> the 4 extract maps, each (1, ...), on the
     # device; insertion-ordered, so eviction takes the oldest first
@@ -126,8 +125,8 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True):
     in_flight = None  # (out, data) awaiting its poses
     with torch.inference_mode():
         for step, data in enumerate(it):
-            image0 = pad_to_multiple(data["image0"], df)
-            image1 = to_device(pad_to_multiple(data["image1"], df))
+            image0 = crop_to_patches(data["image0"], model.cfg)
+            image1 = to_device(crop_to_patches(data["image1"], model.cfg))
             K0, K1 = to_device(data["K_color0"]), to_device(data["K_color1"])
             generator = step_generator(device, SOLVER_SEED, step)
             if shared_ref:

@@ -103,3 +103,11 @@ def pad_to_multiple(image: np.ndarray, df: int = 14) -> np.ndarray:
         return image[:, : df * (h // df), : df * (w // df)]
     h, w = image.shape[:2]
     return image[: df * (h // df), : df * (w // df)]
+
+
+def crop_to_patches(images, cfg):
+    """The one crop every image takes before the backbone: ``pad_to_multiple``
+    at the patch size, MICKEY.DINOV2.DOWN_FACTOR. The submission path, the
+    trainer's batches and the feature cache's frames all call it, so a cached
+    row is the feature map of the frame the train step sees."""
+    return pad_to_multiple(images, int(cfg.MICKEY.DINOV2.DOWN_FACTOR))

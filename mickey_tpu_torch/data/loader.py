@@ -7,11 +7,16 @@ sample by sample (``MapFreeScene.__getitem__``, ``cv2``). Batches are dicts
 of stacked numpy arrays for array fields and lists for string fields, the
 collation contract of the reference's torch collate.
 
+Feature-cache training reads no frames: ``meta_only`` batches carry the
+pairs' metadata alone, and once the trainer hands the loader its
+``feature_cache`` (``training/feature_cache.py``) they carry the pairs'
+feature rows as ``batch["fmap"]`` ((2B, Hp, Wp, C), image0 rows then image1
+rows, a CPU tensor in the cache's dtype), gathered in the prefetch threads
+while the card computes.
+
 The JAX package's native C++ ingest (``data/native.py``,
 ``native/mickey_io.cpp``: libjpeg and the Python C API) is not ported, so
-``TRAINING.NATIVE_LOADER`` selects nothing here. Feature-cache training
-(``meta_only`` batches with gathered feature rows) is not ported either and
-raises.
+``TRAINING.NATIVE_LOADER`` selects nothing here.
 """
 
 from __future__ import annotations
@@ -72,10 +77,10 @@ class DataLoader:
         seed: int = 0,
         meta_only: bool = False,
     ):
-        if meta_only:
-            raise NotImplementedError("meta_only batches (feature-cache training) are not ported yet")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.meta_only = meta_only
+        self.feature_cache = None  # set by the trainer: meta-only batches then carry batch["fmap"]
         self.sampler = sampler
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -151,10 +156,23 @@ class DataLoader:
             stop.set()
 
     def _load_batch(self, idxs: List[int]) -> Dict:
+        if self.meta_only:
+            batch = collate([self._meta(i) for i in idxs])
+            if self.feature_cache is not None:
+                from ..training.feature_cache import frame_key
+
+                keys = [frame_key(sr, p[half]) for half in (0, 1)
+                        for sr, p in zip(batch["scene_root"], batch["pair_names"])]
+                batch["fmap"] = self.feature_cache.gather(keys)
+            return batch
         batch = self._load_batch_rawcache(idxs)
         if batch is not None:
             return batch
         return collate([self.dataset[i] for i in idxs])
+
+    def _meta(self, i: int) -> Dict:
+        ds, local = self.dataset.locate(i)
+        return ds.sample_meta(local)
 
     def _load_batch_rawcache(self, idxs: List[int]) -> Dict:
         """Decode-free ingest from per-scene uint8 raw caches (memcpy-bound;

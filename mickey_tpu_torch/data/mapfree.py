@@ -152,19 +152,25 @@ class MapFreeScene:
     def __len__(self) -> int:
         return self._n_pairs
 
-    def raw_images(self, index: int):
-        """(img0, img1) uint8 views from the scene's raw cache, or None when
-        no cache was built (data/raw_cache.py; decode-once ingest)."""
+    def _raw(self):
+        """The scene's raw-frame cache (data/raw_cache.py), opened once; None
+        when none was built."""
         if not hasattr(self, "_raw_cache"):
             from .raw_cache import SceneRawCache
 
             self._raw_cache = SceneRawCache.open_if_exists(self.scene_root, self.resize)
-        if self._raw_cache is None:
+        return self._raw_cache
+
+    def raw_images(self, index: int):
+        """(img0, img1) uint8 views from the scene's raw cache, or None when
+        no cache was built (decode-once ingest)."""
+        if self._raw() is None:
             return None
-        return (
-            self._raw_cache.image(self.paths0[index]),
-            self._raw_cache.image(self.paths1[index]),
-        )
+        return self._raw_cache.image(self.paths0[index]), self._raw_cache.image(self.paths1[index])
+
+    def raw_frame(self, relpath: str):
+        """One frame's uint8 view from the scene's raw cache, or None."""
+        return None if self._raw() is None else self._raw_cache.image(relpath)
 
     def sample_meta(self, index: int) -> Dict:
         """The sample dict WITHOUT images; the loader fills them from a raw cache."""

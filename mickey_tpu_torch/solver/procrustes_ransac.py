@@ -205,7 +205,8 @@ def estimate_pose_topk(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, 
     )
 
 
-def _solver_kw(cfg) -> dict:
+def solver_kw(cfg) -> dict:
+    """The PROCRUSTES.* solver settings of ``cfg`` as keyword arguments."""
     pc = cfg.PROCRUSTES
     return dict(it_matches=pc.IT_MATCHES, it_ransac=pc.IT_RANSAC, num_samples=pc.NUM_SAMPLED_MATCHES,
                 num_corr=pc.NUM_CORR_3D_3D, num_refinements=pc.NUM_REFINEMENTS, th_inlier=pc.TH_INLIER,
@@ -218,7 +219,7 @@ def estimate_pose_topk_from_cfg(tcorr, K0, K1, cfg, generator=None, draws=None) 
     return estimate_pose_topk(
         tcorr.top_scores, tcorr.top_idx, tcorr.row_ok,
         tcorr.kps0, tcorr.depth0, tcorr.kps1, tcorr.depth1, K0, K1,
-        n1=tcorr.kps1.shape[1], generator=generator, draws=draws, **_solver_kw(cfg),
+        n1=tcorr.kps1.shape[1], generator=generator, draws=draws, **solver_kw(cfg),
     )
 
 
@@ -231,7 +232,7 @@ def estimate_pose_from_cfg(corr, K0, K1, cfg, generator=None, draws=None, final_
     return estimate_pose(
         fs, corr.kps0, corr.depth0, corr.kps1, corr.depth1, K0, K1,
         prefilter=int(cfg.TPU.get("SAMPLING_PREFILTER", 0) or 0), generator=generator, draws=draws,
-        **_solver_kw(cfg),
+        **solver_kw(cfg),
     )
 
 

@@ -16,8 +16,21 @@ transformer blocks and head-transformer layers stacked on a leading depth
 axis.
 
 ``resolve_dinov2_weights`` looks in the same local places as the JAX
-package but never downloads. Native (orbax) checkpoints, save and restore,
-are not ported.
+package but never downloads.
+
+Native checkpoints (``save_checkpoint`` / ``restore_checkpoint``): the JAX
+package writes orbax directories, which the port neither reads nor writes.
+The port's native checkpoint is a directory holding one file,
+``checkpoint.pt``, that ``torch.load(..., weights_only=True)`` reads: plain
+tensors and numbers only, in ``mickey_tpu``'s layout (``weights.params_to_numpy``),
+so the file maps onto the JAX package's tree leaf for leaf:
+
+- ``params``: the trainables (heads with their BatchNorm stats, matcher);
+  the frozen DINOv2 is left out, as in the reference;
+- ``opt_state`` (``last`` only): Adam's ``count`` and its moments ``mu``
+  and ``nu`` as trees of the trainables' structure (zeros at the BatchNorm
+  stats, which the optimizer never moves, as optax's moments hold them);
+- ``step`` and ``extra`` (``topk``, ``epoch``).
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ import torch
 Params = Dict[str, Any]
 
 DINOV2_FILE = "dinov2_vitl14_pretrain.pth"
+CHECKPOINT_FILE = "checkpoint.pt"
+FORMAT_VERSION = 1
 
 
 def _np(t) -> np.ndarray:
@@ -195,3 +210,65 @@ def resolve_dinov2_weights(path: Optional[str] = None) -> Optional[str]:
         os.path.expanduser(os.path.join("~", ".cache", "mickey_tpu", DINOV2_FILE)),
     ]
     return next((c for c in candidates if c and os.path.exists(c)), None)
+
+
+# -- native checkpoints ---------------------------------------------------------
+
+
+def _tensor_tree(tree):
+    """numpy leaves -> CPU tensors (None kept)."""
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v) for k, v in tree.items()}
+    return None if tree is None else torch.from_numpy(np.array(tree, copy=True))
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return None if tree is None else tree.numpy()
+
+
+def is_native_checkpoint(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, CHECKPOINT_FILE))
+
+
+def save_checkpoint(path: str, params: Params, step: int = 0, opt_state=None, extra=None) -> None:
+    """Write ``path/checkpoint.pt`` (module docstring). ``params``: the
+    trainable tree in ``mickey_tpu``'s layout with numpy leaves (a
+    ``dinov2`` entry is dropped); ``opt_state``: {"count": int, "mu": tree,
+    "nu": tree} in the same layout, or None; ``extra``: a dict of numbers.
+    The file is written whole, then renamed into place."""
+    payload: Dict[str, Any] = {
+        "version": FORMAT_VERSION,
+        "params": _tensor_tree({k: v for k, v in params.items() if k != "dinov2"}),
+        "step": int(step),
+    }
+    if opt_state is not None:
+        payload["opt_state"] = {"count": torch.tensor(int(opt_state["count"]), dtype=torch.int32),
+                                "mu": _tensor_tree(opt_state["mu"]), "nu": _tensor_tree(opt_state["nu"])}
+    if extra is not None:
+        payload["extra"] = dict(extra)
+    os.makedirs(path, exist_ok=True)
+    final = os.path.join(path, CHECKPOINT_FILE)
+    torch.save(payload, final + ".tmp")
+    os.replace(final + ".tmp", final)
+
+
+def restore_checkpoint(path: str) -> Dict:
+    """Read a native checkpoint directory: {"params", "step", "extra"[,
+    "opt_state"]} with numpy leaves in ``mickey_tpu``'s layout (DINOv2 is
+    the caller's to supply). Raises ``NotImplementedError`` for any other
+    directory; an orbax one (``mickey_tpu``'s) is named as such."""
+    if not is_native_checkpoint(path):
+        orbax = any(os.path.exists(os.path.join(path, f)) for f in ("_CHECKPOINT_METADATA", "_METADATA",
+                                                                     "manifest.ocdbt"))
+        kind = "an orbax checkpoint (mickey_tpu's format), which the port cannot read" if orbax else (
+            f"not a native checkpoint of the port (no {CHECKPOINT_FILE})")
+        raise NotImplementedError(f"{path}: {kind}")
+    payload = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu", weights_only=True)
+    out = {"params": _numpy_tree(payload["params"]), "step": int(payload["step"]),
+           "extra": dict(payload.get("extra", {}))}
+    if "opt_state" in payload:
+        o = payload["opt_state"]
+        out["opt_state"] = {"count": int(o["count"]), "mu": _numpy_tree(o["mu"]), "nu": _numpy_tree(o["nu"])}
+    return out

@@ -1,5 +1,6 @@
-"""The staged training step and its optimizer
-(``mickey_tpu/training/train_step.py::make_staged_train_step``).
+"""The staged training step, its optimizer and the validation step
+(``mickey_tpu/training/train_step.py``: ``make_staged_train_step``,
+``make_val_step``, ``make_staged_val_step``).
 
 Stage 1 runs the frozen backbone on the stacked 2B images without autograd.
 Stage 2 runs the heads in train mode, the matcher and the loss, one backward
@@ -31,17 +32,34 @@ never does.
 
 The step updates the state in place (parameters and moments), where the JAX
 package returns a new state.
+
+Validation (``ValStep``) runs the heads in eval mode (BatchNorm running
+stats read, never moved), the loss metrics at topk 100, the dense solver
+over the whole N0 x N1 matrix (prefilter 0, as the JAX package's validation
+passes none) and the pose and VCRE errors. ``ValStep.backbone_fwd`` and
+``ValStep.tail`` are the staged pieces (``make_staged_val_step``);
+``ValStep.__call__`` is the plain step (``make_val_step``), built from the
+same pieces: each side's B images run the backbone as one batch, the shape
+the cached validation's extractions take, so that plain and cached
+validation agree bitwise on the card as on the CPU. The feature map reaches
+the tail in one dtype, bf16 under ``MICKEY.DINOV2.FLOAT16`` and fp32
+otherwise, on both paths: the JAX package rounds it so on its cached path
+only.
 """
 
 from __future__ import annotations
 
+import warnings
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
 
 import torch
 
+from ..metrics.pose_metrics import pose_error, vcre
 from ..nn.extractor import backbone_features, compute_correspondences, compute_correspondences_topk_train
-from ..weights import is_bn_stat, split_trainable, tree_leaves
+from ..solver.procrustes_ransac import estimate_pose, solver_kw
+from ..weights import is_bn_stat, split_trainable, tree_leaves, tree_unflatten
 from .loss import LossConfig, metric_pose_loss, metric_pose_loss_topk
 
 
@@ -175,20 +193,38 @@ def loss_and_grads(params, fmap, batch, cfg, lc: LossConfig, topk_pct: float,
     total, aux, new_params = train_loss(params, fmap, batch, cfg, lc, topk_pct, generator, sample_override)
     leaves = tree_leaves(params)
     wanted = [t for path, t in leaves if not is_bn_stat(path)]
-    got = iter(torch.autograd.grad(total, wanted, allow_unused=True))
+    with deterministic_backward():
+        got = iter(torch.autograd.grad(total, wanted, allow_unused=True))
     flat = []
     for path, t in leaves:
         g = None if is_bn_stat(path) else next(got)
         flat.append(torch.zeros_like(t) if g is None else g)
-    return total.detach(), aux, new_params, _unflatten(params, iter(flat))
+    return total.detach(), aux, new_params, tree_unflatten(params, iter(flat))
 
 
-def _unflatten(tree, it):
-    if isinstance(tree, dict):
-        return {k: _unflatten(v, it) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_unflatten(v, it) for v in tree]
-    return None if tree is None else next(it)
+@contextmanager
+def deterministic_backward():
+    """PyTorch's deterministic kernels for the span (``use_deterministic_algorithms``,
+    warnings only). With the default CUDA kernels two equal steps gave
+    gradients apart in the last bits on the card (the backward of gathers and
+    indexing accumulates with atomic adds, and cuDNN may pick a convolution
+    backward that does); in this mode a step repeats bit for bit, which
+    resume and the feature cache's checks rely on. cuBLAS repeats its results
+    on one stream, so its alert about the workspace setting
+    (``CUBLAS_WORKSPACE_CONFIG``) is silenced. The mode would also fill every
+    new allocation with NaN; that is turned off, since the backward reads no
+    memory it has not written. The previous settings are restored on exit."""
+    mode = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CuBLAS.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+        torch.utils.deterministic.fill_uninitialized_memory = mode[2]
 
 
 class StagedTrainStep:
@@ -226,3 +262,65 @@ class StagedTrainStep:
     def __call__(self, state: TrainState, backbone, batch, generator=None, topk_pct: float = 100.0):
         fmap = self.backbone_fwd(backbone, batch["image0"], batch["image1"])
         return self.grad_step(state, fmap, batch, generator, topk_pct)
+
+
+def val_fmap_dtype(cfg) -> torch.dtype:
+    """The one dtype of validation's feature maps: bf16 under FLOAT16."""
+    return torch.bfloat16 if cfg.MICKEY.DINOV2.get("FLOAT16", False) else torch.float32
+
+
+def val_metrics_from_corr(corr, batch, cfg, lc: LossConfig, generator: Optional[torch.Generator] = None,
+                          sample_override=None, draws=None) -> dict:
+    """Validation's body on dense ``Correspondences``
+    (``_val_metrics_from_corr``): the loss metrics at topk 100, the dense
+    solver with prefilter 0, the pose errors and the VCRE at the dataset's
+    DATASET.WIDTH x HEIGHT. The loss draws first, then the solver's, from
+    ``generator``; ``sample_override`` and ``draws`` inject them. ``inliers``
+    is the solver's confidence."""
+    with torch.no_grad():
+        Rgt, tgt = batch_pose(batch)
+        fs = corr.final_scores
+        _, aux = metric_pose_loss(fs, corr.kps0, corr.depth0, corr.kps1, corr.depth1, batch["K_color0"],
+                                  batch["K_color1"], batch["Kori_color0"], batch["Kori_color1"], Rgt, tgt, lc,
+                                  100.0, generator=generator, sample_override=sample_override)
+        est = estimate_pose(fs, corr.kps0, corr.depth0, corr.kps1, corr.depth1, batch["K_color0"],
+                            batch["K_color1"], prefilter=0, generator=generator, draws=draws, **solver_kw(cfg))
+        perr = pose_error(est.R, est.t, batch["T_0to1"])
+        repr_err = vcre(est.R, est.t, batch["T_0to1"], batch["Kori_color0"], H=cfg.DATASET.HEIGHT,
+                        W=cfg.DATASET.WIDTH)
+    return {
+        "loss": aux["avg_loss"],
+        "avg_loss_rot": aux["avg_loss_rot"],
+        "avg_loss_trans": aux["avg_loss_trans"],
+        "t_err_ang": perr["t_err_ang"],
+        "t_err_euc": perr["t_err_euc"],
+        "R_err": perr["R_err"],
+        "vcre": repr_err,
+        "inliers": est.confidence,
+    }
+
+
+class ValStep:
+    """Validation (module docstring). ``backbone_fwd(backbone, images)`` ->
+    (n, Hp, Wp, C) in ``val_fmap_dtype``; ``tail(trainable, fmap, batch, ...)``
+    on a stacked (2B, Hp, Wp, C) map, image0 rows first;
+    ``step(trainable, backbone, batch, ...)`` the plain step on images."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.lc = LossConfig.from_cfg(cfg)
+        self.dtype = val_fmap_dtype(cfg)
+
+    def backbone_fwd(self, backbone, images) -> torch.Tensor:
+        with torch.no_grad():
+            return backbone_features({"dinov2": backbone}, images, self.cfg).to(self.dtype)
+
+    def tail(self, trainable, fmap, batch, generator=None, sample_override=None, draws=None) -> dict:
+        with torch.no_grad():
+            corr, _ = compute_correspondences(trainable, None, None, self.cfg, train=False, fmap=fmap)
+        return val_metrics_from_corr(corr, batch, self.cfg, self.lc, generator, sample_override, draws)
+
+    def __call__(self, trainable, backbone, batch, generator=None, sample_override=None, draws=None) -> dict:
+        fmap = torch.cat([self.backbone_fwd(backbone, batch["image0"]),
+                          self.backbone_fwd(backbone, batch["image1"])], dim=0)
+        return self.tail(trainable, fmap, batch, generator, sample_override, draws)

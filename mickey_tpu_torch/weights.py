@@ -168,21 +168,7 @@ def params_to_torch(params, cfg, device="cpu"):
     if cfg.MICKEY.DINOV2.get("INT8", False):
         raise NotImplementedError("the int8 backbone is not ported yet")
 
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
-
-    def lin(p):
-        out = {"w": t(np.asarray(p["w"]).T)}
-        if "b" in p:
-            out["b"] = t(p["b"])
-        return out
-
-    def conv(p):
-        return {"w": t(np.asarray(p["w"]).transpose(3, 2, 0, 1))}
-
-    def vec(p):
-        return {k: t(v) for k, v in p.items()}
-
+    t, lin, _, vec = _converters(device)
     vit = params["dinov2"]
     if "fc1" not in vit["blocks"]["mlp"]:
         raise NotImplementedError("the SwiGLU ViT variant is not ported yet")
@@ -207,6 +193,35 @@ def params_to_torch(params, cfg, device="cpu"):
         },
         "matcher": {k: float(np.asarray(v)) for k, v in params["matcher"].items()},
     }
+    out.update(_heads_to_torch(params, device))
+    return out
+
+
+def _converters(device):
+    """numpy (JAX layout) -> tensor converters: (array, linear, conv, vector dict)."""
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
+
+    def lin(p):
+        out = {"w": t(np.asarray(p["w"]).T)}
+        if "b" in p:
+            out["b"] = t(p["b"])
+        return out
+
+    def conv(p):
+        return {"w": t(np.asarray(p["w"]).transpose(3, 2, 0, 1))}
+
+    def vec(p):
+        return {k: t(v) for k, v in p.items()}
+
+    return t, lin, conv, vec
+
+
+def _heads_to_torch(params, device):
+    """The four heads of a ``mickey_tpu`` pytree -> the port's tensor dicts."""
+    _, lin, conv, vec = _converters(device)
+    out = {}
     for name in _HEADS:
         hp = params[name]
         head = {}
@@ -226,6 +241,16 @@ def params_to_torch(params, cfg, device="cpu"):
     return out
 
 
+def trainable_to_torch(tree, device="cpu"):
+    """``params_to_numpy``'s inverse: the heads and matcher of a
+    ``mickey_tpu`` pytree (numpy leaves) -> the port's trainable tensors, the
+    dustbin a 0-d tensor as ``split_trainable`` holds it. No grad flags."""
+    out = _heads_to_torch(tree, device)
+    out["matcher"] = {k: torch.tensor(float(np.asarray(v)), dtype=torch.float32, device=device)
+                      for k, v in tree["matcher"].items()}
+    return out
+
+
 # -- training: trainable split and the reverse bridge --------------------------------
 
 
@@ -241,6 +266,16 @@ def tree_leaves(tree, path=()):
     if isinstance(tree, (list, tuple)):
         return [leaf for i, v in enumerate(tree) for leaf in tree_leaves(v, path + (i,))]
     return [] if tree is None else [(path, tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from the iterator
+    ``leaves`` (None stays None)."""
+    if isinstance(tree, dict):
+        return {k: tree_unflatten(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_unflatten(v, leaves) for v in tree]
+    return None if tree is None else next(leaves)
 
 
 def split_trainable(params):

@@ -8,6 +8,7 @@ not the kernels. The script itself refuses to run without a GPU, which is
 checked too.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -676,3 +677,62 @@ def test_busy_time_is_the_union_of_device_intervals():
     prof = SimpleNamespace(events=lambda: [ev(20, 30), ev(0, 10), ev(5, 12), ev(21, 22),
                                            ev(0, 100, torch.autograd.DeviceType.CPU)])
     assert chip_smoke._busy_s(prof) == 22e-6
+
+
+def test_fit_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
+    """Phase 3e and its timing at a tiny size on the CPU: 2 train scenes of
+    5 queries and 2 val scenes of 10 at 130 x 116 (cropped to 126 x 112),
+    batches of 2 pairs, 2 steps an epoch, 2 validation batches; a ViT-S
+    backbone in bf16, as the default config's. Each kernel's plain version
+    runs, so the launch checks get the counts as the card would give them."""
+    cfg = _tiny_train_cfg()
+    cfg.MICKEY.DINOV2.FLOAT16 = True
+    cfg.DATASET.WIDTH, cfg.DATASET.HEIGHT = 116, 130
+    checked = []
+    monkeypatch.setattr(chip_smoke, "_launched", lambda launches, path, needed, absent=(): checked.append(
+        (path, needed, absent)))
+    monkeypatch.setattr(chip_smoke, "_once_per_solve", lambda launches, path, solves: checked.append((path, solves)))
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters=10, warmup=2: _wall_ms(fn))  # CUDA events need the card
+    errs = chip_smoke.check_fit_kernels(_tiny_kernel_inputs())
+    assert errs["flash_attention_packed"] < chip_smoke.ATTN_TOL and errs["hypothesis_scores"] == 0.0
+    (res, ctx), launches = chip_smoke._counted(lambda: chip_smoke.run_fit(
+        cfg, str(tmp_path), torch.device("cpu"), batch=2, samples=2, train_queries=5, val_queries=10))
+    assert ("fit", chip_smoke.FIT_KERNELS, chip_smoke.FIT_ABSENT) in checked and ("fit", 2) in checked
+    assert ("fit from the feature cache, train steps", chip_smoke.DENSE_MATCHER_KERNELS,
+            chip_smoke.ATTENTION_KERNELS) in checked
+    assert res["timing"]["steps"] == res["cached_timing"]["steps"] == 2 and res["keyframes"] == 2
+    assert res["cache_frames"] == 10 and res["cache_bytes_fp32"] == 2 * res["cache_bytes_bf16"] == 10 * 9 * 8 * 384 * 4
+    assert res["val_cached_vs_plain"] == 0.0 and res["image_panels"] == "ran: 6 panels"
+    assert set(launches) == {name for name, _, _ in chip_smoke.KERNELS}  # no launch on the CPU
+    times = chip_smoke.fit_times(ctx, runs=1, iters=1)
+    assert len(times["staged_step_ms_turns"]) == len(times["staged_default_bwd_ms_turns"]) == 1
+    assert times["grad_leaves"] > 0 and times["grad_leaves_apart_deterministic"] == 0
+    del ctx
+    # the timing's own split, cut here to 2 train scenes of 5 queries and 2 val
+    # scenes of 20, 4 pairs drawn a scene: 4 steps of 2, 4 validation batches
+    # in the sampler's seeded order, of which 2 find their keyframes held
+    monkeypatch.setattr(chip_smoke, "FIT_TIMING_TRAIN_QUERIES", 5)
+    monkeypatch.setattr(chip_smoke, "FIT_TIMING_SAMPLES", 4)
+    monkeypatch.setattr(chip_smoke, "FIT_TIMING_VAL_QUERIES", 20)
+    window = chip_smoke.fit_window_times(cfg, torch.device("cpu"), runs=1, batch=2)
+    assert window["fit"]["steps"] == window["fit_from_cache"]["steps"] == 4
+    assert window["val_pairs"] == 8 and window["val_batches"] == 4 and window["val_keyframe_hit_share"] == [0.5]
+    assert len(window["val_plain_s"]) == len(window["val_cached_s"]) == 1
+    c32, c16 = window["cache_float32"], window["cache_bfloat16"]
+    assert c32["frames"] == c16["frames"] == 10 and c32["bytes"] == 2 * c16["bytes"] == 10 * 9 * 8 * 384 * 4
+    assert "fit: ok" in chip_smoke.fit_line(res, errs)
+    line = chip_smoke.fit_timing_line(res, times, window, "card")
+    assert line.startswith("timing (fit): ok | card | ") and json.loads(line.split(" | ", 2)[2])["save_s"] > 0
+    assert "matplotlib yes" in chip_smoke.optional_line()
+
+
+def test_fit_checks_catch_a_difference():
+    """Resume and the cached step are held bitwise: one changed tensor fails."""
+    cfg = _tiny_train_cfg()
+    params = _tiny_params(cfg)
+    a, b = (MicKeyTrainer(cfg, params=params, device="cpu") for _ in range(2))
+    chip_smoke._same_state(a, b, "x")
+    with torch.no_grad():
+        b.state.opt_state.nu[3].add_(1e-30)
+    with pytest.raises(chip_smoke.SmokeError, match="1 parameter, moment or count"):
+        chip_smoke._same_state(a, b, "x")

@@ -165,6 +165,20 @@ def test_pad_to_multiple_matches_jax_on_images_and_batches(hw):
         assert cropped.shape == (3, 714, 532, 3)
 
 
+def test_crop_to_patches_takes_the_configured_patch_size():
+    """The one crop before the backbone: ``pad_to_multiple`` at
+    MICKEY.DINOV2.DOWN_FACTOR, on a numpy batch and on a tensor alike."""
+    import torch
+    from types import SimpleNamespace
+
+    batch = np.random.default_rng(3).integers(0, 255, (2, 130, 116, 3), dtype=np.uint8)
+    for df in (14, 8):
+        cfg = SimpleNamespace(MICKEY=SimpleNamespace(DINOV2=SimpleNamespace(DOWN_FACTOR=df)))
+        assert_same(io.crop_to_patches(batch, cfg), io.pad_to_multiple(batch, df))
+        assert torch.equal(io.crop_to_patches(torch.from_numpy(batch), cfg),
+                           torch.from_numpy(np.ascontiguousarray(io.pad_to_multiple(batch, df))))
+
+
 def test_reader_without_a_decoder_names_the_raw_cache(dataset, monkeypatch):
     monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 -> ImportError
     with pytest.raises(ImportError, match="raw-frame cache"):
@@ -292,14 +306,43 @@ def test_loader_without_a_decoder(dataset, tmp_path, monkeypatch):
     assert list(index["frames"]) == raw_cache.list_scene_frames(root / "val" / "s00000")
 
 
-def test_loader_stops_early_and_refuses_feature_cache_batches(dataset):
-    cfg, _ = data_cfgs(dataset, batch=1)
+def test_loader_stops_early_and_refuses_feature_cache_batches(dataset, tmp_path):
+    """A consumer may leave early. Feature-cache batches (``meta_only``)
+    refuse to read frames: they carry the pairs' metadata alone, bitwise the
+    JAX loader's, and with a feature cache handed to the loader its rows of
+    the batch's frames as ``fmap`` (image0 frames, then image1 frames). A
+    batch whose frames the cache lacks is refused: the gather's KeyError
+    reaches the consumer."""
+    from mickey_tpu.data.loader import DataLoader as JaxDataLoader
+    from mickey_tpu_torch.training.feature_cache import FeatureCache, frame_key
+
+    cfg, jcfg = data_cfgs(dataset, batch=1)
     loader = DataModule(cfg, drop_last_val=False).val_dataloader()
     for _ in zip(range(1), loader):  # a consumer that leaves after one batch
         pass
     assert len(list(loader)) == 4
-    with pytest.raises(NotImplementedError):
-        DataLoader(MapFreeDataset(cfg, "val"), 2, meta_only=True)
+    ours = list(DataLoader(MapFreeDataset(cfg, "val"), 2, meta_only=True))
+    ref = list(JaxDataLoader(JaxMapFreeDataset(jcfg, "val"), 2, meta_only=True, native_io=False))
+    assert len(ours) == len(ref) == 2 and "image0" not in ours[0]
+    for a, b in zip(ours, ref):
+        assert_same(a, b)
     cfg.TPU.FEATURE_CACHE = "features/"
-    with pytest.raises(NotImplementedError):
-        DataModule(cfg).train_dataloader()
+    train = DataModule(cfg).train_dataloader()
+    assert train.meta_only and train.feature_cache is None
+
+    class KeyCache:  # gathers the keys it is asked for
+        def gather(self, keys):
+            return list(keys)
+
+    train.feature_cache = KeyCache()
+    batch = next(iter(train))
+    pairs = list(zip(batch["scene_root"], batch["pair_names"]))
+    assert batch["fmap"] == [frame_key(sr, p[0]) for sr, p in pairs] + [frame_key(sr, p[1]) for sr, p in pairs]
+
+    # a cache of one frame that is not in the split
+    (tmp_path / "meta.json").write_text(json.dumps({"dtype": "float32", "fmap_shape": [1, 1, 2],
+                                                    "keys": {"elsewhere.jpg": 0}, "fingerprint": {}}))
+    np.zeros((1, 1, 1, 2), np.float32).tofile(tmp_path / "features.dat")
+    train.feature_cache = FeatureCache(tmp_path)
+    with pytest.raises(KeyError, match="not in the feature cache"):
+        next(iter(train))

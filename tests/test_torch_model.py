@@ -146,11 +146,12 @@ def _port_modules():
 
 def test_import_leaves_jax_out():
     """Importing every module of the port and chip_smoke loads neither jax
-    nor any module of the JAX package."""
+    nor any module of the JAX package, nor ``ml_dtypes`` or ``orbax``; the
+    optional ``tensorboardX`` and ``matplotlib`` load only when used."""
     code = ("import sys, importlib\n"
             f"for m in {_port_modules()!r} + ['chip_smoke']: importlib.import_module(m)\n"
-            "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'mickey_tpu' or m.startswith('mickey_tpu.')))")
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'mickey_tpu', 'ml_dtypes', 'orbax', 'tensorboardX', 'matplotlib')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
                          cwd=str(PORT.parent))
     assert out.stdout.strip() == "[]"
@@ -158,7 +159,7 @@ def test_import_leaves_jax_out():
 
 def test_no_source_imports_the_jax_package():
     """An AST scan: no ``import mickey_tpu...`` / ``from mickey_tpu...`` (nor
-    jax) in the port or in chip_smoke.py."""
+    jax, ``ml_dtypes`` or ``orbax``) in the port or in chip_smoke.py."""
     bad = []
     for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -167,7 +168,8 @@ def test_no_source_imports_the_jax_package():
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
-            bad += [f"{path.name}: {n}" for n in names if n.split(".")[0] in ("mickey_tpu", "jax")]
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("mickey_tpu", "jax", "ml_dtypes", "orbax")]
     assert not bad, bad
 
 
