@@ -69,8 +69,25 @@ Phases, one line each, any failure exits non-zero:
              feature cache's fp32 rows bitwise the train step's maps, a
              cached step bitwise a staged one, bf16 rows their rounding, an
              epoch with ``--feature_cache`` with no attention launch; the
-             image panels where matplotlib imports; K1 and K3 against their
+             image panels where cv2 imports; K1 and K3 against their
              plain versions at the fit's shapes first;
+   demo and variants (3f) - the demo CLI's entry (``cli.demo``, parsed
+             arguments, default config, random weights, ``--save_matches
+             --generate_3D_vis``) on two 720 x 540 JPEGs written to a
+             temporary directory: R, t and the confidence finite, the model
+             saw 714 x 532 (``pad_to_multiple`` cuts to the patch grid), six
+             images written, decoded and of their sizes, the dense route's
+             kernels (K3 once) and neither K2b nor K1b, a second run's files
+             byte for byte the first's; the int8 backbone
+             (``MICKEY.DINOV2.INT8``) at B = 2 in both layouts and the full
+             output: finite, the serving kernels launched, ``torch._int_mm``'s
+             products bitwise the plain fp64 ones at the four block linears,
+             per-token cosine to the bf16 backbone > 0.995, a small input
+             against the plain CPU path; the ViT-g/14 SwiGLU backbone
+             (``vit_giant2``, 1536 channels, a synthetic DINOv2-g state dict
+             with ``mlp.w12`` / ``mlp.w3``) in bf16 and int8: the general
+             layout and the full output finite, K1 at 24 heads of 64, the
+             first 4 blocks on a small input against the plain CPU path;
 4. timing  - CUDA-event medians of both serving layouts (pairs/s) and their
              stages, of the exact path and its stages, of the default
              config's full output, of the train step and its stages on both
@@ -94,10 +111,14 @@ Phases, one line each, any failure exits non-zero:
              keyframe hit share, the cache's build rate and bytes; the
              staged step (in turns with it on PyTorch's default backward
              kernels) against the cached-feature step, CUDA events; and
-             checkpoint save and restore seconds.
+             checkpoint save and restore seconds; and phase 3f's: the int8
+             and bf16 backbone stages and general calls at B = 2 and 12, the
+             four block linears' int8 passes (quantize, ``torch._int_mm``,
+             dequantize) against bf16 ``F.linear``, the ViT-g/14 backbone in
+             bf16 and int8, and the demo's wall seconds and model call.
 
 ``python3 chip_smoke.py --submission`` runs the submission phase and its
-timing alone; ``--fit`` the training entry point's.
+timing alone; ``--fit`` the training entry point's; ``--demo`` phase 3f's.
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
@@ -1028,29 +1049,31 @@ def check_dense_table(model, image0, image1, K0, K1) -> dict:
             "global_topP_recall": recall, "global_topP_mass": mass}
 
 
-def upstream_state_dicts(params):
-    """The upstream release's two state dicts, made from a ``mickey_tpu``
-    layout params tree by inverting the converters (HWIO -> OIHW, (in, out)
-    -> (out, in), head-major qkv -> [q|k|v], stacked -> numbered): the
-    Lightning checkpoint's ``state_dict`` (heads and matcher, with the
-    ``compute_matches.`` prefix) and the DINOv2 ``.pth``."""
-    from mickey_tpu_torch.training.checkpoint import HEAD_OUT_KEY
+def _T(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a copy; 0-d stays 0-d
 
-    def T(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a copy; 0-d stays 0-d
 
-    def conv(a):
-        return T(np.asarray(a).transpose(3, 2, 0, 1))
+def _T_conv(a):
+    return _T(np.asarray(a).transpose(3, 2, 0, 1))
 
-    def lin(a):
-        return T(np.asarray(a).T)
 
-    vit = params["dinov2"]
-    dino = {"patch_embed.proj.weight": conv(vit["patch_embed"]["w"]), "patch_embed.proj.bias": T(vit["patch_embed"]["b"]),
-            "cls_token": T(vit["cls_token"]), "pos_embed": T(vit["pos_embed"]),
-            "norm.weight": T(vit["norm"]["scale"]), "norm.bias": T(vit["norm"]["bias"])}
+def _T_lin(a):
+    return _T(np.asarray(a).T)
+
+
+def dinov2_state_dict(vit):
+    """A DINOv2 ``.pth`` state dict made from a ``mickey_tpu`` layout ViT
+    tree by inverting ``convert_dinov2_state_dict`` (HWIO -> OIHW, (in, out)
+    -> (out, in), head-major qkv -> [q|k|v], stacked -> numbered): the MLP's
+    ``mlp.fc1`` / ``mlp.fc2`` or, for ViT-g/14, the SwiGLU's ``mlp.w12`` /
+    ``mlp.w3``."""
+    dino = {"patch_embed.proj.weight": _T_conv(vit["patch_embed"]["w"]),
+            "patch_embed.proj.bias": _T(vit["patch_embed"]["b"]), "cls_token": _T(vit["cls_token"]),
+            "pos_embed": _T(vit["pos_embed"]), "norm.weight": _T(vit["norm"]["scale"]),
+            "norm.bias": _T(vit["norm"]["bias"])}
     blocks = vit["blocks"]
     heads = {384: 6, 768: 12, 1024: 16, 1536: 24}[np.asarray(blocks["norm1"]["scale"]).shape[1]]
+    mlp = ("fc1", "fc2") if "fc1" in blocks["mlp"] else ("w12", "w3")
     for i in range(np.asarray(blocks["norm1"]["scale"]).shape[0]):
         pre = f"blocks.{i}."
         get = lambda *path: np.asarray(functools.reduce(lambda d, k: d[k], path, blocks))[i]  # noqa: E731
@@ -1058,41 +1081,52 @@ def upstream_state_dicts(params):
         cin, c3 = w.shape
         w = w.reshape(cin, heads, 3, c3 // (3 * heads)).transpose(0, 2, 1, 3).reshape(cin, c3)
         b = b.reshape(heads, 3, c3 // (3 * heads)).transpose(1, 0, 2).reshape(c3)
-        dino.update({pre + "attn.qkv.weight": lin(w), pre + "attn.qkv.bias": T(b)})
-        for name, path in (("attn.proj", ("attn", "proj")), ("mlp.fc1", ("mlp", "fc1")), ("mlp.fc2", ("mlp", "fc2"))):
-            dino.update({f"{pre}{name}.weight": lin(get(*path, "w")), f"{pre}{name}.bias": T(get(*path, "b"))})
+        dino.update({pre + "attn.qkv.weight": _T_lin(w), pre + "attn.qkv.bias": _T(b)})
+        for name, path in (("attn.proj", ("attn", "proj")), *((f"mlp.{m}", ("mlp", m)) for m in mlp)):
+            dino.update({f"{pre}{name}.weight": _T_lin(get(*path, "w")), f"{pre}{name}.bias": _T(get(*path, "b"))})
         for n in ("norm1", "norm2"):
-            dino.update({f"{pre}{n}.weight": T(get(n, "scale")), f"{pre}{n}.bias": T(get(n, "bias"))})
+            dino.update({f"{pre}{n}.weight": _T(get(n, "scale")), f"{pre}{n}.bias": _T(get(n, "bias"))})
         for n in ("ls1", "ls2"):
-            dino[f"{pre}{n}.gamma"] = T(get(n, "gamma"))
+            dino[f"{pre}{n}.gamma"] = _T(get(n, "gamma"))
+    return dino
 
+
+def upstream_state_dicts(params):
+    """The upstream release's two state dicts, made from a ``mickey_tpu``
+    layout params tree by inverting the converters: the Lightning
+    checkpoint's ``state_dict`` (heads and matcher, with the
+    ``compute_matches.`` prefix) and the DINOv2 ``.pth``
+    (``dinov2_state_dict``)."""
+    from mickey_tpu_torch.training.checkpoint import HEAD_OUT_KEY
+
+    dino = dinov2_state_dict(params["dinov2"])
     sd = {}
     for head, out_key in HEAD_OUT_KEY.items():
         pre, hp = f"compute_matches.extractor.{head}.", params[head]
         for r in range(1, 5):
             blk, bp = f"{pre}resblock{r}.", hp[f"resblock{r}"]
             for c in ("conv1", "conv2"):
-                sd[f"{blk}{c}.weight"] = conv(bp[c]["w"])
+                sd[f"{blk}{c}.weight"] = _T_conv(bp[c]["w"])
             if "shortcut" in bp:
-                sd[f"{blk}shortcut.0.weight"] = conv(bp["shortcut"]["w"])
+                sd[f"{blk}shortcut.0.weight"] = _T_conv(bp["shortcut"]["w"])
             for bn in ("bn1", "bn2"):
                 if bn in bp:
                     for ours, theirs in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
                                          ("var", "running_var")):
-                        sd[f"{blk}{bn}.{theirs}"] = T(bp[bn][ours])
+                        sd[f"{blk}{bn}.{theirs}"] = _T(bp[bn][ours])
         layers = hp["att"]["layers"]
         for i in range(np.asarray(layers["q_proj"]["w"]).shape[0]):
             lp = f"{pre}att_layer.layers.{i}."
             for ours, theirs in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"), ("merge", "merge"),
                                  ("mlp_fc1", "mlp.0"), ("mlp_fc2", "mlp.2")):
-                sd[f"{lp}{theirs}.weight"] = lin(np.asarray(layers[ours]["w"])[i])
+                sd[f"{lp}{theirs}.weight"] = _T_lin(np.asarray(layers[ours]["w"])[i])
             for n in ("norm1", "norm2"):
-                sd[f"{lp}{n}.weight"] = T(np.asarray(layers[n]["scale"])[i])
-                sd[f"{lp}{n}.bias"] = T(np.asarray(layers[n]["bias"])[i])
+                sd[f"{lp}{n}.weight"] = _T(np.asarray(layers[n]["scale"])[i])
+                sd[f"{lp}{n}.bias"] = _T(np.asarray(layers[n]["bias"])[i])
         if out_key:
-            sd[f"{pre}{out_key}.weight"] = conv(hp["out"]["w"])
+            sd[f"{pre}{out_key}.weight"] = _T_conv(hp["out"]["w"])
     if "dustbin_score" in params["matcher"]:
-        sd["compute_matches.matcher.matching_mat.dustbin_score"] = T(params["matcher"]["dustbin_score"])
+        sd["compute_matches.matcher.matching_mat.dustbin_score"] = _T(params["matcher"]["dustbin_score"])
     return sd, dino
 
 
@@ -1707,6 +1741,8 @@ def main() -> int:
         return submission_report(cfg, dev, card)
     if "--fit" in sys.argv[1:]:
         return fit_report(cfg, dev, card)
+    if "--demo" in sys.argv[1:]:
+        return demo_report(cfg, dev, card)
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
@@ -1781,7 +1817,6 @@ def main() -> int:
     table = check_dense_table(model, image0, image1, K0, K1)
     ckpt = check_checkpoint(cfg, params, dev, image0, image1, K0, K1)
     small_x = check_exact_against_plain(model_x, MickeyRelativePose(cfg_x, cpu_model.params, device="cpu"), *small_ims)
-    del cpu_model
     print(f"exact: ok | launches {exact_launches} | full output conf {full_x.inliers.tolist()} "
           f"valid {full_x.valid.tolist()} inliers {full_x.estimate.inlier_mask.sum(-1).tolist()} | dense lite conf "
           f"{outs_xd['general'].inliers.tolist()} shared {outs_xd['shared'].inliers.tolist()} | fp32 unpacked vs packed "
@@ -1822,6 +1857,14 @@ def main() -> int:
     gc.collect()
     fit_dir.cleanup()
 
+    # 3f. the demo CLI at full width on two 720 x 540 JPEGs, the int8
+    #     backbone, the ViT-g/14 SwiGLU backbone (bf16 and int8); their
+    #     timing taken now and printed after phase 4, their weights freed
+    variants_timing, variant_launches = run_demo_and_variants(cfg, model, cpu_model, dev, card, image0, image1,
+                                                              K0, K1, small_ims)
+    del cpu_model
+    gc.collect()
+
     # 4. timing
     B = image0.shape[0]
     key_feats = model.extract_feats(image0[:1])
@@ -1858,9 +1901,10 @@ def main() -> int:
     sub_dir.cleanup()
     print(f"timing (submission): ok | {card} | {json.dumps(submission_times(model, cfg))}", flush=True)
     print(fit_timing_line(fit, fit_timing, fit_window_times(cfg, dev), card), flush=True)
+    print(variants_timing, flush=True)
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
-            ablation_launches, *sub["launches"], fit_launches)
+            ablation_launches, *sub["launches"], fit_launches, *variant_launches)
     for n, e in fit_errs.items():  # the kernels checked again at the fit's shapes
         errs[n] = max(errs[n], e)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2970,7 +3014,7 @@ def run_fit(cfg, root, dev, *, batch: int = 8, samples: int = FIT_SAMPLES_A_SCEN
       bf16 rows bitwise the fp32 rows' rounding (within one bf16 ulp), then one
       epoch through the entry with ``--feature_cache`` on the bf16 cache,
       whose train steps launch no attention kernel and read no image;
-    - the image panels, where ``matplotlib`` imports.
+    - the image panels, where ``cv2`` imports.
 
     Returns (results, the trainers and batches ``fit_times`` times)."""
     from mickey_tpu_torch.data import DataModuleTraining
@@ -3089,10 +3133,10 @@ def run_fit(cfg, root, dev, *, batch: int = 8, samples: int = FIT_SAMPLES_A_SCEN
         raise SmokeError(f"fit from the feature cache: {from_cache.global_step} steps, batches {cprobe.keys[:1]}")
     res.update(cached_step_launches=step_launches, cached_timing=cprobe.timing(cdata.train))
 
-    # the image panels (LOG_IMAGES, off by default), where matplotlib and cv2 import
-    missing = [m for m in ("matplotlib", "cv2") if " yes" not in _imports((m,))]
-    if missing:
-        res["image_panels"] = f"skipped: {' and '.join(missing)} {'does' if len(missing) == 1 else 'do'} not import"
+    # the image panels (LOG_IMAGES, off by default), where cv2 imports (their
+    # colours come from the port's own tables, not from matplotlib)
+    if " yes" not in _imports(("cv2",)):
+        res["image_panels"] = "skipped: cv2 does not import"
     else:
         panels = []
         tr.log_image = lambda name, img, step=None: panels.append(name)
@@ -3282,6 +3326,430 @@ def fit_kernel_inputs(dev, cfg):
                          samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
                          old_images=1, old_seq=64, old_len=37)
 
+
+# -- 3f. the demo entry point and the backbone variants: int8, ViT-g/14 SwiGLU ------
+
+DEMO_KERNELS = ("flash_attention_packed", "col_lse", "pair_softmax", "hypothesis_scores")
+DEMO_ABSENT = ("flash_attention", "pair_topk")  # the full output's dense route, packed attention
+DEMO_FILES = ("im0.depth.jpg", "im1.depth.jpg", "im0.score.jpg", "im1.score.jpg", "im0.matches.jpg",
+              "im0.3d_vis.jpg")
+# the int8 and ViT-g runs: both serving layouts' lite outputs (fused top-K) and the full output (dense route)
+VARIANT_KERNELS = ("flash_attention_packed", "col_lse", "pair_topk", "hypothesis_scores", "pair_softmax")
+#  Int8 backbone: torch._int_mm's int32 products bitwise the plain fp64
+#      product (exact: int8 sums stay below 2^53); the int8 backbone's
+#      features against the bf16 backbone's on the same weights and images,
+#      per-token cosine above 0.995 (mickey_tpu's gate, tests/test_quant.py:89).
+INT8_MIN_COS = 0.995
+GIANT_CUT_DEPTH = 4  # the ViT-g/14 small-input check against the CPU runs the first 4 of its 40 blocks
+
+
+def write_demo_inputs(root, height: int = 720, width: int = 540, seed: int = SEED) -> None:
+    """Two ``height`` x ``width`` JPEGs (smooth random texture plus noise) and
+    an ``intrinsics.txt`` for them (f = 590 px, centred principal point) in
+    ``root``, as the demo reads them."""
+    import cv2
+
+    rng = np.random.default_rng(seed + 5)
+    root = Path(root)
+    for name in ("im0.jpg", "im1.jpg"):
+        base = cv2.resize(rng.uniform(0, 255, (height // 16, width // 16, 3)).astype(np.uint8), (width, height))
+        noisy = np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
+        if not cv2.imwrite(str(root / name), noisy):
+            raise SmokeError(f"cv2 could not write {root / name}")
+    (root / "intrinsics.txt").write_text("".join(f"{n} 590.0 590.0 {width / 2} {height / 2} {width} {height}\n"
+                                                 for n in ("im0.jpg", "im1.jpg")))
+
+
+def demo_argv(root, out: str) -> list:
+    root = Path(root)
+    return ["--im_path_ref", str(root / "im0.jpg"), "--im_path_dst", str(root / "im1.jpg"),
+            "--intrinsics", str(root / "intrinsics.txt"), "--checkpoint", "", "--save_matches",
+            "--generate_3D_vis", "--out_dir", str(root / out), "--seed", str(SEED)]
+
+
+def demo_image_sizes(h: int, w: int) -> dict:
+    """(H, W) of each file the demo writes for an ``h`` x ``w`` model input."""
+    side = int((w + 30) / 2.5)  # the render's 2D composite: bordered inputs scaled by 1 / 2.5 beside it
+    return {**{n: (h, w) for n in DEMO_FILES[:4]}, "im0.matches.jpg": (h, 2 * w + 50),
+            "im0.3d_vis.jpg": (720, 1000 + side + 100)}
+
+
+class _CallProbe:
+    """While open, ``MickeyRelativePose.__call__`` records the image sizes it
+    is given and its time (CUDA events on the card, the host clock on the
+    CPU, each call synchronised)."""
+
+    def __enter__(self):
+        from mickey_tpu_torch.models import MickeyRelativePose
+
+        self.sizes, self.ms, self._cls = set(), [], MickeyRelativePose
+        call = self._call = MickeyRelativePose.__call__
+
+        def probed(model, image0, image1, *args, **kwargs):
+            self.sizes.update((tuple(image0.shape[1:3]), tuple(image1.shape[1:3])))
+            if image0.is_cuda:
+                out = None
+
+                def run():
+                    nonlocal out
+                    out = call(model, image0, image1, *args, **kwargs)
+
+                self.ms.append(_elapsed_ms(run))
+                return out
+            t0 = time.perf_counter()
+            out = call(model, image0, image1, *args, **kwargs)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        MickeyRelativePose.__call__ = probed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__call__ = self._call
+
+
+def run_demo(root, model=None) -> dict:
+    """Phase 3f, demo: the demo CLI's entry (``cli.demo.run_demo_inference``
+    on parsed arguments: the default config, random weights, ``--save_matches
+    --generate_3D_vis --out_dir``) on the two JPEGs in ``root``, twice. R, t
+    and the confidence finite; the model saw the images cut to the patch grid
+    (720 x 540 -> 714 x 532, as ``mickey_tpu``'s demo cuts them); every file
+    written, decoded and of its size; the full output's dense-route kernels
+    launched (K3 once), neither K2b nor K1b; the second run's files byte for
+    byte the first's. ``model`` injects a model (CPU rehearsal); without it
+    the demo builds its own on the card."""
+    import cv2
+
+    from mickey_tpu_torch.cli import demo
+
+    res, files = {"seconds": []}, []
+    for out in ("demo", "demo_again"):
+        args = demo.parser().parse_args(demo_argv(root, out))
+        with _CallProbe() as probe:
+            t0 = time.perf_counter()
+            result, launches = _counted(lambda: demo.run_demo_inference(args, model=model))
+            res["seconds"].append(time.perf_counter() - t0)
+        files.append({n: (Path(root) / out / n).read_bytes() for n in DEMO_FILES})
+        res.setdefault("launches", launches)
+        res.setdefault("model_ms", []).extend(probe.ms)
+        res.setdefault("sizes", set()).update(probe.sizes)
+    _sync(result.R)
+    for name, v in (("R", result.R), ("t", result.t), ("confidence", result.inliers)):
+        if not bool(torch.isfinite(v).all()):
+            raise SmokeError(f"demo: {name} is not finite")
+    if len(res["sizes"]) != 1:
+        raise SmokeError(f"demo: the model saw images of {sorted(res['sizes'])}")
+    (h, w), = res["sizes"]
+    expect = demo_image_sizes(h, w)
+    for name, data in files[0].items():
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if img is None or img.shape[:2] != expect[name]:
+            raise SmokeError(f"demo: {name} {None if img is None else img.shape} is not an image of {expect[name]}")
+    if files[0] != files[1]:
+        raise SmokeError(f"demo: the second run wrote other bytes in {[n for n in DEMO_FILES if files[0][n] != files[1][n]]}")
+    _launched(res["launches"], "demo", DEMO_KERNELS, DEMO_ABSENT)
+    _once_per_solve(res["launches"], "demo", 1)
+    res.update(R=result.R[0].tolist(), t=result.t[0, 0].tolist(), confidence=float(result.inliers[0]),
+               valid=bool(result.valid[0]), model_saw=(h, w))
+    return res
+
+
+def demo_line(res: dict) -> str:
+    return (f"demo: ok | model saw {res['model_saw'][0]} x {res['model_saw'][1]} | conf {res['confidence']:.3f} "
+            f"valid {res['valid']} | t {[round(v, 4) for v in res['t']]} | launches {res['launches']} | files "
+            f"{len(DEMO_FILES)} written, decoded, of their sizes; second run byte-identical")
+
+
+def int8_model(model):
+    """``model``'s weights under ``MICKEY.DINOV2.INT8``: every block linear of
+    the backbone int8, and building again quantizes nothing twice."""
+    from mickey_tpu_torch.models import MickeyRelativePose
+
+    cfg_q = model.cfg.clone()
+    cfg_q.MICKEY.DINOV2.INT8 = True
+    model_q = MickeyRelativePose(cfg_q, model.params, device=model.device)
+    for bp in model_q.params["dinov2"]["blocks"]:
+        for sub in ("attn", "mlp"):
+            if not all(p["w_q"].dtype == torch.int8 for p in bp[sub].values()):
+                raise SmokeError("int8: a block linear is not quantized")
+    if MickeyRelativePose(cfg_q, model_q.params, device=model.device).params["dinov2"] is not model_q.params["dinov2"]:
+        raise SmokeError("int8: building the model again quantized the backbone again")
+    return model_q
+
+
+def block_linears(model_q) -> dict:
+    """{name: its quantized params} of the backbone's first block."""
+    bp = model_q.params["dinov2"]["blocks"][0]
+    return {k: p for sub in ("attn", "mlp") for k, p in bp[sub].items()}
+
+
+def check_int8_products(model_q, tokens: int, seed: int = SEED) -> dict:
+    """``int_mm`` (``torch._int_mm`` on the card) bitwise ``int_mm_plain`` at
+    each block linear's (M = ``tokens``, K, N), on int8 activations drawn
+    over [-127, 127] whose first row is all 127 (the largest sums)."""
+    from mickey_tpu_torch.nn import quant
+
+    gen = torch.Generator(device=model_q.device).manual_seed(seed)
+    shapes = {}
+    for name, p in block_linears(model_q).items():
+        n, k = p["w_q"].shape
+        x_q = torch.randint(-127, 128, (tokens, k), generator=gen, device=model_q.device).to(torch.int8)
+        x_q[0] = 127
+        if not torch.equal(quant.int_mm(x_q, p["w_q"]), quant.int_mm_plain(x_q, p["w_q"])):
+            raise SmokeError(f"int8: the {name} product ({tokens}, {k}) x ({k}, {n}) differs from the plain one")
+        shapes[name] = (tokens, k, n)
+    return shapes
+
+
+def token_cosine(model_a, model_b, image0, image1) -> float:
+    """The least cosine between the two models' backbone features of the
+    same token, over both images of every pair."""
+    from mickey_tpu_torch.nn.extractor import backbone_features
+
+    ims = torch.cat([image0, image1])
+    with torch.inference_mode():
+        a = backbone_features(model_a.params, ims, model_a.cfg)
+        b = backbone_features(model_b.params, ims, model_b.cfg)
+    return torch.nn.functional.cosine_similarity(a.reshape(-1, a.shape[-1]).double(),
+                                                 b.reshape(-1, b.shape[-1]).double(), dim=-1).min().item()
+
+
+class _HeadsProbe:
+    """While open, the backbone's packed attention records (heads, head dim)
+    of each call."""
+
+    def __enter__(self):
+        from mickey_tpu_torch.nn import dinov2
+
+        self.seen, self._mod, attn = set(), dinov2, dinov2.flash_attention_packed
+        self._attn = attn
+
+        def probed(qkv, num_heads):
+            self.seen.add((num_heads, qkv.shape[-1] // (3 * num_heads)))
+            return attn(qkv, num_heads)
+
+        dinov2.flash_attention_packed = probed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention_packed = self._attn
+
+
+def run_variant(model, image0, image1, K0, K1, what: str, layouts=("general",)) -> tuple:
+    """The serving ``layouts``' lite outputs and the full output of ``model``:
+    finite and of the right shapes, the serving and dense-route kernels
+    launched (K3 once a solve). Returns ((lite outputs, full output),
+    launches, {(heads, head dim)} of K1's calls)."""
+    with _HeadsProbe() as heads:
+        (outs, full), launches = _counted(lambda: (run_slice(model, image0, image1, K0, K1, layouts),
+                                                   run_full(model, image0, image1, K0, K1)))
+    _launched(launches, what, VARIANT_KERNELS, ("flash_attention",))
+    _once_per_solve(launches, what, len(layouts) + 1)
+    return (outs, full), launches, heads.seen
+
+
+def run_int8(model, cpu_model, image0, image1, K0, K1, small_ims) -> tuple:
+    """Phase 3f, int8: the default config with ``INT8=True`` on ``model``'s
+    weights, both serving layouts and the full output (outputs finite, the
+    serving and dense kernels launched as on the bf16 path, K1 on bf16 qkv);
+    its int32 products bitwise the plain ones at the four block linears with
+    M = the general call's tokens; its features against the bf16 backbone's
+    (per-token cosine > INT8_MIN_COS); a small input against the plain CPU
+    path (``check_against_plain``). Returns (results, launches, the int8 model)."""
+    model_q = int8_model(model)
+    (outs, full), launches, heads = run_variant(model_q, image0, image1, K0, K1, "int8", ("general", "shared"))
+    tokens = 2 * image0.shape[0] * (1 + (image0.shape[1] // 14) * (image0.shape[2] // 14))
+    shapes = check_int8_products(model_q, tokens)
+    cos = token_cosine(model_q, model, image0, image1)
+    if not cos > INT8_MIN_COS:
+        raise SmokeError(f"int8: backbone features' least per-token cosine to bf16 {cos:.6f} <= {INT8_MIN_COS}")
+    small = check_against_plain(model_q, int8_model(cpu_model), *small_ims)
+    res = {"launches": launches, "heads": sorted(heads), "products": shapes, "token_cos_min": cos,
+           "conf": outs["general"].inliers.tolist(), "shared_conf": outs["shared"].inliers.tolist(),
+           "full_conf": full.inliers.tolist(), "small": small}
+    return res, launches, model_q
+
+
+def swiglu_params(cfg_v, seed: int = SEED, depth: int | None = None):
+    """Seeded random weights for ``cfg_v`` with a SwiGLU ViT (ViT-g/14's FFN,
+    as ``vit_giant2`` in the ViT-g/14 configuration): the heads at its
+    channels from ``init_params_numpy`` (on a ViT-S stand-in, dropped), and
+    a DINOv2 state dict with ``mlp.w12`` / ``mlp.w3`` (``dinov2_state_dict``
+    of one numpy init of the ``VARIANT``, cut to ``depth`` blocks if given)
+    loaded through ``convert_dinov2_state_dict``."""
+    from mickey_tpu_torch.training.checkpoint import convert_dinov2_state_dict
+    from mickey_tpu_torch.weights import _vit_init, init_params_numpy
+
+    cfg_h = cfg_v.clone()
+    cfg_h.MICKEY.DINOV2.VARIANT = "vit_small"
+    params = init_params_numpy(cfg_h, seed)
+    vit = {"dinov2": _vit_init(np.random.default_rng(seed + 1), cfg_v.MICKEY.DINOV2.VARIANT, ffn_layer="swiglufused")}
+    if depth is not None:
+        vit = cut_depth(vit, depth)
+    params["dinov2"] = convert_dinov2_state_dict(dinov2_state_dict(vit["dinov2"]))
+    return params
+
+
+def cut_depth(params, depth: int):
+    """``params`` with the backbone's first ``depth`` blocks."""
+    vit = params["dinov2"]
+
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:depth]
+
+    return dict(params, dinov2=dict(vit, blocks=cut(vit["blocks"])))
+
+
+def run_giant(cfg_g, params_g, dev, image0, image1, K0, K1, small_ims, depth: int | None = None) -> tuple:
+    """Phase 3f, ViT-g/14: ``VARIANT="vit_giant2"``, ``CHANNEL_DIM=1536`` on
+    ``params_g`` (``swiglu_params``), bf16 and int8: the backbone all of its
+    variant's SwiGLU blocks (``depth`` of them if given: CPU rehearsal); the
+    general layout's lite output and the full output finite, the kernels
+    launched, K1 at the variant's heads of 64 (24 for ViT-g/14); then the
+    same weights cut to GIANT_CUT_DEPTH blocks on a small input against the
+    plain CPU path, bf16 and int8. Returns (results, launches per run, the
+    two models)."""
+    from mickey_tpu_torch.models import build_model
+    from mickey_tpu_torch.nn.dinov2 import VIT_CONFIGS, swiglu_hidden_dim
+
+    vc = VIT_CONFIGS[cfg_g.MICKEY.DINOV2.VARIANT]
+    dim, want_heads = vc["embed_dim"], {(vc["num_heads"], vc["embed_dim"] // vc["num_heads"])}
+    model_g = build_model(cfg_g, params_g, device=dev)
+    blk = model_g.params["dinov2"]["blocks"]
+    if (len(blk) != (depth or vc["depth"]) or set(blk[0]["mlp"]) != {"w12", "w3"}
+            or tuple(blk[0]["mlp"]["w12"]["w"].shape) != (2 * swiglu_hidden_dim(dim), dim)):
+        raise SmokeError(f"{cfg_g.MICKEY.DINOV2.VARIANT}: not the {vc['depth']}-block SwiGLU ViT of width {dim}")
+    model_gq = int8_model(model_g)
+    res, launches = {}, []
+    for name, m in (("bf16", model_g), ("int8", model_gq)):
+        (outs, full), ln, heads = run_variant(m, image0, image1, K0, K1, f"vit_giant2 {name}")
+        if heads != want_heads:
+            raise SmokeError(f"vit_giant2 {name}: attention ran at (heads, head dim) {sorted(heads)}, not {want_heads}")
+        launches.append(ln)
+        res[name] = {"launches": ln, "heads": sorted(heads), "conf": outs["general"].inliers.tolist(),
+                     "full_conf": full.inliers.tolist()}
+    cut = cut_depth(params_g, GIANT_CUT_DEPTH)
+    card, cpu = build_model(cfg_g, cut, device=dev), build_model(cfg_g, cut, device="cpu")
+    res["bf16"]["small"] = check_against_plain(card, cpu, *small_ims)
+    res["int8"]["small"] = check_against_plain(int8_model(card), int8_model(cpu), *small_ims)
+    return res, launches, (model_g, model_gq)
+
+
+def giant_config(cfg):
+    cfg_g = cfg.clone()
+    cfg_g.MICKEY.DINOV2.VARIANT = "vit_giant2"
+    cfg_g.MICKEY.DINOV2.CHANNEL_DIM = 1536
+    return cfg_g
+
+
+def linear_int8_times(model_q, tokens: int, reps: int = 10) -> dict:
+    """Per block linear of ``model_q`` at M = ``tokens`` bf16 activations:
+    ms of the activation quantization, ``int_mm`` (``torch._int_mm`` on the
+    (out, in) weight's transposed view) and, for the layout's sake, the same
+    product on a row-major (in, out) copy, the dequantization (scales, bias,
+    cast) and the whole ``linear_int8``, against bf16 ``F.linear`` on the same
+    weights (``time_many_ms``)."""
+    from mickey_tpu_torch.nn import quant
+
+    gen = torch.Generator(device=model_q.device).manual_seed(SEED)
+    out = {}
+    for name, p in block_linears(model_q).items():
+        n, k = p["w_q"].shape
+        x = torch.randn(tokens, k, generator=gen, device=model_q.device).to(torch.bfloat16)
+        w = (p["w_q"].float() * p["w_s"][:, None]).to(torch.bfloat16)
+        b = p["b"].to(torch.bfloat16)
+        x_q, a_s = quant.quantize_rows_int8(x)
+        y = quant.int_mm(x_q, p["w_q"])
+        w_kn = p["w_q"].t().contiguous()
+        out[name] = {
+            "quantize": time_many_ms(lambda: quant.quantize_rows_int8(x), reps=reps),
+            "int_mm": time_many_ms(lambda: quant.int_mm(x_q, p["w_q"]), reps=reps),
+            "int_mm_row_major_weight": time_many_ms(
+                (lambda: torch._int_mm(x_q, w_kn)) if x_q.is_cuda else (lambda: quant.int_mm_plain(x_q, p["w_q"])),
+                reps=reps),
+            "dequantize": time_many_ms(lambda: (y.float() * (a_s * p["w_s"]) + p["b"]).to(torch.bfloat16), reps=reps),
+            "linear_int8": time_many_ms(lambda: quant.linear_int8(p, x), reps=reps),
+            "bf16_linear": time_many_ms(lambda: torch.nn.functional.linear(x, w, b), reps=reps),
+            "shape": [tokens, k, n],
+        }
+        out[name] = {k2: (round(v, 4) if isinstance(v, float) else v) for k2, v in out[name].items()}
+    return out
+
+
+def variant_times(model, model_q, giant, dev, batches=(2, 12), height: int = 714, width: int = 532,
+                  iters: int = 5) -> dict:
+    """CUDA-event medians: the bf16 and int8 backbone stages and the whole
+    general call (lite) at B = 2 and at the submission batch B = 12, of
+    714 x 532 pairs; the four block linears int8 against bf16 at B = 2's
+    tokens; the ViT-g/14 backbone stage, bf16 and int8, at B = 2."""
+    from mickey_tpu_torch.nn.extractor import backbone_features
+
+    gen = torch.Generator(device=dev)
+    out = {}
+    for B in batches:
+        image0, image1, K0, K1 = slice_inputs(dev, pairs=B, height=height, width=width)
+        ims = torch.cat([image0, image1])
+        for name, m in (("bf16", model), ("int8", model_q)):
+            with torch.inference_mode():
+                out[f"B{B}_{name}_backbone"] = round(time_ms(lambda: backbone_features(m.params, ims, m.cfg),
+                                                             iters=iters), 3)
+            out[f"B{B}_{name}_general"] = round(time_ms(lambda: m(image0, image1, K0, K1, generator=gen.manual_seed(SEED),
+                                                                  lite=True), iters=iters), 3)
+        del image0, image1, K0, K1, ims
+    tokens = 2 * batches[0] * (1 + (height // 14) * (width // 14))
+    out["linears"] = linear_int8_times(model_q, tokens)
+    image0, image1, _, _ = slice_inputs(dev, pairs=batches[0], height=height, width=width)
+    ims = torch.cat([image0, image1])
+    for name, m in zip(("bf16", "int8"), giant):
+        with torch.inference_mode():
+            out[f"vit_giant2_B{batches[0]}_{name}_backbone"] = round(time_ms(lambda: backbone_features(m.params, ims, m.cfg),
+                                                                  iters=iters), 3)
+    return out
+
+
+def run_demo_and_variants(cfg, model, cpu_model, dev, card: str, image0, image1, K0, K1, small_ims) -> tuple:
+    """Phase 3f: the demo (``run_demo``, in a temporary directory), the int8
+    backbone (``run_int8``) and the ViT-g/14 SwiGLU backbone
+    (``run_giant``), each checked and printed; then their timing, taken now
+    so that the variants' weights are freed before phase 4. Returns (the
+    timing line, the launch counts of each counted run)."""
+    with tempfile.TemporaryDirectory(prefix="mickey_demo_") as root:
+        write_demo_inputs(root)
+        demo = run_demo(root)
+    print(demo_line(demo), flush=True)
+    q, q_launches, model_q = run_int8(model, cpu_model, image0, image1, K0, K1, small_ims)
+    print(f"int8: ok | launches {q_launches} | K1 at (heads, head dim) {q['heads']} | int32 products bitwise the "
+          f"plain ones at {q['products']} | backbone vs bf16 least per-token cosine {q['token_cos_min']:.6f} | conf "
+          f"{q['conf']} shared {q['shared_conf']} full {q['full_conf']} | small-input vs plain {q['small']}", flush=True)
+    cfg_g = giant_config(cfg)
+    g, g_launches, giant = run_giant(cfg_g, swiglu_params(cfg_g), dev, image0, image1, K0, K1, small_ims)
+    print(f"vit_giant2: ok | {len(giant[0].params['dinov2']['blocks'])} SwiGLU blocks | "
+          + " | ".join(f"{k}: launches {v['launches']} K1 at (heads, head dim) {v['heads']} conf {v['conf']} full "
+                       f"{v['full_conf']} small-input vs plain {v['small']}" for k, v in g.items()), flush=True)
+    times = variant_times(model, model_q, giant, dev)
+    times["demo_seconds"] = [round(s, 3) for s in demo["seconds"]]
+    times["demo_model_ms"] = [round(t, 3) for t in demo["model_ms"]]
+    return f"timing (demo and variants): ok | {card} | {json.dumps(times)}", [demo["launches"], q_launches, *g_launches]
+
+
+def demo_report(cfg, dev, card: str) -> int:
+    """``--demo``: phase 3f and its timing alone, at full width with the
+    seeded random weights."""
+    from mickey_tpu_torch.models import build_model
+    from mickey_tpu_torch.weights import init_params_numpy
+
+    t_start = time.perf_counter()
+    params = init_params_numpy(cfg, SEED)
+    model, cpu_model = build_model(cfg, params, device=dev), build_model(cfg, params, device="cpu")
+    line, launches = run_demo_and_variants(cfg, model, cpu_model, dev, card,
+                                           *slice_inputs(dev, pairs=2, height=714, width=532),
+                                           slice_inputs(dev, pairs=2, height=224, width=252))
+    print(line, flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s after the build | phase launches "
+          f"{ {k: sum(r[k] for r in launches) for k in launches[0]} }", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 if __name__ == "__main__":
     sys.exit(main())

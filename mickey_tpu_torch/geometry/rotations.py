@@ -1,5 +1,6 @@
-"""Quaternion / rotation-matrix utilities in numpy
-(``mickey_tpu/geometry/rotations.py``, its numpy functions).
+"""Quaternion / rotation-matrix utilities (``mickey_tpu/geometry/rotations.py``):
+the numpy functions, and ``quat2mat_torch``, the batched tensor counterpart
+of its ``quat2mat_jax``.
 
 The reference relies on ``transforms3d`` (qinverse/qmult/rotate_vector/
 quat2mat/mat2quat) for dataset pose composition and submission writing; these
@@ -10,6 +11,7 @@ transforms3d and the Map-free pose file format ``qw qx qy qz``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "qinverse",
@@ -140,3 +142,15 @@ def qmult_batch(a: np.ndarray, b: np.ndarray) -> np.ndarray:
         ],
         axis=-1,
     )
+
+
+def quat2mat_torch(q: torch.Tensor) -> torch.Tensor:
+    """Batched quaternions (..., 4) (w,x,y,z), normalized first -> (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    rows = (
+        (1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)),
+        (2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)),
+        (2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)),
+    )
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)

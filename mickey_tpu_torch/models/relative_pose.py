@@ -17,6 +17,10 @@ matcher routes, chosen as the JAX package chooses them:
 ``call_with_ref_feats`` takes the image0 side from a cached
 ``extract_feats`` result, so a scene's shared keyframe runs the backbone
 once; it returns the lite output.
+
+Under ``MICKEY.DINOV2.INT8`` the model quantizes its backbone's block
+linears when it is built (``nn.quant.vit_quantize_int8``, idempotent), so
+every entry above runs on the int8 tree.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..nn.extractor import (
     heads_apply,
     topk_correspondences_from_heads,
 )
+from ..nn.quant import vit_quantize_int8
 from ..solver.procrustes_ransac import Draws, PoseEstimate, estimate_pose_from_cfg, estimate_pose_topk_from_cfg
 
 
@@ -58,6 +63,8 @@ class MickeyRelativePose:
     def __init__(self, cfg, params, device="cuda"):
         self.cfg = cfg
         self.params = params
+        if cfg.MICKEY.DINOV2.get("INT8", False):
+            self.params = dict(params, dinov2=vit_quantize_int8(params["dinov2"]))
         self.device = torch.device(device)
 
     @torch.inference_mode()

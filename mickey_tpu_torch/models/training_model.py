@@ -77,6 +77,8 @@ class MicKeyTrainer:
                 path = resolve_dinov2_weights(dinov2_path)
                 if path:
                     params["dinov2"] = convert_dinov2_state_dict(load_torch_state_dict(path))
+        # the frozen backbone is never quantized here: MICKEY.DINOV2.INT8
+        # selects nothing in training, as in mickey_tpu's trainer
         self.state, self.backbone = init_train_state(cfg, params_to_torch(params, cfg, self.device))
         self.train_step = StagedTrainStep(cfg)
         self.val_step = ValStep(cfg)

@@ -1,6 +1,10 @@
 """Frozen DINOv2 ViT backbone (``mickey_tpu/nn/dinov2.py``), inference only.
 
-Patch-14 ViT with LayerScale, pre-norm blocks and exact-GELU MLP. Compute
+Patch-14 ViT with LayerScale, pre-norm blocks and an exact-GELU MLP
+(``fc1``, ``fc2``) or, as DINOv2 ViT-g/14 has, a SwiGLU FFN (``w12``,
+``w3``). Every block linear goes through ``quant.maybe_linear``: the int8
+product where the tree was quantized (``MICKEY.DINOV2.INT8``), else the
+dtype's. Compute
 runs in the backbone dtype (bf16 by default; fp32 with
 ``MICKEY.DINOV2.FLOAT16=False``, the exact mode) with LayerNorm statistics in
 fp32. Attention goes through ``ops.flash_attention.flash_attention_packed``
@@ -21,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention, flash_attention_packed, qkv_heads
-from .common import layernorm, linear
+from .common import layernorm
+from .quant import maybe_linear
 
 VIT_CONFIGS = {
     "vit_small": dict(embed_dim=384, depth=12, num_heads=6),
@@ -29,6 +34,12 @@ VIT_CONFIGS = {
     "vit_large": dict(embed_dim=1024, depth=24, num_heads=16),
     "vit_giant2": dict(embed_dim=1536, depth=40, num_heads=24),
 }
+
+
+def swiglu_hidden_dim(dim: int, mlp_ratio: float = 4.0) -> int:
+    """The SwiGLU FFN's hidden size: 2/3 of the MLP's, rounded up to a
+    multiple of 8 (reference swiglu_ffn.py:56)."""
+    return (int(dim * mlp_ratio * 2 / 3) + 7) // 8 * 8
 
 
 def _torch_bicubic_matrix(n_src: int, n_dst: int, scale: float) -> np.ndarray:
@@ -75,15 +86,20 @@ def interpolate_pos_encoding(pos_embed: torch.Tensor, h0: int, w0: int) -> torch
 def block_apply(x: torch.Tensor, bp, num_heads: int, packed: bool = True) -> torch.Tensor:
     """One pre-norm ViT block with LayerScale; x (B, S, C) in the compute dtype."""
     h = layernorm(bp["norm1"], x.float(), eps=1e-6).to(x.dtype)
-    qkv = linear(bp["attn"]["qkv"], h)  # (B, S, 3C), head-major columns
+    qkv = maybe_linear(bp["attn"]["qkv"], h)  # (B, S, 3C), head-major columns, in x's dtype under int8 too
     if packed:
         attn = flash_attention_packed(qkv, num_heads)
     else:
         b, s, c3 = qkv.shape
         attn = flash_attention(*qkv_heads(qkv, num_heads), s).transpose(1, 2).reshape(b, s, c3 // 3)
-    x = x + bp["ls1"]["gamma"].to(x.dtype) * linear(bp["attn"]["proj"], attn)
+    x = x + bp["ls1"]["gamma"].to(x.dtype) * maybe_linear(bp["attn"]["proj"], attn)
     h = layernorm(bp["norm2"], x.float(), eps=1e-6).to(x.dtype)
-    h = linear(bp["mlp"]["fc2"], F.gelu(linear(bp["mlp"]["fc1"], h), approximate="none"))
+    mlp = bp["mlp"]
+    if "fc1" in mlp:
+        h = maybe_linear(mlp["fc2"], F.gelu(maybe_linear(mlp["fc1"], h), approximate="none"))
+    else:  # SwiGLU (swiglu_ffn.py:29-33)
+        h1, h2 = maybe_linear(mlp["w12"], h).chunk(2, dim=-1)
+        h = maybe_linear(mlp["w3"], F.silu(h1) * h2)
     return x + bp["ls2"]["gamma"].to(x.dtype) * h
 
 

@@ -1,7 +1,8 @@
 """Visualization utilities, numpy and ``cv2`` on the host
 (``mickey_tpu/utils/viz.py``): score heatmaps, depth colorization, match and
-REINFORCE-reward panels for the trainer's image logging. ``cv2`` and
-``matplotlib`` are imported when a function runs, as in the JAX package.
+REINFORCE-reward panels for the trainer's image logging. ``cv2`` is
+imported when a function runs, as in the JAX package; colours come from the
+port's own tables (``utils.colormaps``), not from matplotlib.
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+from .colormaps import lookup
 
 
 def colorize(
@@ -20,9 +23,8 @@ def colorize(
     invalid_mask: Optional[np.ndarray] = None,
     background_color=(0, 0, 0, 255),
 ) -> np.ndarray:
-    """Depth map -> RGBA uint8 (H, W, 4) via percentile normalization."""
-    import matplotlib
-
+    """Depth map -> RGBA uint8 (H, W, 4) via percentile normalization;
+    ``cmap`` names a table of ``utils.colormaps``."""
     value = np.asarray(value, dtype=np.float32).squeeze()
     if invalid_mask is None:
         invalid_mask = value == invalid_val
@@ -39,7 +41,7 @@ def colorize(
     value = (value - vmin) / (vmax - vmin) if vmin != vmax else value * 0.0
     value = value.astype(np.float64)
     value[invalid_mask] = np.nan
-    img = matplotlib.colormaps[cmap](value, bytes=True)
+    img = lookup(cmap, value)
     img[invalid_mask] = background_color
     return img
 

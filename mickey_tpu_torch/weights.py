@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from .nn.dinov2 import VIT_CONFIGS
+from .nn.dinov2 import VIT_CONFIGS, swiglu_hidden_dim
 
 _HEADS = ("det_head", "det_offset", "depth_head", "dsc_head")
 
@@ -70,13 +70,23 @@ def _stack(dicts):
     return np.stack(dicts)
 
 
-def _vit_init(rng, variant, img_size=518, patch=14, mlp_ratio=4.0):
+def _vit_init(rng, variant, img_size=518, patch=14, mlp_ratio=4.0, ffn_layer="mlp"):
+    """``vit_init``'s tree: ``ffn_layer`` "mlp" (fc1, fc2) or "swiglu" /
+    "swiglufused" (w12, w3; DINOv2 ViT-g/14)."""
     c = VIT_CONFIGS[variant]
     dim, depth = c["embed_dim"], c["depth"]
-    hidden = int(dim * mlp_ratio)
 
     def lin(cin, cout):
         return {"w": _trunc_normal(rng, (cin, cout)), "b": _uniform(rng, (cout,), 1.0 / math.sqrt(cin))}
+
+    def mlp():
+        if ffn_layer == "mlp":
+            hidden = int(dim * mlp_ratio)
+            return {"fc1": lin(dim, hidden), "fc2": lin(hidden, dim)}
+        if ffn_layer in ("swiglu", "swiglufused"):
+            sh = swiglu_hidden_dim(dim, mlp_ratio)
+            return {"w12": lin(dim, 2 * sh), "w3": lin(sh, dim)}
+        raise NotImplementedError(ffn_layer)
 
     blocks = [
         {
@@ -84,7 +94,7 @@ def _vit_init(rng, variant, img_size=518, patch=14, mlp_ratio=4.0):
             "attn": {"qkv": lin(dim, 3 * dim), "proj": lin(dim, dim)},
             "ls1": {"gamma": np.ones(dim, np.float32)},
             "norm2": _ln_init(dim),
-            "mlp": {"fc1": lin(dim, hidden), "fc2": lin(hidden, dim)},
+            "mlp": mlp(),
             "ls2": {"gamma": np.ones(dim, np.float32)},
         }
         for _ in range(depth)
@@ -109,6 +119,12 @@ def _transformer_init(rng, d, num_layers=3):
         for _ in range(num_layers)
     ]
     return {"layers": _stack(layers)}
+
+
+def self_cross_transformer_init(rng, d_model: int = 128, num_layers: int = 3):
+    """``nn.linear_attention.self_cross_transformer``'s tree: ['self', 'cross']
+    * ``num_layers`` stacked encoder layers (``mickey_tpu``'s layout)."""
+    return _transformer_init(rng, d_model, 2 * num_layers)
 
 
 def _head_init(rng, cin, block_dims, last_dim, bn, out_channels):
@@ -164,21 +180,19 @@ def _unstack(tree):
 
 
 def params_to_torch(params, cfg, device="cpu"):
-    """``mickey_tpu`` param pytree (numpy leaves) -> the port's tensor dicts."""
-    if cfg.MICKEY.DINOV2.get("INT8", False):
-        raise NotImplementedError("the int8 backbone is not ported yet")
-
+    """``mickey_tpu`` param pytree (numpy leaves) -> the port's tensor dicts,
+    the backbone's MLP (fc1, fc2) or SwiGLU (w12, w3) linears alike. The
+    backbone stays fp32 under ``MICKEY.DINOV2.INT8``: the inference model
+    quantizes it (``MickeyRelativePose``), the trainer never does."""
     t, lin, _, vec = _converters(device)
     vit = params["dinov2"]
-    if "fc1" not in vit["blocks"]["mlp"]:
-        raise NotImplementedError("the SwiGLU ViT variant is not ported yet")
     blocks = [
         {
             "norm1": vec(bp["norm1"]),
             "attn": {"qkv": lin(bp["attn"]["qkv"]), "proj": lin(bp["attn"]["proj"])},
             "ls1": vec(bp["ls1"]),
             "norm2": vec(bp["norm2"]),
-            "mlp": {"fc1": lin(bp["mlp"]["fc1"]), "fc2": lin(bp["mlp"]["fc2"])},
+            "mlp": {k: lin(v) for k, v in bp["mlp"].items()},
             "ls2": vec(bp["ls2"]),
         }
         for bp in _unstack(vit["blocks"])

@@ -736,3 +736,77 @@ def test_fit_checks_catch_a_difference():
         b.state.opt_state.nu[3].add_(1e-30)
     with pytest.raises(chip_smoke.SmokeError, match="1 parameter, moment or count"):
         chip_smoke._same_state(a, b, "x")
+
+
+def _recorded_checks(monkeypatch):
+    checked = []
+    monkeypatch.setattr(chip_smoke, "_launched", lambda launches, path, needed, absent=(): checked.append(
+        (path, needed, absent)))
+    monkeypatch.setattr(chip_smoke, "_once_per_solve", lambda launches, path, solves: checked.append((path, solves)))
+    return checked
+
+
+def test_demo_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
+    """Phase 3f's demo at a tiny size on the CPU: two 172 x 200 JPEGs (cut to
+    168 x 196), the demo CLI's entry on parsed arguments with a tiny model
+    injected, twice. Each kernel's plain version runs, so the launch checks
+    get the counts as the card would give them."""
+    cfg = _tiny_cfg()
+    model = build_model(cfg, _tiny_params(cfg), device="cpu")
+    chip_smoke.write_demo_inputs(tmp_path, height=172, width=200)
+    assert (tmp_path / "intrinsics.txt").read_text().splitlines()[1] == "im1.jpg 590.0 590.0 100.0 86.0 200 172"
+    checked = _recorded_checks(monkeypatch)
+    res = chip_smoke.run_demo(tmp_path, model=model)
+    assert res["model_saw"] == (168, 196) and len(res["seconds"]) == len(res["model_ms"]) == 2
+    assert ("demo", chip_smoke.DEMO_KERNELS, chip_smoke.DEMO_ABSENT) in checked and ("demo", 1) in checked
+    assert sorted(p.name for p in (tmp_path / "demo").iterdir()) == sorted(chip_smoke.DEMO_FILES)
+    assert "demo: ok | model saw 168 x 196" in chip_smoke.demo_line(res)
+    assert chip_smoke.demo_image_sizes(714, 532)["im0.3d_vis.jpg"] == (720, 1324)
+    monkeypatch.setattr(chip_smoke, "demo_image_sizes", lambda h, w: {n: (h + 1, w) for n in chip_smoke.DEMO_FILES})
+    with pytest.raises(chip_smoke.SmokeError, match="is not an image of"):
+        chip_smoke.run_demo(tmp_path, model=model)
+
+
+def test_int8_and_giant_phase_rehearsal(monkeypatch, one_torch_thread):
+    """Phase 3f's int8 and SwiGLU runs at a tiny size on the CPU: the int8
+    model on the tiny bf16 model's weights (both layouts, the full output,
+    the products, the per-token cosine, the small input against itself),
+    then the SwiGLU variant at ViT-S width and 2 blocks (the ViT-g/14 run's
+    code at its rehearsal size), and the timing with the host's clock."""
+    cfg = _tiny_cfg()
+    params = _tiny_params(cfg)
+    model, cpu_model = build_model(cfg, params, device="cpu"), build_model(cfg, params, device="cpu")
+    ims = chip_smoke.slice_inputs("cpu", pairs=2, height=112, width=140)
+    small = chip_smoke.slice_inputs("cpu", pairs=2, height=56, width=70)
+    checked = _recorded_checks(monkeypatch)
+    res, launches, model_q = chip_smoke.run_int8(model, cpu_model, *ims, small)
+    assert ("int8", chip_smoke.VARIANT_KERNELS, ("flash_attention",)) in checked and ("int8", 3) in checked
+    assert res["heads"] == [(6, 64)] and res["products"]["fc1"] == (4 * 81, 384, 1536)
+    assert res["token_cos_min"] > chip_smoke.INT8_MIN_COS and res["small"]["pose_rel"] == 0.0
+    assert model_q.params["dinov2"]["blocks"][0]["attn"]["qkv"]["w_q"].dtype == torch.int8
+
+    cfg_v = cfg.clone()
+    cfg_v.MICKEY.DINOV2.FLOAT16 = True
+    params_v = chip_smoke.swiglu_params(cfg_v, depth=2)
+    assert set(params_v["dinov2"]["blocks"]["mlp"]) == {"w12", "w3"}
+    g, g_launches, giant = chip_smoke.run_giant(cfg_v, params_v, "cpu", *ims, small, depth=2)
+    assert g["bf16"]["heads"] == g["int8"]["heads"] == [(6, 64)] and len(g_launches) == 2
+    assert g["int8"]["small"]["pose_rel"] == 0.0 and ("vit_giant2 int8", 2) in checked
+    with pytest.raises(chip_smoke.SmokeError, match="not the 12-block SwiGLU ViT"):
+        chip_smoke.run_giant(cfg_v, params_v, "cpu", *ims, small)
+
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters=10, warmup=2: _wall_ms(fn))  # CUDA events need the card
+    monkeypatch.setattr(chip_smoke, "time_many_ms", lambda fn, reps=20, iters=5: _wall_ms(fn))
+    times = chip_smoke.variant_times(model, model_q, giant, "cpu", batches=(2,), height=56, width=70, iters=1)
+    assert set(times["linears"]) == {"qkv", "proj", "fc1", "fc2"} and times["linears"]["fc2"]["shape"] == [84, 1536, 384]
+    assert {"B2_int8_backbone", "B2_bf16_general", "vit_giant2_B2_int8_backbone"} <= set(times)
+
+
+def test_int8_checks_catch_a_wrong_product(monkeypatch):
+    cfg = _tiny_cfg()
+    model_q = chip_smoke.int8_model(build_model(cfg, _tiny_params(cfg), device="cpu"))
+    from mickey_tpu_torch.nn import quant
+
+    monkeypatch.setattr(quant, "int_mm", lambda x_q, w_q: quant.int_mm_plain(x_q, w_q) + (x_q[:, :1] == 127).int())
+    with pytest.raises(chip_smoke.SmokeError, match="differs from the plain one"):
+        chip_smoke.check_int8_products(model_q, 20)
