@@ -117,8 +117,24 @@ Phases, one line each, any failure exits non-zero:
              dequantize) against bf16 ``F.linear``, the ViT-g/14 backbone in
              bf16 and int8, and the demo's wall seconds and model call.
 
+   ddp and ingest (3g) - the native JPEG ingest (``data/native.py``): built
+             or unavailable and why, its frames/s on 48 synthetic 540 x 720
+             JPEGs at 8 threads against cv2 sample by sample (alone and on 8
+             threads); the training step under the data-parallel layer
+             (``parallel.py``, ``data_parallel_steps``) at full width, B = 8
+             of 714x532: 3 steps in a world-1 NCCL group bitwise 3 steps with
+             no group, both step times; one step on two ranks (gloo on
+             cuda:0, or NCCL where there are two cards) against one process
+             at the small loss budget with injected draws, at DDP_RTOL and
+             GRAD_TOL, the kernels each rank launched; the submission CLI's
+             ``main`` on two ranks over a split like phase 3d's, its zip
+             byte for byte the zip of the same ranks' rows served here in
+             turn (the same draws), and the one-process zip's names in its
+             order.
+
 ``python3 chip_smoke.py --submission`` runs the submission phase and its
-timing alone; ``--fit`` the training entry point's; ``--demo`` phase 3f's.
+timing alone; ``--fit`` the training entry point's; ``--demo`` phase 3f's;
+``--ddp`` phase 3g's.
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
@@ -1743,6 +1759,8 @@ def main() -> int:
         return fit_report(cfg, dev, card)
     if "--demo" in sys.argv[1:]:
         return demo_report(cfg, dev, card)
+    if "--ddp" in sys.argv[1:]:
+        return ddp_report(cfg, dev, card)
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
@@ -1865,6 +1883,19 @@ def main() -> int:
     del cpu_model
     gc.collect()
 
+    # 3g. the native ingest; the train step under the data-parallel layer (a
+    #     world-1 NCCL group bitwise no group, two ranks against one
+    #     process); predict on two ranks over phase 3d's split
+    ddp_dir = tempfile.TemporaryDirectory(prefix="mickey_ddp_")
+    ingest = ingest_rates(ddp_dir.name)
+    ddp_train, ddp_launches = run_ddp_train(cfg, dev)
+    write_val_split(ddp_dir.name)
+    ddp_sub = run_ddp_submission(model, cfg, ddp_dir.name)
+    print(ddp_line(ingest, ddp_train, ddp_sub, card), flush=True)
+    ddp_dir.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 4. timing
     B = image0.shape[0]
     key_feats = model.extract_feats(image0[:1])
@@ -1904,7 +1935,7 @@ def main() -> int:
     print(variants_timing, flush=True)
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
-            ablation_launches, *sub["launches"], fit_launches, *variant_launches)
+            ablation_launches, *sub["launches"], fit_launches, *variant_launches, ddp_launches, ddp_sub["launches"])
     for n, e in fit_errs.items():  # the kernels checked again at the fit's shapes
         errs[n] = max(errs[n], e)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3747,6 +3778,356 @@ def demo_report(cfg, dev, card: str) -> int:
     print(line, flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s after the build | phase launches "
           f"{ {k: sum(r[k] for r in launches) for k in launches[0]} }", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# -- phase 3g: the data-parallel layer and the native ingest ---------------------------------
+#  2 ranks against one process (``run_ddp_train``): the same global batch of
+#  B = 8 at 714 x 532 and the same injected loss draws, at the small loss
+#  budget of ``small_loss_cfg`` (a refinement threshold flip moves the loss
+#  by ~1e-3 at the full one). Only the order of the sums differs (the
+#  BatchNorm statistics from all-reduced sums, the gradient a sum over the
+#  ranks) and each rank runs the backbone on 4 pairs, not 8 (cuBLAS may take
+#  another algorithm): the first step's loss and grad norm at DDP_RTOL
+#  relative, BN running stats at DDP_RTOL relative, Adam's first moments
+#  (0.1 x the summed gradient) at GRAD_TOL normwise per leaf; both ranks'
+#  states bitwise equal. The later steps' loss and grad norm are held only at
+#  DDP_LATER_RTOL relative: Adam's first update moves an entry whose gradient
+#  is near 0 by lr times a sign a rounding can flip, so the two runs' states
+#  part after step 1 (measured on the card: 4.8e-3 and 9.4e-3 at steps 2
+#  and 3), yet a fault fed back from step 1 (BatchNorm's running stats, a
+#  rank's state drifting from the broadcast one) moves them by far more.
+DDP_RTOL = 1e-3
+DDP_LATER_RTOL = 5e-2
+INGEST_JPEGS = 48
+
+
+def write_jpegs(root, n: int = INGEST_JPEGS, height: int = 720, width: int = 540, seed: int = SEED) -> list:
+    """``n`` seeded JPEGs of ``width`` x ``height`` under ``root`` (smooth
+    random fields with noise, quality 90), written with cv2; [] without it."""
+    try:
+        import cv2
+    except ImportError:
+        return []
+    rng = np.random.default_rng(seed + 5)
+    paths = []
+    for i in range(n):
+        coarse = rng.integers(0, 256, (height // 12, width // 12, 3), dtype=np.uint8)
+        im = cv2.resize(coarse, (width, height), interpolation=cv2.INTER_CUBIC).astype(np.int16)
+        im = np.clip(im + rng.integers(-8, 9, im.shape), 0, 255).astype(np.uint8)
+        paths.append(os.path.join(root, f"frame_{i:05}.jpg"))
+        cv2.imwrite(paths[-1], im, [cv2.IMWRITE_JPEG_QUALITY, 90])
+    return paths
+
+
+def ingest_rates(root, threads: int = 8, runs: int = 3) -> dict:
+    """The native ingest (``data/native.py``): whether it built here (and why
+    not), then its frames/s on ``INGEST_JPEGS`` synthetic 540 x 720 JPEGs in
+    one call of ``threads`` threads, against the loader's fallback, cv2 sample
+    by sample (``data.io.read_color_image``) alone and on a pool of
+    ``threads`` threads, best of ``runs``, the host clock; and the mean
+    |difference| of their pixels (libjpeg and cv2's resize are not cv2's
+    decode)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mickey_tpu_torch.data import native
+    from mickey_tpu_torch.data.io import read_color_image
+
+    res = {"native": "built" if native.ensure_built() is not None else f"unavailable ({native.unavailable_reason()})"}
+    paths = write_jpegs(root)
+    if not paths:
+        res["rates"] = "not measured: cv2 does not import, no JPEG to decode"
+        return res
+    size = (540, 720)
+
+    def best(fn):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return len(paths) / min(times), out
+
+    res["cv2_fps"], ref = best(lambda: np.stack([read_color_image(p, size) for p in paths]))
+    with ThreadPoolExecutor(threads) as pool:
+        res[f"cv2_{threads}_threads_fps"], _ = best(lambda: list(pool.map(lambda p: read_color_image(p, size), paths)))
+    if native.ensure_built() is not None:
+        res[f"native_{threads}_threads_fps"], out = best(
+            lambda: native.read_batch(paths, size[0], size[1], num_threads=threads))
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            raise SmokeError(f"ingest: native batch {out.shape}, not {ref.shape}, or not finite")
+        res["native_vs_cv2_mean_abs"] = float(np.abs(out - ref).mean())
+        if res["native_vs_cv2_mean_abs"] > 5e-3:  # tests/test_data_pipeline.py's bound for the JAX package's
+            raise SmokeError(f"ingest: native pixels {res['native_vs_cv2_mean_abs']:.3e} from cv2's on average")
+    res["jpegs"], res["cpus"] = len(paths), os.cpu_count()
+    return res
+
+
+def _dp_backend(dev) -> tuple:
+    """NCCL over two cards where there are two, else gloo with both ranks on
+    ``cuda:0`` (NCCL refuses two ranks on one card); gloo on the CPU for a
+    CPU rehearsal."""
+    if torch.device(dev).type != "cuda":
+        return "gloo", "cpu"
+    return ("nccl", None) if torch.cuda.device_count() >= 2 else ("gloo", "cuda:0")
+
+
+def run_ddp_train(cfg, dev, *, pairs: int = 8, height: int = 714, width: int = 532, steps: int = 3,
+                  launch_timeout: float = 600.0) -> dict:
+    """The training step under the data-parallel layer
+    (``parallel.data_parallel_steps``) at ``cfg``'s width:
+
+    - a world-1 NCCL group in this process against no group: ``steps``
+      steps from one seed, the trainables, both moments and every metric
+      bitwise; the step times of both (the host clock, synchronized);
+    - two ranks (``_dp_backend``) against one process, ``steps`` steps at
+      the small loss budget with the same injected draws each step: the
+      first step's metrics, BN running stats and Adam's first moments at
+      the tolerances above, the later steps' loss and grad norm at the
+      looser one; each step's time (the first holds each process's
+      warm-up).
+
+    Returns the checks' numbers and this process's kernel launches."""
+    from mickey_tpu_torch import parallel
+    from mickey_tpu_torch.parallel import data_parallel_steps
+
+    batch = {k: v.cpu().numpy() for k, v in train_batch(dev, pairs, height, width).items()}
+    res = {}
+    (plain, grouped), launches = _counted(lambda: _world_one(cfg, dev, batch, steps))
+    for k, a, b in (("first step's parameters", plain["first"]["params"], grouped["first"]["params"]),
+                    ("first step's moments", (plain["first"]["mu"], plain["first"]["nu"]),
+                     (grouped["first"]["mu"], grouped["first"]["nu"])),
+                    ("last step's parameters", plain["params"], grouped["params"])):
+        a, b = _flat(a), _flat(b)
+        if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise SmokeError(f"ddp: a world-1 NCCL group's {k} differ from no group's")
+    if plain["metrics"] != grouped["metrics"]:
+        raise SmokeError(f"ddp: a world-1 group's metrics {grouped['metrics']} differ from {plain['metrics']}")
+    res["world1_step_ms"] = {"no group": [t * 1e3 for t in plain["seconds"]],
+                             "nccl world 1": [t * 1e3 for t in grouped["seconds"]]}
+
+    small = small_loss_cfg(cfg)
+    gh = small.LOSS_CLASS.GENERATE_HYPOTHESES
+    df = int(cfg.MICKEY.DINOV2.DOWN_FACTOR)
+    idx, ridx = inject_draws(np.random.default_rng(SEED + 21), pairs, height // df, width // df, gh.IT_MATCHES,
+                             small.LOSS_CLASS.SAMPLER.NUM_SAMPLES_MATCHES, gh.IT_RANSAC, gh.NUM_CORR_3d3d)
+    override = (idx.numpy(), ridx.numpy())
+    one, one_launches = _counted(lambda: data_parallel_steps(small, batch, steps, SEED, override, device=dev))
+    _launched(one_launches, "ddp, one process", TRAIN_KERNELS)
+    backend, device = _dp_backend(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = parallel.launch(data_parallel_steps, 2, backend, device, args=(small, batch, steps, SEED, override),
+                          timeout_s=launch_timeout)
+    res["two_rank_launch_s"] = time.perf_counter() - t0
+    res["default_launch"] = default_launch_ranks()
+    for what, tree in (("first step's state", lambda t: t["first"]), ("last parameters", lambda t: t["params"])):
+        if not all(np.array_equal(x, y) for x, y in zip(_flat(tree(two[0])), _flat(tree(two[1])))):
+            raise SmokeError(f"ddp: the two ranks' {what} differ")
+    for r, t in enumerate(two):
+        _launched(t["launches"], f"ddp, rank {r}", TRAIN_KERNELS)
+
+    def rel(m1, m2):
+        return {k: abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12) for k in ("loss", "grad_norm", "loss_rot", "loss_trans")}
+
+    # the first step is held tight; Adam's first update moves an entry whose gradient is near 0 by lr
+    # times a sign that a rounding may flip, so the later steps are held loosely (constants above)
+    m1, m2 = one["metrics"][0], two[0]["metrics"][0]
+    errs = rel(m1, m2)
+    if m2["num_valid"] != m1["num_valid"] or max(errs.values()) > DDP_RTOL:
+        raise SmokeError(f"ddp: 2-rank metrics {m2} against one process's {m1}")
+    later = [rel(a, b) for a, b in zip(one["metrics"][1:], two[0]["metrics"][1:])]
+    for i, (e, a, b) in enumerate(zip(later, one["metrics"][1:], two[0]["metrics"][1:])):
+        if b["num_valid"] != a["num_valid"] or max(e["loss"], e["grad_norm"]) > DDP_LATER_RTOL:
+            raise SmokeError(f"ddp: step {i + 2}'s 2-rank metrics {b} against one process's {a}")
+    f1, f2 = one["first"], two[0]["first"]
+    bn = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+             for path, a, b in _leaves(f2["params"], f1["params"]) if path[-1] in ("mean", "var"))
+    if bn > DDP_RTOL:
+        raise SmokeError(f"ddp: 2-rank BN running stats {bn:.3e} from one process's")
+    mu = max(_norm_rel(torch.from_numpy(a), torch.from_numpy(b))
+             for path, a, b in _leaves(f2["mu"], f1["mu"]) if path[-1] not in ("mean", "var"))
+    if mu > GRAD_TOL:
+        raise SmokeError(f"ddp: 2-rank first moments {mu:.3e} normwise from one process's")
+    res.update(backend=f"{backend} on {device or 'cuda:0, cuda:1'}", metrics_rel=errs, bn_rel=bn, moments_rel=mu,
+               later_steps_metrics_rel=later,
+               one_process_step_ms=[t * 1e3 for t in one["seconds"]],
+               two_rank_step_ms=[[t * 1e3 for t in r["seconds"]] for r in two],
+               rank_launches=[t["launches"] for t in two])
+    return res, {k: launches[k] + one_launches[k] for k in launches}
+
+
+def default_launch_ranks() -> str:
+    """Two ranks by ``parallel.launch``'s default backend: NCCL, a card a
+    rank, where there are cards, so on one card the second rank raises
+    rather than running on the CPU; gloo on the CPU where there is none.
+    Returns what happened; raises SmokeError where a rank landed elsewhere."""
+    from mickey_tpu_torch import parallel
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    t0 = time.perf_counter()
+    try:
+        devices = [str(dp.device) for dp in parallel.launch(parallel.world, 2, timeout_s=120)]
+    except RuntimeError as e:
+        if cards == 1 and "asks for cuda:1" in str(e):
+            return f"refused in {time.perf_counter() - t0:.1f} s: rank 1 asks for cuda:1 on a one-card machine"
+        raise SmokeError(f"ddp: the default launch failed ({str(e)[-400:]})") from e
+    expected = [f"cuda:{r}" for r in range(2)] if cards else ["cpu", "cpu"]
+    if cards == 1 or devices != expected:
+        raise SmokeError(f"ddp: the default launch ran its ranks on {devices}, not {expected}")
+    return f"ranks on {devices} in {time.perf_counter() - t0:.1f} s"
+
+
+def _world_one(cfg, dev, batch, steps: int):
+    """``steps`` steps with no process group, then the same in a world-1
+    NCCL group (gloo on the CPU) joined by this process (and left after)."""
+    from mickey_tpu_torch import parallel
+    from mickey_tpu_torch.parallel import data_parallel_steps
+
+    plain = data_parallel_steps(cfg, batch, steps, SEED, device=dev)
+    with tempfile.TemporaryDirectory(prefix="mickey_rdv_") as tmp:
+        backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+        parallel.init_data_parallel(backend, dev, init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        try:
+            if parallel.world().size != 1:
+                raise SmokeError("ddp: the world-1 group has another size")
+            grouped = data_parallel_steps(cfg, batch, steps, SEED, device=dev)
+        finally:
+            parallel.close_data_parallel()
+    return plain, grouped
+
+
+def _leaves(a, b, path=()):
+    """(path, leaf of a, leaf of b) over two trees of dicts and lists of
+    arrays (None leaves skipped)."""
+    if a is None:
+        return
+    if isinstance(a, (dict, list, tuple)):
+        for k in (a if isinstance(a, dict) else range(len(a))):
+            yield from _leaves(a[k], b[k], path + (k,))
+    else:
+        yield path, np.asarray(a), np.asarray(b)
+
+
+def _flat(tree: dict) -> list:
+    return [a for _, a, _ in _leaves(tree, tree)]
+
+
+def run_ddp_submission(model, cfg, root, batch: int | None = None, launch_timeout: float = 600.0) -> dict:
+    """``predict`` on two ranks: the submission CLI's ``main`` on each
+    (``parallel.launch``; the model the CLI builds from no checkpoint,
+    ``init_params_numpy(cfg, 0)``, the weights of ``model``) on the
+    synthetic val split under ``root``, rank 0 writing the zip. Held against this process serving each
+    rank's rows in turn with that rank's generator and keyframe cache
+    (``_OneRankOfTwo``): the same draws, so the same zip byte for byte; and
+    against the one-process zip of the same split: the same names in the
+    same order (the draws differ, so the poses too; the largest |dt|
+    printed)."""
+    import argparse
+
+    from mickey_tpu_torch import parallel
+    from mickey_tpu_torch.cli import submission
+    from mickey_tpu_torch.data import DataModule, MapFreeDataset
+
+    cfg = cfg.clone()
+    cfg.DATASET.DATA_ROOT = str(root)
+    cfg_path = os.path.join(root, "ddp_config.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.dump())
+    argv = ["--config", cfg_path, "--split", "val", "-o", os.path.join(root, "ddp2")]
+    if batch:
+        argv += ["--batch_size", str(batch)]
+    backend, device = _dp_backend(model.device)
+    t0 = time.perf_counter()
+    parallel.launch(submission.main, 2, backend, device, args=(argv,), timeout_s=launch_timeout)
+    seconds = time.perf_counter() - t0
+    two = Path(root) / "ddp2" / "submission.zip"
+
+    # this process: each rank's rows in turn, then the one-process run
+    dev = model.device
+    cfg.TRAINING.NUM_WORKERS = 8
+    cfg.TRAINING.BATCH_SIZE = batch or 12
+    results = {}
+    for r in range(2):
+        loader = DataModule(cfg, drop_last_val=False).val_dataloader()
+        for scene, poses in submission.predict(loader, model, progress=False, dp=_OneRankOfTwo(r, 2, dev)).items():
+            results.setdefault(scene, []).extend(poses)
+    scenes = MapFreeDataset(cfg, "val").datasets
+    order = {d.scene_root.name: {n: i for i, n in enumerate(d.paths1)} for d in scenes}
+    results = {d.scene_root.name: sorted(results[d.scene_root.name], key=lambda p: order[d.scene_root.name][p.image_name])
+               for d in scenes if d.scene_root.name in results}
+    submission.save_submission(results, Path(root) / "ddp_serial.zip")
+    serial = Path(root) / "ddp_serial.zip"
+    args = argparse.Namespace(config="", dataset_config="", checkpoint="", dinov2=None,
+                              output_root=Path(root) / "ddp1", split="val", batch_size=batch, no_shared_ref=False)
+    (_, launches) = _counted(lambda: submission.eval_split(args, cfg=cfg.clone(), model=model))
+    one = Path(root) / "ddp1" / "submission.zip"
+    a, b = _zip_poses(two), _zip_poses(serial)
+    if list(a) != list(b) or a != b:
+        differ = [m for m in set(a) | set(b) if a.get(m) != b.get(m)]
+        raise SmokeError(f"ddp submission: the 2-rank zip differs from the ranks' rows served here ({differ})")
+    if two.read_bytes() != serial.read_bytes():
+        raise SmokeError("ddp submission: the 2-rank zip's bytes differ from the same poses' zip")
+    c = _zip_poses(one)
+    dt = 0.0
+    if list(c) != list(a):
+        raise SmokeError(f"ddp submission: members {list(a)} against one process's {list(c)}")
+    for member, text in a.items():
+        x = [ln.split(" ") for ln in text.decode().splitlines()]
+        y = [ln.split(" ") for ln in c[member].decode().splitlines()]
+        if [v[0] for v in x] != [v[0] for v in y]:
+            raise SmokeError(f"ddp submission: {member}'s names or order differ from one process's")
+        if x:
+            dt = max(dt, float(np.abs(np.array([v[5:8] for v in x], float) - np.array([v[5:8] for v in y], float)).max()))
+    return {"backend": f"{backend} on {device or 'cuda:0, cuda:1'}", "poses": sum(len(v) for v in results.values()),
+            "two_rank_s": seconds, "max_dt_vs_one_process": dt, "launches": launches}
+
+
+class _OneRankOfTwo:
+    """Rank ``rank`` of a group that this process plays alone, for
+    ``predict``: its rows, its folded generator, and a gather that places
+    its rows among the others' left NaN (whose poses ``predict`` skips as
+    non-finite) and its pairs' names in every rank's slot."""
+
+    def __init__(self, rank: int, size: int, device):
+        from mickey_tpu_torch.parallel import DataParallel
+
+        self.dp = DataParallel(rank, size, torch.device(device))
+        self.rank, self.size, self.device = rank, size, self.dp.device
+
+    def fold(self, generator):
+        return self.dp.fold(generator)
+
+    def all_gather_rows(self, x):
+        out = torch.full((self.size * x.shape[0],) + tuple(x.shape[1:]), float("nan"), dtype=x.dtype,
+                         device=x.device)
+        out[self.dp.rows(out.shape[0])] = x
+        return out
+
+    def all_gather_objects(self, obj):
+        return [obj] * self.size
+
+
+def ddp_line(ingest: dict, train: dict, sub: dict, card: str) -> str:
+    return (f"ddp: ok | {card} | ingest {json.dumps(ingest)} | train {json.dumps(train)} | "
+            f"submission {json.dumps({k: v for k, v in sub.items() if k != 'launches'})}")
+
+
+def ddp_report(cfg, dev, card: str) -> int:
+    """``--ddp``: phase 3g alone, at full width with the seeded random weights."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mickey_ddp_") as tmp:
+        ingest = ingest_rates(tmp)
+        train, _ = run_ddp_train(cfg, dev)
+        write_val_split(tmp)
+        from mickey_tpu_torch.models import build_model
+
+        sub = run_ddp_submission(build_model(cfg, device=dev), cfg, tmp)
+    print(ddp_line(ingest, train, sub, card), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s after the build", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,10 @@
 """Map-free submission CLI (``mickey_tpu/cli/submission.py``).
 
-Runs batched inference over the val or test split on one CUDA device and
-writes the per-scene ``pose_{scene}.txt`` files into ``submission.zip``, the
-file the Map-free benchmark scores (offline:
+Runs batched inference over the val or test split on one CUDA device, or on
+N under ``python -m torch.distributed.run --nproc_per_node=N -m
+mickey_tpu_torch.cli.submission ...`` (each rank serves its rows of every
+batch, rank 0 writes), and writes the per-scene ``pose_{scene}.txt`` files
+into ``submission.zip``, the file the Map-free benchmark scores (offline:
 ``python -m mickey_tpu_torch.evaluation.mapfree``).
 
 Usage:
@@ -13,14 +15,17 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 from collections import defaultdict
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 from zipfile import ZipFile, ZipInfo
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.io import crop_to_patches
 from ..geometry.rotations import mat2quat
 
@@ -48,7 +53,7 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(np.random.SeedSequence((seed, step)).generate_state(1)[0]))
 
 
-def predict(loader, model, progress: bool = True, shared_ref: bool = True):
+def predict(loader, model, progress: bool = True, shared_ref: bool = True, dp=None):
     """Batched inference on ``model.device`` -> {scene: [Pose, ...]}
     (reference submission.py:32-61).
 
@@ -67,7 +72,18 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True):
     images of every pair (``model(..., lite=True)``). The two agree up to the
     last bits of the keyframe's extract, taken alone or stacked with the
     batch. The solver's draws come from ``step_generator(SOLVER_SEED, step)``.
+
+    ``dp`` (by default ``parallel.world()``): with N ranks the loader reads
+    each rank's rows of every batch, padded to a multiple of N
+    (``DataLoader.shard``); each rank serves them with its own keyframe
+    cache and the step's generator folded with its rank
+    (``DataParallel.fold``), and the poses and the pairs' names are
+    all-gathered, so every rank returns the whole split's poses, the
+    padding dropped.
     """
+    dp = dp if dp is not None else parallel.world()
+    if dp.size > 1:
+        loader.shard = (dp.rank, dp.size)
     device = torch.device(model.device)
     results_dict = defaultdict(list)
     # (scene_id, ref_frame) -> the 4 extract maps, each (1, ...), on the
@@ -93,7 +109,7 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True):
         R_b = out.R.cpu().numpy()
         t_b = out.t.cpu().numpy()
         conf_b = out.inliers.cpu().numpy()
-        for i in range(len(R_b)):
+        for i in range(len(data["pair_names"])):
             R, t, conf = R_b[i], t_b[i].reshape(-1), float(conf_b[i])
             # skip frames without finite estimates (reference submission.py:51-52)
             if not (np.isfinite(R).all() and np.isfinite(t).all()):
@@ -129,16 +145,36 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True):
             image1 = to_device(crop_to_patches(data["image1"], model.cfg))
             K0, K1 = to_device(data["K_color0"]), to_device(data["K_color1"])
             generator = step_generator(device, SOLVER_SEED, step)
+            if dp.size > 1:
+                generator = dp.fold(generator)
             if shared_ref:
                 out = model.call_with_ref_feats(gather_ref_feats(data, image0), image1, K0, K1, generator=generator)
             else:
                 out = model(to_device(image0), image1, K0, K1, generator=generator, lite=True)
+            if dp.size > 1:
+                out, data = gather_batch(dp, out, data)
             if in_flight is not None:
                 drain(*in_flight)
             in_flight = (out, data)
         if in_flight is not None:
             drain(*in_flight)
     return results_dict
+
+
+class _Poses(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    inliers: torch.Tensor
+
+
+def gather_batch(dp, out, data: dict):
+    """Every rank's poses and pair names of a batch, in rank order, the
+    padding of the global batch (``data["global_batch"]`` pairs) dropped."""
+    real = data["global_batch"]
+    poses = _Poses(*(dp.all_gather_rows(x)[:real] for x in (out.R, out.t, out.inliers)))
+    names = dp.all_gather_objects((data["scene_id"], data["pair_names"]))
+    return poses, {"scene_id": [s for n in names for s in n[0]][:real],
+                   "pair_names": [p for n in names for p in n[1]][:real]}
 
 
 def save_submission(results_dict: dict, output_path: Path):
@@ -155,12 +191,19 @@ def save_submission(results_dict: dict, output_path: Path):
 def eval_split(args, cfg=None, model=None):
     """Run one split end to end. ``cfg`` / ``model`` let a caller inject a
     configuration and a model (a CPU model runs on the CPU); without a model
-    it is built on the CUDA device, and without one this raises."""
+    it is built on the CUDA device, and without one this raises. In a
+    data-parallel group it is built on the rank's device, and rank 0
+    writes; a group joined on the CPU of a machine with CUDA devices raises
+    unless the injected model is on the CPU (``main`` joins NCCL)."""
     from ..config import default_config
     from ..data.loader import DataModule
     from ..models import build_model
 
-    if model is None and not torch.cuda.is_available():
+    dp = parallel.world()
+    if dp.size > 1:
+        parallel.refuse_cpu_group(dp, asked_cpu=model is not None and torch.device(model.device).type == "cpu")
+    device = dp.device if dp.size > 1 else torch.device("cuda")
+    if model is None and device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the submission CLI serves on a CUDA device and none is available; "
                            "eval_split(args, model=...) takes a CPU model")
     if cfg is None:
@@ -181,15 +224,18 @@ def eval_split(args, cfg=None, model=None):
         raise NotImplementedError(f"Invalid split: {args.split}")
 
     if model is None:
-        model = build_model(cfg, checkpoint=args.checkpoint, dinov2_path=args.dinov2, device="cuda")
-    results_dict = predict(loader, model, shared_ref=not args.no_shared_ref)
+        model = build_model(cfg, checkpoint=args.checkpoint, dinov2_path=args.dinov2, device=device)
+    results_dict = predict(loader, model, shared_ref=not args.no_shared_ref, dp=dp)
 
-    args.output_root.mkdir(parents=True, exist_ok=True)
-    save_submission(results_dict, args.output_root / "submission.zip")
-    print(f"Wrote {args.output_root / 'submission.zip'}")
+    if dp.rank == 0:
+        args.output_root.mkdir(parents=True, exist_ok=True)
+        save_submission(results_dict, args.output_root / "submission.zip")
+        print(f"Wrote {args.output_root / 'submission.zip'}")
 
 
-def main():
+def main(argv=None):
+    """The CLI (``argv``: its arguments, by default the command line's); a
+    rank that ``parallel.launch`` started serves in its group."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default="", help="model config yaml")
     parser.add_argument("--dataset_config", default="", help="dataset config yaml")
@@ -204,7 +250,14 @@ def main():
         help="disable the per-scene keyframe extract cache (recompute the "
         "reference frame for every pair, like the upstream reference)",
     )
-    eval_split(parser.parse_args())
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if distributed:  # NCCL on cuda:LOCAL_RANK: a rank without a card raises here
+        parallel.build_libraries_once(parallel.init_data_parallel("nccl"))
+    try:
+        eval_split(parser.parse_args(argv))
+    finally:
+        if distributed:
+            parallel.close_data_parallel()
 
 
 if __name__ == "__main__":

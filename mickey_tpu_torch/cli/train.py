@@ -1,8 +1,14 @@
-"""Training CLI (``mickey_tpu/cli/train.py``), on one card.
+"""Training CLI (``mickey_tpu/cli/train.py``), on one card or N.
 
 Usage:
     python -m mickey_tpu_torch.cli.train --config mickey_tpu_torch/configs/MicKey/curriculum_learning.yaml \
         --dataset_config mickey_tpu_torch/configs/datasets/mapfree.yaml --experiment my_run
+    python -m torch.distributed.run --nproc_per_node=N -m mickey_tpu_torch.cli.train ...
+
+Under ``torch.distributed.run`` (``WORLD_SIZE`` > 1) every rank joins one
+NCCL group on ``cuda:LOCAL_RANK`` and trains data-parallel
+(``models/training_model.py``): ``TRAINING.BATCH_SIZE`` is the global batch,
+the dataset seed is rank 0's, and rank 0 alone writes the run directory.
 
 Writes ``<path_weights>/<experiment name>/``: the merged config, the
 overlay, ``last/``, ``best_vcre/`` and ``best_pose/`` (native checkpoints,
@@ -38,7 +44,13 @@ def create_exp_name(exp_name: str, cfg) -> str:
 
 def train_model(args, cfg=None, device="cuda"):
     """One training run from ``args``; returns the trainer. ``cfg`` (default:
-    the merged config files) may be given by a caller."""
+    the merged config files) may be given by a caller. In a data-parallel
+    group (``parallel.world()``) the model runs on the rank's device; a
+    group joined on the CPU of a machine with CUDA devices raises unless
+    ``device`` is the CPU."""
+    import torch
+
+    from .. import parallel
     from ..config import default_config
     from ..data.loader import DataModuleTraining
     from ..models.training_model import MicKeyTrainer
@@ -52,22 +64,31 @@ def train_model(args, cfg=None, device="cuda"):
     if args.feature_cache:
         cfg.TPU.FEATURE_CACHE = args.feature_cache
 
+    dp = parallel.world()
+    if dp.size > 1:
+        parallel.refuse_cpu_group(dp, asked_cpu=torch.device(device).type == "cpu")
+        device = dp.device
+    main = dp.rank == 0
     exp_name = create_exp_name(args.experiment, cfg)
-    print("Start training of " + exp_name)
+    if main:
+        print("Start training of " + exp_name)
 
-    cfg.DATASET.SEED = random.randint(0, 1000000)
+    # every rank's sampler draws rank 0's sequence
+    cfg.DATASET.SEED = dp.broadcast_object(random.randint(0, 1000000))
 
     out_dir = os.path.join(args.path_weights, exp_name)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
-    if args.config:
-        shutil.copyfile(args.config, os.path.join(out_dir, "config_overlay.yaml"))
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+        if args.config:
+            shutil.copyfile(args.config, os.path.join(out_dir, "config_overlay.yaml"))
 
-    trainer = MicKeyTrainer(cfg, seed=args.seed, device=device, out_dir=out_dir)
+    trainer = MicKeyTrainer(cfg, seed=args.seed, device=device, out_dir=out_dir, dp=dp)
     datamodule = DataModuleTraining(cfg)
-    print("Training with {:.2f}/{:.2f} image overlap".format(cfg.DATASET.MIN_OVERLAP_SCORE,
-                                                            cfg.DATASET.MAX_OVERLAP_SCORE))
+    if main:
+        print("Training with {:.2f}/{:.2f} image overlap".format(cfg.DATASET.MIN_OVERLAP_SCORE,
+                                                                cfg.DATASET.MAX_OVERLAP_SCORE))
     trainer.fit(datamodule, resume_path=args.resume)
     return trainer
 
@@ -86,8 +107,19 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def main():
-    train_model(parser().parse_args())
+def main(argv=None):
+    """The CLI (``argv``: its arguments, by default the command line's); a
+    rank that ``parallel.launch`` started trains in its group."""
+    from .. import parallel
+
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if distributed:  # NCCL on cuda:LOCAL_RANK: a rank without a card raises here
+        parallel.build_libraries_once(parallel.init_data_parallel("nccl"))
+    try:
+        train_model(parser().parse_args(argv))
+    finally:
+        if distributed:
+            parallel.close_data_parallel()
 
 
 if __name__ == "__main__":

@@ -91,6 +91,10 @@ class Config(dict):
             node[parts[-1]] = value
 
     # -- lifecycle -----------------------------------------------------------
+    def __reduce__(self):
+        """Pickled as its plain dict (data-parallel ranks receive configs)."""
+        return _unpickle, (self.to_dict(), object.__getattribute__(self, "_frozen"))
+
     def clone(self) -> "Config":
         return Config(copy.deepcopy(self.to_dict()))
 
@@ -109,6 +113,11 @@ class Config(dict):
 
     def dump(self) -> str:
         return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+
+def _unpickle(d: Dict[str, Any], frozen: bool) -> Config:
+    cfg = Config(d)
+    return cfg.freeze() if frozen else cfg
 
 
 def default_config() -> Config:

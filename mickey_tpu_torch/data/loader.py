@@ -1,11 +1,22 @@
 """Threaded prefetching batch loader (``mickey_tpu/data/loader.py``).
 
 Batches are read while the card computes, behind a bounded prefetch queue of
-ready numpy batches. A batch whose every pair has a scene raw-frame cache
-(``data/raw_cache.py``) is a memcpy of uint8 frames; any other is decoded
-sample by sample (``MapFreeScene.__getitem__``, ``cv2``). Batches are dicts
-of stacked numpy arrays for array fields and lists for string fields, the
-collation contract of the reference's torch collate.
+ready numpy batches. A batch is read by the first of three backends that
+applies, in ``mickey_tpu``'s order:
+
+1. the raw-frame cache (``data/raw_cache.py``): when every pair of the batch
+   has a scene cache and no augmentation is configured, a memcpy of uint8
+   frames;
+2. the native ingest (``data/native.py``, ``csrc/mickey_io.cpp``): when
+   ``TRAINING.NATIVE_LOADER`` is on (the default), the dataset locates its
+   samples and no augmentation is configured, one call decodes, resizes
+   and scales the batch's 2B JPEGs on a pool of threads (float32 in
+   [0, 1], bitwise ``mickey_tpu``'s native batches). Where the library
+   cannot be built it warns once and the loader falls back for good;
+3. sample by sample (``MapFreeScene.__getitem__``, ``cv2``).
+
+Batches are dicts of stacked numpy arrays for array fields and lists for
+string fields, the collation contract of the reference's torch collate.
 
 Feature-cache training reads no frames: ``meta_only`` batches carry the
 pairs' metadata alone, and once the trainer hands the loader its
@@ -14,9 +25,10 @@ feature rows as ``batch["fmap"]`` ((2B, Hp, Wp, C), image0 rows then image1
 rows, a CPU tensor in the cache's dtype), gathered in the prefetch threads
 while the card computes.
 
-The JAX package's native C++ ingest (``data/native.py``,
-``native/mickey_io.cpp``: libjpeg and the Python C API) is not ported, so
-``TRAINING.NATIVE_LOADER`` selects nothing here.
+Under data parallelism the trainer sets ``shard = (rank, world)``: each
+batch of indices is padded to a multiple of ``world`` by repeating its last
+index (``parallel.pad_batch`` on the loaded arrays gives the same rows) and
+only this rank's contiguous rows are read.
 """
 
 from __future__ import annotations
@@ -75,6 +87,7 @@ class DataLoader:
         num_workers: int = 8,
         prefetch: int = 4,
         seed: int = 0,
+        native_io: bool = True,
         meta_only: bool = False,
     ):
         self.dataset = dataset
@@ -87,7 +100,22 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.seed = seed
+        self.native_io = native_io
+        self._native_batch = None  # the native backend's use, resolved at the first batch
+        self.shard = None  # (rank, world) under data parallelism, set by the trainer
         self._epoch = 0
+
+    def _native_usable(self) -> bool:
+        """The native ingest applies when it is asked for, the dataset
+        exposes per-sample paths and metadata, no augmentation is configured
+        and the library builds."""
+        if not self.native_io or not hasattr(self.dataset, "locate"):
+            return False
+        if any(getattr(d, "transforms", None) is not None for d in self.dataset.datasets):
+            return False
+        from .native import ensure_built
+
+        return ensure_built() is not None
 
     def _indices(self) -> List[int]:
         if self.sampler is not None:
@@ -156,6 +184,17 @@ class DataLoader:
             stop.set()
 
     def _load_batch(self, idxs: List[int]) -> Dict:
+        """The batch of ``idxs``; under ``shard`` this rank's rows of it,
+        with the global batch's real size as ``batch["global_batch"]``."""
+        if self.shard is None:
+            return self._read_batch(idxs)
+        from ..parallel import shard_indices
+
+        batch = self._read_batch(shard_indices(idxs, *self.shard))
+        batch["global_batch"] = len(idxs)
+        return batch
+
+    def _read_batch(self, idxs: List[int]) -> Dict:
         if self.meta_only:
             batch = collate([self._meta(i) for i in idxs])
             if self.feature_cache is not None:
@@ -168,6 +207,13 @@ class DataLoader:
         batch = self._load_batch_rawcache(idxs)
         if batch is not None:
             return batch
+        if self._native_batch is None:
+            self._native_batch = self._native_usable()
+        if self._native_batch:
+            batch = self._load_batch_native(idxs)
+            if batch is not None:
+                return batch
+            self._native_batch = False  # the backend failed: fall back for good
         return collate([self.dataset[i] for i in idxs])
 
     def _meta(self, i: int) -> Dict:
@@ -191,6 +237,23 @@ class DataLoader:
             s = ds.sample_meta(local)
             s["image0"], s["image1"] = imgs
             samples.append(s)
+        return collate(samples)
+
+    def _load_batch_native(self, idxs: List[int]) -> Dict:
+        """One native call decodes the whole batch (2B JPEGs)."""
+        from .native import read_batch
+
+        samples, paths, resize = [], [], None
+        for i in idxs:
+            ds, local = self.dataset.locate(i)
+            samples.append(ds.sample_meta(local))
+            paths.extend(ds.image_paths(local))
+            resize = ds.resize
+        images = read_batch(paths, width=resize[0], height=resize[1], num_threads=self.num_workers)
+        if images is None:
+            return None
+        for j, s in enumerate(samples):
+            s["image0"], s["image1"] = images[2 * j], images[2 * j + 1]
         return collate(samples)
 
 
@@ -232,6 +295,7 @@ class DataModule:
             self.cfg.TRAINING.BATCH_SIZE,
             sampler=self._sampler(dataset),
             num_workers=self.cfg.TRAINING.NUM_WORKERS,
+            native_io=self.cfg.TRAINING.get("NATIVE_LOADER", True),
             meta_only=bool(self.cfg.TPU.get("FEATURE_CACHE", "")),
         )
 
@@ -242,6 +306,7 @@ class DataModule:
             self.cfg.TRAINING.BATCH_SIZE,
             drop_last=self.drop_last_val,
             num_workers=self.cfg.TRAINING.NUM_WORKERS,
+            native_io=self.cfg.TRAINING.get("NATIVE_LOADER", True),
         )
 
     def test_dataloader(self) -> DataLoader:
@@ -251,6 +316,7 @@ class DataModule:
             self.cfg.TRAINING.BATCH_SIZE,
             drop_last=self.drop_last_val,
             num_workers=self.cfg.TRAINING.NUM_WORKERS,
+            native_io=self.cfg.TRAINING.get("NATIVE_LOADER", True),
         )
 
 
@@ -268,6 +334,7 @@ class DataModuleTraining(DataModule):
             self.cfg.TRAINING.BATCH_SIZE,
             sampler=self._sampler(dataset, seed=self.seed),
             num_workers=self.cfg.TRAINING.NUM_WORKERS,
+            native_io=self.cfg.TRAINING.get("NATIVE_LOADER", True),
             meta_only=bool(self.cfg.TPU.get("FEATURE_CACHE", "")),
         )
 
@@ -279,4 +346,5 @@ class DataModuleTraining(DataModule):
             sampler=self._sampler(dataset, reset_epoch=True),
             drop_last=True,
             num_workers=self.cfg.TRAINING.NUM_WORKERS,
+            native_io=self.cfg.TRAINING.get("NATIVE_LOADER", True),
         )

@@ -192,6 +192,10 @@ class MapFreeScene:
             "pair_names": (path0, path1),
         }
 
+    def image_paths(self, index: int) -> Tuple[str, str]:
+        """Absolute JPEG paths of a pair (the loader's native batch ingest)."""
+        return str(self.scene_root / self.paths0[index]), str(self.scene_root / self.paths1[index])
+
     def __getitem__(self, index: int) -> Dict:
         sample = self.sample_meta(index)
         path0, path1 = self.paths0[index], self.paths1[index]

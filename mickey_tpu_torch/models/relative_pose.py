@@ -18,6 +18,14 @@ matcher routes, chosen as the JAX package chooses them:
 ``extract_feats`` result, so a scene's shared keyframe runs the backbone
 once; it returns the lite output.
 
+The ``sharded_*`` entries are the data-parallel counterparts
+(``mickey_tpu``'s mesh entries, a ``parallel.DataParallel`` in place of the
+mesh): every rank passes the same global batch (a multiple of the ranks),
+runs its contiguous rows on its device and gets the global batch's outputs
+back, all-gathered. Each rank's solver draws come from ``generator`` folded
+with its rank (``DataParallel.fold``), so pairs of the same local index on
+two ranks draw independently.
+
 Under ``MICKEY.DINOV2.INT8`` the model quantizes its backbone's block
 linears when it is built (``nn.quant.vit_quantize_int8``, idempotent), so
 every entry above runs on the int8 tree.
@@ -39,6 +47,7 @@ from ..nn.extractor import (
     topk_correspondences_from_heads,
 )
 from ..nn.quant import vit_quantize_int8
+from ..parallel import DataParallel
 from ..solver.procrustes_ransac import Draws, PoseEstimate, estimate_pose_from_cfg, estimate_pose_topk_from_cfg
 
 
@@ -124,3 +133,31 @@ class MickeyRelativePose:
         lite output, on either matcher route."""
         corr = self.match_feats(ref_feats, self.extract_feats(image1))
         return self.solve(corr, K0, K1, generator, draws)
+
+    # -- data-parallel entries (module docstring) ----------------------------------------
+    def _rows(self, dp: DataParallel, x: torch.Tensor) -> torch.Tensor:
+        return dp.shard_rows(x).to(self.device)
+
+    def _folded(self, dp: DataParallel, generator: Optional[torch.Generator]) -> torch.Generator:
+        if generator is None:  # the plain entries' default stream, folded too
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return dp.fold(generator)
+
+    def sharded_extract_feats(self, dp: DataParallel, images: torch.Tensor):
+        """``extract_feats`` of the global batch, each rank extracting its rows."""
+        return tuple(dp.all_gather_rows(f) for f in self.extract_feats(self._rows(dp, images)))
+
+    def sharded_call_with_ref_feats(self, dp: DataParallel, ref_feats, image1, K0, K1,
+                                    generator: Optional[torch.Generator] = None) -> RelativePoseOutput:
+        """``call_with_ref_feats`` over the global batch: each rank its rows
+        of the cached keyframe outputs and of the queries."""
+        out = self.call_with_ref_feats(tuple(self._rows(dp, f) for f in ref_feats), self._rows(dp, image1),
+                                       self._rows(dp, K0), self._rows(dp, K1), generator=self._folded(dp, generator))
+        return RelativePoseOutput(*(dp.all_gather_rows(x) for x in out[:4]))
+
+    def sharded_call(self, dp: DataParallel, image0, image1, K0, K1,
+                     generator: Optional[torch.Generator] = None) -> RelativePoseOutput:
+        """The lite output of the global batch, each rank solving its rows."""
+        out = self(self._rows(dp, image0), self._rows(dp, image1), self._rows(dp, K0), self._rows(dp, K1),
+                   generator=self._folded(dp, generator), lite=True)
+        return RelativePoseOutput(*(dp.all_gather_rows(x) for x in out[:4]))

@@ -5,8 +5,18 @@ curriculum (topk +5 an epoch up to TOPK), scalar and image logging every
 LOG_INTERVAL steps (tensorboardX, optional: without it nothing is written),
 a validation epoch with the keyframe cache, the precision and AUC
 aggregation, native checkpoints (best VCRE AUC, best pose AUC, last) and
-resume, and the frozen-backbone feature cache. One card: no mesh and no
-batch padding.
+resume, and the frozen-backbone feature cache.
+
+Data parallelism (``parallel.py``; ``mickey_tpu``'s data mesh): with a
+process group of N ranks (``dp``, by default ``parallel.world()``) each rank
+holds the same state (rank 0's, broadcast at construction), its loaders
+read its rows of each padded global batch (``DataLoader.shard``), and its
+steps run inside ``parallel.global_batch``: global BatchNorm statistics,
+loss reductions and draws, gradients summed over the ranks. Validation
+gathers the per-pair outputs before the aggregation, so every rank takes the
+same checkpoint decision; rank 0 alone writes checkpoints, logs, image
+panels and the feature cache (the others wait for it). ``TRAINING.BATCH_SIZE``
+stays the global batch. With one rank nothing of this acts.
 
 Every image batch is cropped on the host to multiples of the patch size
 (``data/io.crop_to_patches``, from the bottom and the right, so the
@@ -25,6 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.io import crop_to_patches
 from ..evaluation.pose_io import precision_recall
 from ..training.checkpoint import (
@@ -62,12 +73,14 @@ class MicKeyTrainer:
 
     Turns TF32 off process-wide, as ``models.build_model`` does: the
     matcher's fp32 correlation stands in for the reference's
-    Precision.HIGHEST product."""
+    Precision.HIGHEST product. ``dp``: this rank of a data-parallel group
+    (module docstring); ``device`` is then the rank's."""
 
     def __init__(self, cfg, params=None, seed: int = 0, device="cuda", dinov2_path: Optional[str] = None,
-                 out_dir: str = "weights/mickey_tpu_torch"):
+                 out_dir: str = "weights/mickey_tpu_torch", dp: Optional[parallel.DataParallel] = None):
         self.cfg = cfg
         self.out_dir = out_dir
+        self.dp = dp if dp is not None else parallel.world()
         self.device = torch.device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -80,6 +93,7 @@ class MicKeyTrainer:
         # the frozen backbone is never quantized here: MICKEY.DINOV2.INT8
         # selects nothing in training, as in mickey_tpu's trainer
         self.state, self.backbone = init_train_state(cfg, params_to_torch(params, cfg, self.device))
+        self.dp.broadcast_([t for _, t in tree_leaves(self.state.params)] + [t for _, t in tree_leaves(self.backbone)])
         self.train_step = StagedTrainStep(cfg)
         self.val_step = ValStep(cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -110,6 +124,8 @@ class MicKeyTrainer:
 
     # -- logging ------------------------------------------------------------
     def _get_writer(self):
+        if self.writer is None and self.dp.rank != 0:
+            self.writer = False
         if self.writer is None:
             try:
                 from tensorboardX import SummaryWriter
@@ -144,12 +160,20 @@ class MicKeyTrainer:
         return out
 
     # -- steps ---------------------------------------------------------------
+    def _global(self, batch: Dict):
+        """The data-parallel step over the global batch whose rows ``batch``
+        holds (nothing at one rank)."""
+        return parallel.global_batch(self.dp, len(batch["T_0to1"]))
+
     def training_step(self, batch: Dict) -> Dict[str, float]:
-        if self.feature_cache is not None:
-            _, metrics = self._cached_step(batch)
-        else:
-            _, metrics = self.train_step(self.state, self.backbone, self.device_batch(batch), self.generator,
-                                         self.topk)
+        """One step; under data parallelism on this rank's rows of the
+        global batch, as the sharded loader gives them."""
+        with self._global(batch):
+            if self.feature_cache is not None:
+                _, metrics = self._cached_step(batch)
+            else:
+                _, metrics = self.train_step(self.state, self.backbone, self.device_batch(batch), self.generator,
+                                             self.topk)
         self.global_step += 1
         return {k: float(v) for k, v in metrics.items()}
 
@@ -167,10 +191,17 @@ class MicKeyTrainer:
                                          self.device_batch(batch, images=False), self.generator, self.topk)
 
     def validation_step(self, batch: Dict) -> Dict[str, np.ndarray]:
-        if self._cached_val and "scene_root" in batch and "pair_names" in batch:
-            out = self._validation_step_cached(batch)
-        else:
-            out = self.val_step(self.state.params, self.backbone, self.device_batch(batch), self.generator)
+        """Validation of a batch; under data parallelism of this rank's rows,
+        the per-pair outputs gathered into the global batch's (its padding
+        dropped) and the loss metrics the global batch's."""
+        with self._global(batch):
+            if self._cached_val and "scene_root" in batch and "pair_names" in batch:
+                out = self._validation_step_cached(batch)
+            else:
+                out = self.val_step(self.state.params, self.backbone, self.device_batch(batch), self.generator)
+        if self.dp.size > 1:
+            real = batch.get("global_batch")
+            out = {k: self.dp.all_gather_rows(v)[:real] if v.ndim else v for k, v in out.items()}
         return {k: v.detach().cpu().numpy() for k, v in out.items()}
 
     def _validation_step_cached(self, batch: Dict):
@@ -260,19 +291,22 @@ class MicKeyTrainer:
 
     def maybe_checkpoint(self, val_metrics: Dict[str, float], epoch: int):
         """best_vcre / best_pose when their AUC improves (parameters only),
-        and last every epoch with the optimizer state."""
-        params_host = params_to_numpy(self.state.params)
+        and last every epoch with the optimizer state. Every rank tracks the
+        best AUCs; rank 0 alone writes."""
+        write = self.dp.rank == 0
+        params_host = params_to_numpy(self.state.params) if write else None
         extra = {"topk": self.topk, "epoch": epoch}
-        if val_metrics.get("val_vcre/auc_vcre", -1) > self.best["auc_vcre"]:
-            self.best["auc_vcre"] = val_metrics["val_vcre/auc_vcre"]
-            save_checkpoint(os.path.join(self.out_dir, "best_vcre"), params_host, step=self.global_step, extra=extra)
-        if val_metrics.get("val_AUC_pose/auc_pose", -1) > self.best["auc_pose"]:
-            self.best["auc_pose"] = val_metrics["val_AUC_pose/auc_pose"]
-            save_checkpoint(os.path.join(self.out_dir, "best_pose"), params_host, step=self.global_step, extra=extra)
-        opt = self.state.opt_state
-        save_checkpoint(os.path.join(self.out_dir, "last"), params_host, step=self.global_step,
-                        opt_state={"count": int(opt.count), "mu": self._moments(opt.mu),
-                                   "nu": self._moments(opt.nu)}, extra=extra)
+        for key, metric, name in (("auc_vcre", "val_vcre/auc_vcre", "best_vcre"),
+                                  ("auc_pose", "val_AUC_pose/auc_pose", "best_pose")):
+            if val_metrics.get(metric, -1) > self.best[key]:
+                self.best[key] = val_metrics[metric]
+                if write:
+                    save_checkpoint(os.path.join(self.out_dir, name), params_host, step=self.global_step, extra=extra)
+        if write:
+            opt = self.state.opt_state
+            save_checkpoint(os.path.join(self.out_dir, "last"), params_host, step=self.global_step,
+                            opt_state={"count": int(opt.count), "mu": self._moments(opt.mu),
+                                       "nu": self._moments(opt.nu)}, extra=extra)
 
     def resume(self, path: str) -> int:
         """Restore parameters, both moments, Adam's count, the step and topk
@@ -357,12 +391,21 @@ class MicKeyTrainer:
         from ..training.feature_cache import FeatureCache, build_feature_cache
 
         cache_dtype = str(self.cfg.TPU.get("FEATURE_CACHE_DTYPE", "bfloat16"))
+        if self.dp.rank != 0:  # rank 0 builds the cache where there is none
+            self.dp.barrier()
         if FeatureCache.exists(self._cache_path):
-            return FeatureCache(self._cache_path, backbone=self.backbone, expect_dtype=cache_dtype)
+            cache = FeatureCache(self._cache_path, backbone=self.backbone, expect_dtype=cache_dtype)
+            if self.dp.rank == 0:
+                self.dp.barrier()
+            return cache
+        if self.dp.rank != 0:
+            raise FileNotFoundError(f"rank 0 left no feature cache at {self._cache_path}")
         print(f"building feature cache at {self._cache_path}", flush=True)
-        return build_feature_cache(self.cfg, self.backbone, dataset, self._cache_path,
-                                   batch_size=2 * int(self.cfg.TRAINING.BATCH_SIZE), dtype=cache_dtype,
-                                   log=lambda m: print(m, flush=True))
+        cache = build_feature_cache(self.cfg, self.backbone, dataset, self._cache_path,
+                                    batch_size=2 * int(self.cfg.TRAINING.BATCH_SIZE), dtype=cache_dtype,
+                                    log=lambda m: print(m, flush=True))
+        self.dp.barrier()
+        return cache
 
     def fit(self, datamodule, max_epochs: Optional[int] = None, val_batches: Optional[int] = None,
             log_interval: Optional[int] = None, resume_path: Optional[str] = None):
@@ -376,6 +419,9 @@ class MicKeyTrainer:
         start_epoch = self.resume(resume_path) + 1 if resume_path else 0
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
+        if self.dp.size > 1:  # each rank reads its rows of every global batch
+            train_loader.shard = val_loader.shard = (self.dp.rank, self.dp.size)
+        main = self.dp.rank == 0
         if self._cache_path:
             if self.feature_cache is None:
                 self.feature_cache = self.open_feature_cache(train_loader.dataset)
@@ -392,9 +438,12 @@ class MicKeyTrainer:
                     self.log_scalar("train/topk", self.topk)
                     self.log_scalar("train/lr", float(self._lr_fn(self.global_step)))
                     if cfg.TPU.get("LOG_IMAGES", False) and "image0" in batch:
+                        # every rank draws the panels' samples, so the generator stays
+                        # the same on all of them; only rank 0's writer logs
                         self.log_training_images(batch)
-                    print(f"epoch {epoch} step {self.global_step} loss {metrics['loss']:.4f} "
-                          f"gnorm {metrics['grad_norm']:.2f}", flush=True)
+                    if main:
+                        print(f"epoch {epoch} step {self.global_step} loss {metrics['loss']:.4f} "
+                              f"gnorm {metrics['grad_norm']:.2f}", flush=True)
             self.on_train_epoch_end()
 
             outputs = []
@@ -407,6 +456,7 @@ class MicKeyTrainer:
                 for k, v in val_metrics.items():
                     self.log_scalar(k, v)
                 self.maybe_checkpoint(val_metrics, epoch)
-                print(f"epoch {epoch} done in {time.time() - t_ep:.0f}s val auc_vcre "
-                      f"{val_metrics['val_vcre/auc_vcre']:.4f} auc_pose {val_metrics['val_AUC_pose/auc_pose']:.4f}",
-                      flush=True)
+                if main:
+                    print(f"epoch {epoch} done in {time.time() - t_ep:.0f}s val auc_vcre "
+                          f"{val_metrics['val_vcre/auc_vcre']:.4f} auc_pose {val_metrics['val_AUC_pose/auc_pose']:.4f}",
+                          flush=True)

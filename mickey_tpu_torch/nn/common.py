@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
+
 
 def conv2d(p, x: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, Cin) -> (B, H, W, Cout); stride 1, 'SAME' padding."""
@@ -27,12 +29,24 @@ def batchnorm(p, x: torch.Tensor, train: bool = False, momentum: float = 0.1, ep
     Returns (out, new_state). In train mode it normalizes with the batch's
     biased variance and advances the running stats by an EMA of ``momentum``
     with the unbiased variance (torch.nn.BatchNorm2d semantics); the new
-    stats carry no gradient. In eval mode new_state is ``p``."""
+    stats carry no gradient. In eval mode new_state is ``p``.
+
+    Inside a data-parallel step (``parallel.global_batch``) the statistics
+    are the global batch's: the sums and sums of squares are all-reduced
+    with their gradients and the count is every rank's."""
     if train:
         dims = tuple(range(x.ndim - 1))
-        mean = x.mean(dim=dims)
-        var = (x * x).mean(dim=dims) - mean * mean
         n = x.numel() // x.shape[-1]
+        step = parallel.active()
+        if step is None:
+            mean = x.mean(dim=dims)
+            var = (x * x).mean(dim=dims) - mean * mean
+        else:
+            c = x.shape[-1]
+            sums = parallel.all_reduce_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims)]), step.dp)
+            n *= step.dp.size
+            mean = sums[:c] / n
+            var = sums[c:] / n - mean * mean
         unbiased = var.detach() * n / max(n - 1, 1)
         new_p = dict(p)
         new_p["mean"] = (1 - momentum) * p["mean"] + momentum * mean.detach().float()

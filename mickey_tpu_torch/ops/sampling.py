@@ -4,6 +4,11 @@ Port of ``mickey_tpu/ops/sampling.py`` driven by a ``torch.Generator``
 instead of a JAX key. The two give different numbers from the same seed, so
 the parity tests replay JAX's draws and inject the indices (see
 ``solver.procrustes_ransac``).
+
+Inside a data-parallel step (``parallel.global_batch``) a call that names
+its ``batch_axis`` draws the noise of the whole global batch from the
+generator, which every rank holds alike, and keeps this rank's rows: N ranks
+draw what one process draws for the global batch.
 """
 
 from __future__ import annotations
@@ -12,19 +17,34 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
 
-def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """-log(-log(U)) with U uniform on [tiny, 1), as jax.random.gumbel."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+
+def gumbel_noise(shape, generator: Optional[torch.Generator], device,
+                 batch_axis: Optional[int] = None) -> torch.Tensor:
+    """-log(-log(U)) with U uniform on [tiny, 1), as jax.random.gumbel.
+    ``batch_axis``: the axis of the pairs, whose global rows a data-parallel
+    step draws (module docstring)."""
+    step = parallel.active() if batch_axis is not None else None
+    if step is None:
+        u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    else:
+        if shape[batch_axis] != step.hi - step.lo:
+            raise ValueError(f"noise of shape {tuple(shape)}: axis {batch_axis} holds {shape[batch_axis]} "
+                             f"rows, this rank has {step.hi - step.lo}")
+        full = list(shape)
+        full[batch_axis] = step.size
+        u = torch.rand(full, generator=generator, device=device, dtype=torch.float32)
+        u = u.narrow(batch_axis, step.lo, step.hi - step.lo)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
 
 def gumbel_topk_sample(generator: Optional[torch.Generator], log_weights: torch.Tensor,
-                       k: int) -> torch.Tensor:
+                       k: int, batch_axis: Optional[int] = None) -> torch.Tensor:
     """k indices (..., k) drawn without replacement with probability
     proportional to exp(log_weights) (..., N)."""
-    perturbed = log_weights + gumbel_noise(log_weights.shape, generator, log_weights.device)
+    perturbed = log_weights + gumbel_noise(log_weights.shape, generator, log_weights.device, batch_axis)
     if k <= 8:
         # k rounds of argmax + mask: cheaper than a sort for minimal sets
         idxs = []
@@ -41,13 +61,20 @@ def gumbel_topk_sample(generator: Optional[torch.Generator], log_weights: torch.
 
 
 def gumbel_topk_sample_draws(generator: Optional[torch.Generator], log_weights: torch.Tensor,
-                             k: int, draws: int, max_elems: int = 1 << 26) -> torch.Tensor:
+                             k: int, draws: int, max_elems: int = 1 << 26,
+                             batch_axis: Optional[int] = None) -> torch.Tensor:
     """``draws`` independent samples: (draws, *batch, k) int32. One batched
     top-k while the perturbed (draws, *batch, N) tensor stays within
     ``max_elems`` elements (256 MB of fp32); above that (the exact regime
     over a whole N0 x N1 match matrix, no prefilter) one draw at a time, so
     the peak is one (*batch, N) noise tensor. The distribution is the same
-    either way: the noise is iid across draws."""
-    if draws * log_weights.numel() <= max_elems:
-        return gumbel_topk_sample(generator, log_weights.expand((draws,) + log_weights.shape), k)
-    return torch.stack([gumbel_topk_sample(generator, log_weights, k) for _ in range(draws)])
+    either way: the noise is iid across draws. A data-parallel step decides
+    on the global batch's size, as one process would."""
+    numel = log_weights.numel()
+    step = parallel.active() if batch_axis is not None else None
+    if step is not None:
+        numel = numel // (step.hi - step.lo) * step.size
+    if draws * numel <= max_elems:
+        return gumbel_topk_sample(generator, log_weights.expand((draws,) + log_weights.shape), k,
+                                  None if batch_axis is None else batch_axis + 1)
+    return torch.stack([gumbel_topk_sample(generator, log_weights, k, batch_axis) for _ in range(draws)])

@@ -68,10 +68,10 @@ def draw_samples(generator: Optional[torch.Generator], w_table: torch.Tensor, it
     it_ransac minimal sets of num_corr within each."""
     w_table = w_table.float()
     B = w_table.shape[0]
-    outer = gumbel_topk_sample_draws(generator, log_weights(w_table), num_samples, it_matches)
+    outer = gumbel_topk_sample_draws(generator, log_weights(w_table), num_samples, it_matches, batch_axis=0)
     w = torch.gather(w_table.expand(it_matches, -1, -1), 2, outer.long())  # (it, B, S)
     logw_in = log_weights(w)[:, :, None, :].expand(it_matches, B, it_ransac, num_samples)
-    return Draws(outer, gumbel_topk_sample(generator, logw_in, num_corr))
+    return Draws(outer, gumbel_topk_sample(generator, logw_in, num_corr, batch_axis=1))
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

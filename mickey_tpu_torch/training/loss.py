@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..geometry import inlier_counting_3d, soft_inlier_counting_3d, weighted_procrustes
 from ..geometry.projection import backproject_3d
 from ..ops.sampling import gumbel_topk_sample, gumbel_topk_sample_draws
@@ -138,7 +139,7 @@ def metric_pose_loss(
             logw = _log_weights(top_scores)
         else:
             logw, remap = _log_weights(matches), None
-        idx = gumbel_topk_sample_draws(generator, logw, S, it).permute(1, 0, 2)  # (B, it, S)
+        idx = gumbel_topk_sample_draws(generator, logw, S, it, batch_axis=0).permute(1, 0, 2)  # (B, it, S)
         if remap is not None:
             idx = torch.gather(remap, 1, idx.reshape(B, it * S).long()).reshape(B, it, S)
         ridx = None
@@ -202,7 +203,7 @@ def metric_pose_loss_topk(
             raise ValueError("metric_pose_loss_topk needs a full (idx, ridx) override")
         weights = torch.zeros((B, it, S), dtype=torch.float32, device=dsc0.device)  # unused with ridx given
     else:
-        pos = gumbel_topk_sample_draws(generator, _log_weights(tab), S, it)  # (it, B, S) table positions
+        pos = gumbel_topk_sample_draws(generator, _log_weights(tab), S, it, batch_axis=0)  # (it, B, S) positions
         pos = pos.permute(1, 0, 2).reshape(B, it * S).long()
         idx = torch.gather(top_idx, 1, pos).reshape(B, it, S)
         weights = torch.gather(tab, 1, pos).reshape(B, it, S)
@@ -235,7 +236,7 @@ def _hypotheses_loss_core(X, Y, weights, log_sampled, ridx, row_ok, Rgt, tgt, K0
 
     if ridx is None:  # inner minimal sets, proportional to the sampled weights
         logw_in = _log_weights(weights)[:, :, None, :].expand(B, it, R_it, S)
-        ridx = gumbel_topk_sample(generator, logw_in, C)
+        ridx = gumbel_topk_sample(generator, logw_in, C, batch_axis=0)
     minimal = F.one_hot(ridx.long(), S).to(torch.float32).sum(dim=-2)  # (B, it, R_it, S)
 
     # refinement without gradient
@@ -288,27 +289,48 @@ def _hypotheses_loss_core(X, Y, weights, log_sampled, ridx, row_ok, Rgt, tgt, K0
     losses_rot = loss_rot.sum(-1) / it
     losses_trans = loss_trans.sum(-1) / it
 
-    # curriculum: only the pairs below the top-K% baseline threshold count
+    return _curriculum_loss(baseline, loss_value, losses_rot, losses_trans, row_ok, log_sampled, R, t, lc, topk_pct)
+
+
+def _curriculum_loss(baseline, loss_value, losses_rot, losses_trans, row_ok, log_sampled, R, t,
+                     lc: LossConfig, topk_pct: float):
+    """The curriculum mask, the loss and its metrics over the batch: only
+    the pairs below the top-K% baseline threshold count.
+
+    Inside a data-parallel step (``parallel.global_batch``) the batch is the
+    global one: the threshold comes from every rank's baselines, the
+    denominator is the global mask's sum, the metrics are global means and
+    sums, and the total returned is this rank's share of the global total
+    (the ranks' gradients sum to its gradient). Outside one every collective
+    below is the identity."""
+    step = parallel.active()
+    dp, n = (step.dp, step.size) if step is not None else (parallel.DataParallel(), baseline.shape[0])
+    it = loss_value.shape[-1]
     baseline_d = baseline.detach()
-    if lc.train_with_topk and B > 1 and float(topk_pct) < 100.0:
-        sb = min(max(int(B * float(topk_pct) // 100), 1), B - 1)
-        mask_topk = (baseline_d < torch.sort(baseline_d).values[sb]).to(torch.float32)
+    if lc.train_with_topk and n > 1 and float(topk_pct) < 100.0:
+        sb = min(max(int(n * float(topk_pct) // 100), 1), n - 1)
+        mask_topk = (baseline_d < torch.sort(dp.all_gather_rows(baseline_d)).values[sb]).to(torch.float32)
     else:
-        mask_topk = torch.ones((B,), dtype=torch.float32, device=baseline.device)
+        mask_topk = torch.ones_like(baseline_d, dtype=torch.float32)
     mask_topk = mask_topk * row_ok.to(torch.float32)
 
-    avg_loss = (mask_topk * baseline).sum() / torch.clamp(mask_topk.sum(), min=1.0)
+    share = (mask_topk * baseline).sum()
+    finite = torch.isfinite(R).all() & torch.isfinite(t).all()
+    # one all-reduce for every sum (the counts are exact in fp32)
+    mask_sum, share_sum, rot_sum, trans_sum, n_valid, n_bad = dp.sum(torch.stack([
+        mask_topk.sum(), share.detach(), losses_rot.detach().sum(), losses_trans.detach().sum(),
+        row_ok.sum().to(torch.float32), (~finite).to(torch.float32)]))
+    denom = torch.clamp(mask_sum, min=1.0)
     coeff = (mask_topk[:, None] * (loss_value - baseline[:, None]) / it).detach()
-    total = avg_loss + (coeff[..., None] * log_sampled).sum()
-
+    total = share / denom + (coeff[..., None] * log_sampled).sum()
     aux = {
-        "avg_loss": avg_loss.detach(),
-        "avg_loss_rot": losses_rot.mean().detach(),
-        "avg_loss_trans": losses_trans.mean().detach(),
+        "avg_loss": share_sum / denom,
+        "avg_loss_rot": rot_sum / n,
+        "avg_loss_trans": trans_sum / n,
         "baseline": baseline_d,
         "mask_topk": mask_topk,
-        "num_valid": row_ok.sum(),
-        "hyp_finite": torch.isfinite(R).all() & torch.isfinite(t).all(),
+        "num_valid": n_valid.to(torch.int64),
+        "hyp_finite": n_bad == 0,
         "loss_value": loss_value.detach(),
     }
     return total, aux

@@ -33,6 +33,14 @@ never does.
 The step updates the state in place (parameters and moments), where the JAX
 package returns a new state.
 
+Data parallelism (``parallel.py``): a step run inside
+``parallel.global_batch`` on this rank's rows of the global batch takes
+global BatchNorm statistics, loss reductions and draws, and sums the
+gradients over the ranks before the optimizer, so every rank applies the
+same update and ``grad_norm`` is the global gradient's. Validation inside it
+takes the global loss metrics and draws; its per-pair outputs are this
+rank's rows.
+
 Validation (``ValStep``) runs the heads in eval mode (BatchNorm running
 stats read, never moved), the loss metrics at topk 100, the dense solver
 over the whole N0 x N1 matrix (prefilter 0, as the JAX package's validation
@@ -56,6 +64,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from .. import parallel
 from ..metrics.pose_metrics import pose_error, vcre
 from ..nn.extractor import backbone_features, compute_correspondences, compute_correspondences_topk_train
 from ..solver.procrustes_ransac import estimate_pose, solver_kw
@@ -245,6 +254,9 @@ class StagedTrainStep:
         _, aux, fwd_params, grads = loss_and_grads(state.params, fmap, batch, self.cfg, self.lc, topk_pct,
                                                    generator, sample_override)
         flat = [g for path, g in tree_leaves(grads) if not is_bn_stat(path)]
+        step = parallel.active()
+        if step is not None:  # each rank's loss is its share of the global one: sum
+            step.dp.all_reduce_(flat)
         gnorm = self.optimizer.update(state.trainable(), flat, state.opt_state)
         with torch.no_grad():
             copy_bn_stats(state.params, fwd_params)
@@ -259,9 +271,10 @@ class StagedTrainStep:
         }
         return state, metrics
 
-    def __call__(self, state: TrainState, backbone, batch, generator=None, topk_pct: float = 100.0):
+    def __call__(self, state: TrainState, backbone, batch, generator=None, topk_pct: float = 100.0,
+                 sample_override=None):
         fmap = self.backbone_fwd(backbone, batch["image0"], batch["image1"])
-        return self.grad_step(state, fmap, batch, generator, topk_pct)
+        return self.grad_step(state, fmap, batch, generator, topk_pct, sample_override)
 
 
 def val_fmap_dtype(cfg) -> torch.dtype:

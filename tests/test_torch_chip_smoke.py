@@ -810,3 +810,37 @@ def test_int8_checks_catch_a_wrong_product(monkeypatch):
     monkeypatch.setattr(quant, "int_mm", lambda x_q, w_q: quant.int_mm_plain(x_q, w_q) + (x_q[:, :1] == 127).int())
     with pytest.raises(chip_smoke.SmokeError, match="differs from the plain one"):
         chip_smoke.check_int8_products(model_q, 20)
+
+
+def test_ddp_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
+    """Phase 3g at a tiny size on the CPU, gloo standing in for NCCL: the
+    ingest's rates (native built here) on 48 JPEGs of 540 x 720; a world-1
+    group's 2 steps bitwise no group's; 2 ranks against one process at B = 2
+    of 126 x 140 (one pair a rank); the submission CLI on 2 ranks over 2
+    scenes of 11 queries at 130 x 116 in batches of 3 (one padded a batch),
+    its zip byte for byte the ranks' rows served here in turn. The launch
+    counts are the card's; here each kernel's plain version runs."""
+    checked = []
+    monkeypatch.setattr(chip_smoke, "_launched", lambda launches, path, needed, absent=(): checked.append(path))
+    ingest = chip_smoke.ingest_rates(str(tmp_path))
+    assert ingest["native"] == "built" and ingest["jpegs"] == chip_smoke.INGEST_JPEGS
+    assert ingest["native_8_threads_fps"] > 0 and ingest["cv2_fps"] > 0 and ingest["native_vs_cv2_mean_abs"] < 5e-3
+    cfg = _tiny_train_cfg()
+    train, launches = chip_smoke.run_ddp_train(cfg, torch.device("cpu"), pairs=2, height=126, width=140, steps=2,
+                                               launch_timeout=300)
+    assert train["backend"] == "gloo on cpu" and len(train["world1_step_ms"]["nccl world 1"]) == 2
+    assert train["bn_rel"] <= chip_smoke.DDP_RTOL and train["moments_rel"] <= chip_smoke.GRAD_TOL
+    assert {"ddp, one process", "ddp, rank 0", "ddp, rank 1"} <= set(checked)
+    assert set(launches) == {name for name, _, _ in chip_smoke.KERNELS}
+    cfg = _tiny_cfg()
+    cfg.DATASET.WIDTH, cfg.DATASET.HEIGHT = 116, 130
+    chip_smoke.write_val_split(str(tmp_path / "split"), queries=11, height=130, width=116)
+    sub = chip_smoke.run_ddp_submission(build_model(cfg, device="cpu"), cfg, str(tmp_path / "split"), batch=3,
+                                        launch_timeout=300)
+    assert sub["poses"] > 0 and sub["max_dt_vs_one_process"] >= 0.0
+    assert "ddp: ok" in chip_smoke.ddp_line(ingest, train, sub, "card")
+    # a rank whose rows another process served otherwise fails the byte check
+    monkeypatch.setattr(chip_smoke._OneRankOfTwo, "fold", lambda self, g: g)
+    with pytest.raises(chip_smoke.SmokeError, match="differs from the ranks' rows"):
+        chip_smoke.run_ddp_submission(build_model(cfg, device="cpu"), cfg, str(tmp_path / "split"), batch=3,
+                                      launch_timeout=300)
