@@ -132,9 +132,25 @@ Phases, one line each, any failure exits non-zero:
              turn (the same draws), and the one-process zip's names in its
              order.
 
+   bf16 modes (3h) - the matcher's bf16 kernels (K2a, K2b, K4 in the
+             correlation engine's bf16 mode: ``col_lse_bf16``,
+             ``pair_topk_bf16``, ``pair_softmax_bf16``) on bf16-rounded
+             descriptors against their plain versions at RTOL, at the main
+             paths' shapes and on ragged sizes with ties, NaN and
+             infinities, bitwise launch to launch; serving at full width
+             with ``TPU.MATCHER_BF16=True``, B = 2 of 714x532, both layouts
+             and the full output: the bf16 kernels launched and the fp32
+             engine's not, the dense / fused table cross-check against fp64
+             on the rounded descriptors, a table that is not the fp32
+             route's; the heads under ``TPU.HEADS_BF16``: each conv shape
+             against fp64 on the rounded operands, the stage at B = 2 and 12
+             against its plain version (cuDNN fp32 on the same rounding) and
+             timed in turns with it and the fp32 heads; the bf16 kernels
+             timed beside the fp32 engine on the same descriptors.
+
 ``python3 chip_smoke.py --submission`` runs the submission phase and its
 timing alone; ``--fit`` the training entry point's; ``--demo`` phase 3f's;
-``--ddp`` phase 3g's.
+``--ddp`` phase 3g's; ``--bf16`` phase 3h's, with its kernels' rows.
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
@@ -507,7 +523,8 @@ def _topk_checked(out, ref, what: str) -> float:
     return err
 
 
-def check_topk_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, topl: int = 16, seed: int = SEED) -> float:
+def check_topk_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, topl: int = 16, seed: int = SEED,
+                      dtype=torch.float32) -> float:
     """K2b on ragged sizes: M = sizes[i], N = sizes[i + 1] (cyclic), 3
     images of seeded unit descriptors and uniform scores, with the dustbin
     on and off, against its plain version on the plain lse_col
@@ -516,8 +533,9 @@ def check_topk_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, topl: int = 
     descriptor value (dsc1, row 3); image 2: scr1 NaN at the last column (its
     only NaN, in most rows) and, in the first pair, a NaN row of dsc0 (row
     5). N = 1 leaves rounds past the row's end. K2b reads the split K2a
-    writes (dustbin on) or splits the descriptors itself (off). Returns the
-    largest max |diff|."""
+    writes (dustbin on) or splits the descriptors itself (off). ``dtype``
+    bf16: the descriptors rounded to bf16 first (the bf16 mode's kernels).
+    Returns the largest max |diff|."""
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     rng = np.random.default_rng(seed + 11)
@@ -540,6 +558,7 @@ def check_topk_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, topl: int = 
         if k == 0:
             d0[2, min(5, m - 1)] = np.nan
         d0, d1, s0, s1 = (t(x) for x in (d0, d1, s0, s1))
+        d0, d1 = d0.to(dtype), d1.to(dtype)
         for use_dustbin in (True, False):
             alpha = fm._alpha(1.0, use_dustbin)
             lc = fm.col_lse_plain(d0, d1, 10.0, alpha)
@@ -548,7 +567,7 @@ def check_topk_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, topl: int = 
                 fm.col_lse(d0, d1, 10.0, alpha, split)
             call = lambda: fm.pair_topk(d0, d1, s0, s1, lc, 10.0, alpha, topl, split)  # noqa: E731
             out = call()
-            what = f"pair_topk, M {m}, N {n}, dustbin {use_dustbin}"
+            what = f"pair_topk, M {m}, N {n}, dustbin {use_dustbin}, {dtype}"
             worst = max(worst, _topk_checked(out, fm.pair_topk_plain(d0, d1, s0, s1, lc, 10.0, alpha, topl), what))
             _bitwise(call, out, what)
     return worst
@@ -820,13 +839,15 @@ def check_matcher_kernels(inp, tin) -> dict:
     return res
 
 
-def check_matcher_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, seed: int = SEED) -> float:
+def check_matcher_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, seed: int = SEED, dtype=torch.float32,
+                         p_rtol: float = DS_RTOL) -> float:
     """K2a and K4 on ragged sizes: M = sizes[i], N = sizes[i + 1] (cyclic),
     3 images of seeded unit descriptors, with the dustbin on and off, against
     their plain versions (K4 on the plain lse_col): lse_col at RTOL, P and
-    lse_row at DS_RTOL, NaN and infinities where the plain version has them.
+    lse_row at ``p_rtol``, NaN and infinities where the plain version has them.
     In the first pair image 1 holds an infinite descriptor value (dsc1, row
-    3) and image 2 a NaN row (dsc0, row 5). Returns the largest max |diff|."""
+    3) and image 2 a NaN row (dsc0, row 5). ``dtype`` bf16: the descriptors
+    rounded to bf16 first. Returns the largest max |diff|."""
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     rng = np.random.default_rng(seed + 9)
@@ -842,15 +863,15 @@ def check_matcher_shapes(device, sizes=MATCHER_SIZES, desc: int = 128, seed: int
         if i == 0:
             d1[1, min(3, n - 1), 7] = np.inf
             d0[2, min(5, m - 1)] = np.nan
-        d0, d1 = (torch.from_numpy(x).to(device) for x in (d0, d1))
+        d0, d1 = (torch.from_numpy(x).to(device).to(dtype) for x in (d0, d1))
         for use_dustbin in (True, False):
             alpha = fm._alpha(1.0, use_dustbin)
-            what = f"M {m}, N {n}, dustbin {use_dustbin}"
+            what = f"M {m}, N {n}, dustbin {use_dustbin}, {dtype}"
             lc = fm.col_lse_plain(d0, d1, 10.0, alpha)
             worst = max(worst, _close_nan(fm.col_lse(d0, d1, 10.0, alpha), lc, f"col_lse, {what}"))
             (p, lr), (pp, plr) = fm.pair_softmax(d0, d1, lc, 10.0, alpha), fm.pair_softmax_plain(d0, d1, lc, 10.0, alpha)
-            worst = max(worst, _close_nan(p, pp, f"pair_softmax out, {what}", DS_RTOL),
-                        _close_nan(lr, plr, f"pair_softmax lse_row, {what}", DS_RTOL))
+            worst = max(worst, _close_nan(p, pp, f"pair_softmax out, {what}", p_rtol),
+                        _close_nan(lr, plr, f"pair_softmax lse_row, {what}", p_rtol))
     return worst
 
 
@@ -1027,7 +1048,10 @@ def check_dense_table(model, image0, image1, K0, K1) -> dict:
     exact function rather than to the other. Reports the largest |diff|
     between the two tables, each side's largest share of its RTOL bound,
     and the share of the exact global top-P (``torch.topk`` over the whole
-    matrix) that the fused table holds, by count and by score mass."""
+    matrix) that the fused table holds, by count and by score mass. Under
+    ``TPU.MATCHER_BF16`` both routes run the bf16 kernels (K2a, K2b, K4 in
+    bf16) and the fp64 recomputation starts from the descriptors rounded to
+    bf16, as the routes do."""
     from mickey_tpu_torch.ops import fused_matcher as fm
 
     B = image0.shape[0]
@@ -1045,6 +1069,8 @@ def check_dense_table(model, image0, image1, K0, K1) -> dict:
     inv_temp = 1.0 / float(dsm.TEMPERATURE)
     alpha = fm._alpha(float(model.params["matcher"].get("dustbin_score", 0.0)), bool(dsm.USE_DUSTBIN))
     d0, d1 = full.corr.dsc0.float().contiguous(), full.corr.dsc1.float().contiguous()
+    if cfg.TPU.get("MATCHER_BF16", False):
+        d0, d1 = d0.to(torch.bfloat16), d1.to(torch.bfloat16)
     lse_col = fm.col_lse(d0, d1, inv_temp, alpha)
     s64 = torch.matmul(d0.double(), d1.double().transpose(1, 2)) * inv_temp
     _close(lse_col, fm._col_lse_from(s64, alpha), "K2a lse_col vs fp64")
@@ -1570,14 +1596,21 @@ def k1_old_bound(inp):
                             keys=inp["old_len"])
 
 
+def _desc_bytes(dsc0, dsc1) -> int:
+    """Bytes of both descriptor sets read once, in their own dtype (fp32, or
+    bf16 under ``TPU.MATCHER_BF16``)."""
+    return (dsc0.numel() + dsc1.numel()) * dsc0.element_size()
+
+
 def col_lse_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
     """K2a's bound: the correlation's 2 B M N C flops at fp32 accuracy, three
     TF32 passes at 495 TFLOP/s (``peak=PEAK_FP32, passes=1``: the fp32 FMA
-    bound of the body it replaced), against both descriptor sets read and
-    lse_col written once."""
+    bound of the body it replaced; ``peak=PEAK_BF16, passes=1`` on bf16
+    descriptors, whose products are exact in one bf16 pass), against both
+    descriptor sets read and lse_col written once."""
     B, M, C = dsc0.shape
     N = dsc1.shape[1]
-    return _bound(passes * 2.0 * B * M * N * C, (B * M * C + B * N * C + B * N) * 4, peak)
+    return _bound(passes * 2.0 * B * M * N * C, _desc_bytes(dsc0, dsc1) + B * N * 4, peak)
 
 
 def pair_softmax_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
@@ -1586,7 +1619,7 @@ def pair_softmax_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0)
     read and P (B, M, N) and lse_row written once."""
     B, M, C = dsc0.shape
     N = dsc1.shape[1]
-    return _bound(passes * 2.0 * B * M * N * C, (B * M * C + B * N * C + B * N + B * M * N + B * M) * 4, peak)
+    return _bound(passes * 2.0 * B * M * N * C, _desc_bytes(dsc0, dsc1) + (B * N + B * M * N + B * M) * 4, peak)
 
 
 def bwd_sums_bound(dsc0, dsc1, peak: float = PEAK_TF32, passes: float = 3.0):
@@ -1630,7 +1663,7 @@ def pair_topk_bound(dsc0, dsc1, topl: int, peak: float = PEAK_TF32, passes: floa
     B, M, C = dsc0.shape
     N = dsc1.shape[1]
     return _bound(passes * 2.0 * B * M * N * C,
-                  (B * M * C + B * N * C + B * M + 2 * B * N + 2 * B * topl * M + 4 * B * M) * 4, peak)
+                  _desc_bytes(dsc0, dsc1) + (B * M + 2 * B * N + 2 * B * topl * M + 4 * B * M) * 4, peak)
 
 
 SM_COUNT = 132  # an H100 SXM's SMs
@@ -1775,6 +1808,8 @@ def main() -> int:
         return matcher_bwd_report(train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128), card)
     if "--scoring" in sys.argv[1:]:
         return scoring_report(inp, card)
+    if "--bf16" in sys.argv[1:]:
+        return bf16_report(cfg, dev, card, inp, train_kernel_inputs(dev, pairs=8, kpts=1938, desc=128))
     errs = check_kernels(inp)
     ragged = check_attention_shapes(dev)
     ragged32 = check_attention_shapes(dev, torch.float32)
@@ -1896,6 +1931,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 3h. the bf16 modes: the bf16 kernels against their plain versions, the
+    #     MATCHER_BF16 paths at full width (both layouts, the full output),
+    #     the HEADS_BF16 heads at B = 2 and 12; their timing taken now
+    bf16 = run_bf16_phase(model, inp, tin, dev)
+    print(bf16_lines(bf16, card), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 4. timing
     B = image0.shape[0]
     key_feats = model.extract_feats(image0[:1])
@@ -1935,7 +1978,8 @@ def main() -> int:
     print(variants_timing, flush=True)
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
-            ablation_launches, *sub["launches"], fit_launches, *variant_launches, ddp_launches, ddp_sub["launches"])
+            ablation_launches, *sub["launches"], fit_launches, *variant_launches, ddp_launches, ddp_sub["launches"],
+            bf16["paths"]["launches"])
     for n, e in fit_errs.items():  # the kernels checked again at the fit's shapes
         errs[n] = max(errs[n], e)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1944,7 +1988,7 @@ def main() -> int:
          "launches": sum(r[n] for r in runs), "max_abs_err": errs[n], "ms": kt[n][0],
          "plain_ms": kt[n][1], "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": lib_ms.get(n)}
         for n, src, rep in KERNELS
-    ]}))
+    ] + bf16_kernel_rows(bf16, {n: sum(r[n] for r in runs) for n, _, _ in BF16_KERNELS})}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -4131,6 +4175,310 @@ def ddp_report(cfg, dev, card: str) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+# -- 3h. the bf16 modes: the bf16-descriptor matcher and bf16 head convolutions ---
+
+# (name, source, TPU kernel body replaced): the matcher's forward kernels in
+# the correlation engine's bf16 mode (cfg.TPU.MATCHER_BF16)
+BF16_KERNELS = (
+    ("col_lse_bf16", "mickey_tpu_torch/csrc/fused_topk.cu", "mickey_tpu/ops/fused_matcher.py:82"),
+    ("pair_topk_bf16", "mickey_tpu_torch/csrc/fused_topk.cu", "mickey_tpu/ops/fused_matcher.py:432"),
+    ("pair_softmax_bf16", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:107"),
+)
+# the MATCHER_BF16 paths (both serving layouts: K2a, K2b; the full output:
+# K2a, K4), and the fp32 engine's kernels they must not launch
+BF16_PATH_KERNELS = ("flash_attention_packed", "col_lse_bf16", "pair_topk_bf16", "pair_softmax_bf16",
+                     "hypothesis_scores")
+BF16_PATH_ABSENT = ("flash_attention", "col_lse", "pair_topk", "pair_softmax")
+#  bf16 kernels against their plain versions: the plain versions upcast the
+#      bf16 descriptors and multiply in fp32 (TF32 off), and every product
+#      of two bf16 values is exact in fp32, so only the order of the sums
+#      differs: values, lse_row and lse_col at RTOL (K4's P too, where the
+#      fp32 engine's P is held at DS_RTOL for the terms its split drops),
+#      K2b's rounds and sets as ``_topk_checked``, bitwise launch to launch.
+#  bf16 heads, conv by conv: each of the heads' conv shapes on bf16-rounded
+#      operands against the fp64 conv of the same operands, max |diff| within
+#      (K / 8) 2^-23 of max |ref| (K = Cin k^2 terms a sum): the mode's TF32
+#      tensor-core products are exact for bf16 operands, but their fp32 sums
+#      truncate, up to one ulp a k8 step; the plain version (cuDNN fp32, TF32
+#      off) is reported beside it.
+#  bf16 heads, the stage: against its plain version (the same rounded
+#      operands through cuDNN's fp32 kernels) within HEADS_STAGE_TOL normwise
+#      per output. Each conv's output is rounded to bf16 again by the next
+#      conv, so two sum orders that differ in the last fp32 bit round some
+#      values to neighbouring bf16 values: the stage cannot agree with any
+#      other sum order to fp32 accuracy, only to within a bf16 rounding step
+#      (2^-8 relative).
+HEADS_STAGE_TOL = 2.0 ** -8
+
+
+def bf16_kernel_inputs(inp, tin) -> tuple:
+    """``inp`` and ``tin`` with their descriptors rounded to bf16 (to nearest
+    even, as the routes round them) and ``tin``'s lse_col made again by the
+    plain version on the rounded descriptors."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    inp_b = dict(inp, dsc0=inp["dsc0"].to(torch.bfloat16), dsc1=inp["dsc1"].to(torch.bfloat16))
+    tin_b = dict(tin, dsc0=tin["dsc0"].to(torch.bfloat16), dsc1=tin["dsc1"].to(torch.bfloat16))
+    tin_b["lse_col"] = fm.col_lse_plain(tin_b["dsc0"], tin_b["dsc1"], tin["inv_temp"], tin["alpha"])
+    return inp_b, tin_b
+
+
+def bf16_kernel_calls(inp_b, tin_b, alpha: float = 1.0, inv_temp: float = 10.0) -> dict:
+    """name -> (bf16 kernel call, plain call, the fp32 engine's call), all on
+    the same rounded descriptors (the fp32 engine on their fp32 copy, exact):
+    K2a and K2b at the serving shape, K2b on K2a's prepared copy as on the
+    main path; K4 at the training shape."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    b0, b1, t0, t1 = inp_b["dsc0"], inp_b["dsc1"], tin_b["dsc0"], tin_b["dsc1"]
+    f0, f1, u0, u1 = (x.float() for x in (b0, b1, t0, t1))
+    lse_c = fm.col_lse_plain(b0, b1, inv_temp, alpha)
+    k2b = (inp_b["scr0"], inp_b["scr1"], lse_c, inv_temp, alpha, inp_b["topl"])
+    split_b, split_f = fm.topk_split(b0, b1), fm.topk_split(f0, f1)
+    fm.col_lse(b0, b1, inv_temp, alpha, split_b)
+    fm.col_lse(f0, f1, inv_temp, alpha, split_f)
+    lc = tin_b["lse_col"]
+    return {
+        "col_lse_bf16": (lambda: fm.col_lse(b0, b1, inv_temp, alpha), lambda: fm.col_lse_plain(b0, b1, inv_temp, alpha),
+                         lambda: fm.col_lse(f0, f1, inv_temp, alpha)),
+        "pair_topk_bf16": (lambda: fm.pair_topk(b0, b1, *k2b, split_b), lambda: fm.pair_topk_plain(b0, b1, *k2b),
+                           lambda: fm.pair_topk(f0, f1, *k2b, split_f)),
+        "pair_softmax_bf16": (lambda: fm.pair_softmax(t0, t1, lc, inv_temp, alpha),
+                              lambda: fm.pair_softmax_plain(t0, t1, lc, inv_temp, alpha),
+                              lambda: fm.pair_softmax(u0, u1, lc, inv_temp, alpha)),
+    }
+
+
+def check_bf16_kernels(inp_b, tin_b, sizes=MATCHER_SIZES) -> dict:
+    """Phase 3h: K2a, K2b and K4 in bf16 against their plain versions at the
+    main paths' shapes (tolerances above), two launches of each bitwise
+    equal; then on ragged sizes with NaN and infinities
+    (``check_matcher_shapes``, with K4 at RTOL) and K2b's ties and NaN in
+    the last column (``check_topk_shapes``), on bf16-rounded descriptors.
+    Returns name -> max |diff|."""
+    calls = bf16_kernel_calls(inp_b, tin_b)
+    res = {}
+    k, p, _ = calls["col_lse_bf16"]
+    out = k()
+    res["col_lse_bf16"] = _close(out, p(), "col_lse_bf16")
+    _bitwise(k, out, "col_lse_bf16")
+    k, p, _ = calls["pair_topk_bf16"]
+    out = k()
+    res["pair_topk_bf16"] = _topk_checked(out, p(), "pair_topk_bf16")
+    _bitwise(k, out, "pair_topk_bf16")
+    k, p, _ = calls["pair_softmax_bf16"]
+    out = k()
+    (po, plr) = p()
+    res["pair_softmax_bf16"] = max(_close(out[0], po, "pair_softmax_bf16 out"),
+                                   _close(out[1], plr, "pair_softmax_bf16 lse_row"))
+    del po
+    _bitwise(k, out, "pair_softmax_bf16")
+    dev = inp_b["dsc0"].device
+    ragged = check_matcher_shapes(dev, sizes, dtype=torch.bfloat16, p_rtol=RTOL)
+    res["col_lse_bf16"] = max(res["col_lse_bf16"], ragged)
+    res["pair_softmax_bf16"] = max(res["pair_softmax_bf16"], ragged)
+    res["pair_topk_bf16"] = max(res["pair_topk_bf16"], check_topk_shapes(dev, sizes, dtype=torch.bfloat16))
+    return res
+
+
+def run_bf16_paths(model, image0, image1, K0, K1) -> dict:
+    """Phase 3h, the main paths under ``TPU.MATCHER_BF16`` at the weights of
+    ``model``: both serving layouts' lite outputs (the fused route, K2a and
+    K2b in bf16) and the full output (the dense route, K2a and K4 in bf16),
+    finite and of their shapes, their launches counted; then the dense /
+    fused table cross-check on that config (``check_dense_table``: each
+    route's values at RTOL against fp64 on the bf16-rounded descriptors) and
+    the fp32 route's table on the same head outputs, which the knob must
+    change. Returns the launches, the confidences and the table's numbers."""
+    from mickey_tpu_torch.models import MickeyRelativePose
+
+    cfg_b = model.cfg.clone()
+    cfg_b.TPU.MATCHER_BF16 = True
+    model_b = MickeyRelativePose(cfg_b, model.params, device=model.device)
+    (outs, full), launches = _counted(lambda: (run_slice(model_b, image0, image1, K0, K1),
+                                               run_full(model_b, image0, image1, K0, K1)))
+    table = check_dense_table(model_b, image0, image1, K0, K1)
+    B = image0.shape[0]
+    feats = model.extract_feats(torch.cat([image0, image1]))
+    halves = (tuple(f[:B] for f in feats), tuple(f[B:] for f in feats))
+    t16, t32 = model_b.match_feats(*halves, fused=True), model.match_feats(*halves, fused=True)
+    if torch.equal(t16.top_scores, t32.top_scores):
+        raise SmokeError("MATCHER_BF16: the top-P table is the fp32 route's bit for bit")
+    table["vs_fp32_table_rel"] = _rel(t16.top_scores, t32.top_scores)
+    return {"launches": launches, "table": table, "conf": {k: o.inliers.tolist() for k, o in outs.items()},
+            "full_conf": full.inliers.tolist()}
+
+
+def check_rounded_convs(model, device, maps: int = 4, rows: int = 38, cols: int = 51, seed: int = SEED) -> dict:
+    """Phase 3h: each distinct conv of the heads' blocks (its weights; seeded
+    N(0, 1) inputs of ``maps`` maps of rows x cols, the serving grid) in the
+    bf16 mode (``common.conv2d`` with bf16 compute) and in its plain version
+    (``rounded_convs_plain``) against the fp64 conv of the same rounded
+    operands: the mode within (K / 8) 2^-23 of max |ref|. Returns per shape
+    the mode's and the plain version's max |diff| / max |ref| and the bound."""
+    from mickey_tpu_torch.nn.common import conv2d, rounded_convs_plain
+
+    convs = {}
+    for head in ("det_head", "det_offset", "depth_head", "dsc_head"):
+        for blk in ("resblock1", "resblock2", "resblock3", "resblock4"):
+            for name in ("conv1", "conv2", "shortcut"):
+                p = model.params[head][blk].get(name)
+                if p is not None:
+                    convs.setdefault(tuple(p["w"].shape), p)
+    g = torch.Generator(device=device).manual_seed(seed)
+    res = {}
+    with torch.inference_mode():
+        for (o, i, k, _), p in sorted(convs.items(), reverse=True):
+            x = torch.randn(maps, rows, cols, i, device=device, generator=g)
+            out = conv2d(p, x, torch.bfloat16)
+            with rounded_convs_plain():
+                plain = conv2d(p, x, torch.bfloat16)
+            xr, wr = (t.to(torch.bfloat16).double() for t in (x, p["w"]))
+            ref = torch.nn.functional.conv2d(xr.permute(0, 3, 1, 2), wr, padding=k // 2).permute(0, 2, 3, 1)
+            bound = i * k * k / 8 * 2.0 ** -23
+            err = _rel(out, ref)
+            if not err <= bound:
+                raise SmokeError(f"rounded conv {i}->{o} k{k}: {err:.3e} of max|ref| from fp64 > {bound:.3e}")
+            res[f"{i}->{o} k{k}"] = {"mode": err, "plain": _rel(plain, ref), "bound": bound}
+    return res
+
+
+def check_heads_bf16(model, device, batches=(2, 12), height: int = 714, width: int = 532, iters: int = 5) -> dict:
+    """Phase 3h, the heads stage under ``TPU.HEADS_BF16`` (and
+    ``HEADS_BF16_ON_CPU``, for the CPU rehearsal) on the backbone's feature
+    map of B pairs (2B images, the serving stage): each output fp32, finite,
+    within HEADS_STAGE_TOL normwise of the plain version
+    (``rounded_convs_plain``: the same rounding, cuDNN's fp32 kernels), and
+    not the fp32 heads' output (its normwise distance from the plain version
+    reported beside, the rounding's own effect); CUDA-event medians of the
+    fp32 heads, the bf16 mode and its plain version, in turns (a, b, c, c, b,
+    a). Returns per B the distances and ms."""
+    from mickey_tpu_torch.nn.common import rounded_convs_plain
+    from mickey_tpu_torch.nn.extractor import backbone_features, heads_apply
+
+    cfg = model.cfg
+    cfg_h = cfg.clone()
+    cfg_h.TPU.HEADS_BF16 = True
+    cfg_h.TPU.HEADS_BF16_ON_CPU = True
+    res = {}
+    for B in batches:
+        image0, image1 = slice_inputs(device, pairs=B, height=height, width=width)[:2]
+        with torch.inference_mode():
+            fmap = backbone_features(model.params, torch.cat([image0, image1]), cfg)
+            fns = {"fp32": lambda: heads_apply(model.params, fmap, cfg)[0],
+                   "bf16": lambda: heads_apply(model.params, fmap, cfg_h)[0]}
+
+            def plain():
+                with rounded_convs_plain():
+                    return fns["bf16"]()
+            fns["bf16_plain"] = plain
+            out, ref, f32 = fns["bf16"](), plain(), fns["fp32"]()
+            for x in out:
+                if x.dtype != torch.float32 or not bool(torch.isfinite(x).all()):
+                    raise SmokeError(f"HEADS_BF16, B = {B}: an output is {x.dtype} or not finite")
+            err = max(_norm_rel(a, b) for a, b in zip(out, ref))
+            if not err <= HEADS_STAGE_TOL:
+                raise SmokeError(f"HEADS_BF16, B = {B}: {err:.3e} normwise from its plain version > {HEADS_STAGE_TOL}")
+            moved = max(_norm_rel(a, b) for a, b in zip(out, f32))
+            if not moved > 0:
+                raise SmokeError(f"HEADS_BF16, B = {B}: the outputs are the fp32 heads' bit for bit")
+            fp32_from_plain = max(_norm_rel(a, b) for a, b in zip(f32, ref))
+            del out, ref, f32
+            t = {k: [] for k in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                t[name].append(time_ms(fns[name], iters=iters))
+        res[f"B={B}"] = {"norm_rel_vs_plain": err, "norm_rel_vs_fp32": moved, "fp32_norm_rel_vs_plain": fp32_from_plain,
+                         "ms": {k: round(statistics.mean(v), 3) for k, v in t.items()}}
+        del fmap
+    return res
+
+
+def bf16_bounds(inp_b, tin_b) -> dict:
+    """name -> (bound_ms, bound_by) of the bf16 kernels: one bf16 pass of the
+    correlation at 989 TFLOP/s (products of bf16 values are exact in it)
+    against the bytes as the fp32 rows count them, the descriptors at 2
+    bytes a value."""
+    b0, b1, t0, t1 = inp_b["dsc0"], inp_b["dsc1"], tin_b["dsc0"], tin_b["dsc1"]
+    return {"col_lse_bf16": col_lse_bound(b0, b1, PEAK_BF16, 1.0),
+            "pair_topk_bf16": pair_topk_bound(b0, b1, inp_b["topl"], PEAK_BF16, 1.0),
+            "pair_softmax_bf16": pair_softmax_bound(t0, t1, PEAK_BF16, 1.0)}
+
+
+def bf16_kernel_times(inp_b, tin_b, reps: int = 10) -> dict:
+    """name -> (ms, plain ms, the fp32 engine's ms on the same descriptors):
+    per call of ``reps`` enqueued back to back (``time_many_ms``), kernel and
+    fp32 engine in turns (k, f, f, k), the plain version once."""
+    times = {}
+    for name, (k, p, f) in bf16_kernel_calls(inp_b, tin_b).items():
+        t = {"k": [], "f": []}
+        for which, fn in (("k", k), ("f", f), ("f", f), ("k", k)):
+            t[which].append(time_many_ms(fn, reps=reps))
+        times[name] = (statistics.mean(t["k"]), time_many_ms(p, reps=reps), statistics.mean(t["f"]))
+    return times
+
+
+def run_bf16_phase(model, inp, tin, device) -> dict:
+    """Phase 3h: the bf16 kernels' checks, the MATCHER_BF16 paths at full
+    width (B = 2 pairs of 714 x 532, both layouts and the full output; their
+    launches checked), the bf16 heads conv by conv and as a stage at B = 2
+    and 12, the kernels' times and bounds, and the general layout's stages
+    (``_stage_times``) on both matcher routes with and without the knob."""
+    from mickey_tpu_torch.models import MickeyRelativePose
+
+    inp_b, tin_b = bf16_kernel_inputs(inp, tin)
+    errs = check_bf16_kernels(inp_b, tin_b)
+    ims = slice_inputs(device, pairs=2, height=714, width=532)
+    paths = run_bf16_paths(model, *ims)
+    _launched(paths["launches"], "serving, MATCHER_BF16", BF16_PATH_KERNELS, BF16_PATH_ABSENT)
+    _once_per_solve(paths["launches"], "serving, MATCHER_BF16", 3)  # both layouts and the full output
+    heads = {"convs": check_rounded_convs(model, device), "stage": check_heads_bf16(model, device)}
+    cfg_b = model.cfg.clone()
+    cfg_b.TPU.MATCHER_BF16 = True
+    model_b = MickeyRelativePose(cfg_b, model.params, device=model.device)
+    stages = {f"{name}, {route}": _stage_times(m, *ims, fused=route == "fused")
+              for route in ("fused", "dense") for name, m in (("fp32 matcher", model), ("MATCHER_BF16", model_b))}
+    return {"errs": errs, "paths": paths, "heads": heads, "kt": bf16_kernel_times(inp_b, tin_b),
+            "bounds": bf16_bounds(inp_b, tin_b), "stages": stages}
+
+
+def bf16_lines(res: dict, card: str) -> str:
+    p = res["paths"]
+    return (f"bf16: ok | launches {p['launches']} | conf {p['conf']} full output {p['full_conf']} | dense vs fused "
+            f"table {p['table']} | kernels " + " ".join(f"{k} max|diff|={v:.3e}" for k, v in res["errs"].items())
+            + f" | heads {json.dumps(res['heads'])}\n"
+            f"timing (bf16): ok | {card} | "
+            + " ".join(f"{n} {k:.4f}/{f:.4f}/{pl:.4f} ms kernel/fp32 engine/plain"
+                       for n, (k, pl, f) in res["kt"].items())
+            + " | bound " + " ".join(f"{n} {ms:.4f} ms ({by})" for n, (ms, by) in res["bounds"].items())
+            + f" | general layout's stages ms, B = 2 {json.dumps(res.get('stages'))}")
+
+
+def bf16_kernel_rows(res: dict, launches: dict) -> list:
+    """The bf16 kernels' rows of the ``kernels`` line; ``launches`` name ->
+    count over the main paths' runs."""
+    return [{"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": launches[n],
+             "max_abs_err": res["errs"][n], "ms": res["kt"][n][0], "plain_ms": res["kt"][n][1],
+             "bound_ms": res["bounds"][n][0], "bound_by": res["bounds"][n][1], "library_ms": None,
+             "fp32_engine_ms": res["kt"][n][2]}
+            for n, src, rep in BF16_KERNELS]
+
+
+def bf16_report(cfg, dev, card: str, inp, tin) -> int:
+    """``--bf16``: phase 3h alone, at full width with the seeded random
+    weights; its kernels' rows as the whole run prints them."""
+    from mickey_tpu_torch.models import build_model
+    from mickey_tpu_torch.weights import init_params_numpy
+
+    t_start = time.perf_counter()
+    res = run_bf16_phase(build_model(cfg, init_params_numpy(cfg, SEED), device=dev), inp, tin, dev)
+    print(bf16_lines(res, card), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s after the build", flush=True)
+    print(json.dumps({"kernels": bf16_kernel_rows(res, res["paths"]["launches"])}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,54 +1,70 @@
-// The matcher's correlation engine: s = X_own X_oth^T * inv_temp at fp32
-// accuracy on the tensor cores (3xTF32 wgmma), with a logsumexp along the
-// other axis kept in registers. Three forward kernels run on it:
+// The matcher's correlation engine: s = X_own X_oth^T * inv_temp on the
+// tensor cores, with a logsumexp along the other axis kept in registers. Two
+// operand modes (CorrTf32, CorrBf16 below) share everything but the product:
+//  - fp32 descriptors at fp32 accuracy, 3xTF32 wgmma on a TF32 split;
+//  - bf16 descriptors (cfg.TPU.MATCHER_BF16; the JAX package's bf16 branch of
+//    _corr_block, mickey_tpu/ops/fused_matcher.py:57-64), one bf16 wgmma
+//    pass with fp32 accumulation, exact for bf16 operands.
+// Three forward kernels run on it, in either mode:
 //   K2a col_lse (fused_topk.cu): own = dsc1, other = dsc0; per column j the
 //       partial (max, sum) of a chunk of dsc0's rows, combined in a fixed
 //       order by a second small launch;
 //   K4 pair_softmax (dual_softmax.cu): own = dsc0, other = dsc1; sweep 1
 //       gives lse_row with the dustbin, sweep 2 recomputes S and writes
 //       P = exp(2 s - lse_row - lse_col);
-//   K2b pair_topk (fused_topk.cu, topk_tf32_kernel): K4's sweeps on K2a's
-//       split, sweep 2 keeping each row's top-L instead of writing P.
+//   K2b pair_topk (fused_topk.cu, topk_kernel): K4's sweeps on K2a's
+//       prepared descriptors, sweep 2 keeping each row's top-L instead of
+//       writing P.
 // The gradient kernels K5 and K6 (dual_softmax.cu, corr_bwd_kernel) run the
-// same correlation (issue_corr) and add a second product, dd_own += dS X_oth,
-// with dS as the register A operand (issue_dd) and X_oth^T from a transposed
-// copy the prep kernel split_desc_t_kernel writes.
+// fp32 mode's correlation (issue_corr) and add a second product, dd_own +=
+// dS X_oth, with dS as the register A operand (issue_dd) and X_oth^T from a
+// transposed copy the prep kernel split_desc_t_kernel writes. Training is
+// fp32 in the JAX package too: the bf16 mode has no backward.
 //
-// Numerics: every descriptor value x is split once into TF32 hi (x
-// truncated) and lo = cvt.rna(x - hi) (split_desc), and a product is three
+// Numerics, fp32 mode: every descriptor value x is split once into TF32 hi
+// (x truncated) and lo = cvt.rna(x - hi) (split_desc), and a product is three
 // passes over the 128 channels, lo*hi, hi*lo and hi*hi, in short
 // accumulator chains summed in registers (issue_corr). What is dropped
 // (lo*lo, the split's residuals) is ~2^-20 of each term; one TF32 pass alone
-// would leave ~1e-3 of logit error at 1/T = 10. The logsumexps run in the
-// exp2 domain (u = s log2 e) with an online max; a running max
-// that is infinite is shifted by 0, as torch.logsumexp does, so +inf
-// entries give +inf and NaN propagates through the sums.
+// would leave ~1e-3 of logit error at 1/T = 10. bf16 mode: a product of two
+// bf16 values is exact in fp32, so one pass of 8 k16 slices is the fp32
+// product of the rounded descriptors up to the order of the sums (no split,
+// and no special rule for infinities: inf x finite is what fp32 gives). The
+// logsumexps run in the exp2 domain (u = s log2 e) with an online max; a
+// running max that is infinite is shifted by 0, as torch.logsumexp does, so
+// +inf entries give +inf and NaN propagates through the sums.
 //
-// What bounds it on the H100: 3 x 2 M N C flops a product against reading
-// the descriptors (and, for K4, writing P: 4 M N bytes), so operations, at
-// 495 TFLOP/s TF32 (the FFMA bodies this replaces were capped by 67 TFLOP/s
-// fp32). Design:
-//  - the prep kernel splits each descriptor set once per launch, not once
-//    per CTA (each other tile is read by ~M / 64 CTAs), into scratch laid out
-//    [row][128] (channels past C zero). A 512-byte row is four 128-byte
-//    swizzle rows of 32 values, so a tile is loaded through 5-D tensor maps
-//    (ops/fused_matcher.py::corr_geometry) and lies in shared memory as four
-//    blocks of 128-byte rows; a k8 slice is 32 bytes into one block;
-//  - one warpgroup owns 64 own rows; their hi and lo (64 KB) stay in shared
-//    memory as the A operand of m64n64k8 wgmma (in registers they would take
-//    128 a thread); both operands are [row][c], K-major, so nothing is
-//    transposed. The passes run in independent chains, interleaved slice by
-//    slice (one chain of 48 wgmma: K4 0.318 ms; three chains: 0.272, on an
-//    H100 SXM at 700 W; PERF.md);
-//  - the other set's 64-row tiles (hi and lo, 64 KB) come by TMA into a
-//    2-stage mbarrier ring; TMA zero-fills rows past the end, which are then
-//    masked to -inf explicitly (a zero score would count);
+// What bounds it on the H100: fp32 mode, 3 x 2 M N C flops a product
+// against reading the descriptors (and, for K4, writing P: 4 M N bytes), so
+// operations, at 495 TFLOP/s TF32 (the FFMA bodies this replaces were capped
+// by 67 TFLOP/s fp32). bf16 mode: 2 M N C flops at 989 TFLOP/s, a sixth of
+// the fp32 mode's tensor time; K4 is then bound by the bytes of P. Design:
+//  - a prep kernel lays each descriptor set out once per launch, not once
+//    per CTA (each other tile is read by ~M / 64 CTAs), in scratch as
+//    [row][128] (channels past C zero): fp32 mode, split into hi and lo, a
+//    512-byte row is four 128-byte swizzle rows of 32 values; bf16 mode, a
+//    256-byte row is two swizzle rows of 64 values. A tile is loaded through
+//    5-D tensor maps (ops/fused_matcher.py::corr_geometry) and lies in
+//    shared memory as blocks of 128-byte rows; a k-slice (k8 of TF32, k16 of
+//    bf16: 32 bytes either way) is 32 bytes into one block;
+//  - one warpgroup owns 64 own rows; their tile (hi and lo, 64 KB; bf16 16
+//    KB) stays in shared memory as the A operand of m64n64 wgmma (in
+//    registers the fp32 split would take 128 a thread); both operands are
+//    [row][c], K-major, so nothing is transposed. The fp32 passes run in
+//    independent chains, interleaved slice by slice (one chain of 48 wgmma:
+//    K4 0.318 ms; three chains: 0.272, on an H100 SXM at 700 W; PERF.md);
+//  - the other set's 64-row tiles come by TMA into a 2-stage mbarrier ring;
+//    TMA zero-fills rows past the end, which are then masked to -inf
+//    explicitly (a zero score would count);
 //  - in the accumulator layout a row lives in 4 neighbouring lanes: the row
 //    max takes two shuffles, the sum is a per-thread share until the end;
 //    K4 loads a tile's lse_col while its products run and writes P from the
 //    accumulator layout, 8 bytes a thread;
-//  - 197 KB of shared memory, one CTA an SM; K2a splits the other axis into
-//    chunks so that its few own tiles still fill the card.
+//  - fp32 mode: 197 KB of shared memory, one CTA an SM; K2a splits the other
+//    axis into chunks so that its few own tiles still fill the card. The bf16
+//    mode keeps that grid and those chunks; its 50 KB of shared memory and
+//    fewer accumulator registers leave room for more CTAs an SM, which a
+//    later change may take.
 
 #pragma once
 
@@ -71,10 +87,13 @@ constexpr uint32_t CORR_B_BLOCK = CORR_BN * CORR_SPAN * 4;
 constexpr uint32_t CORR_STAGE = 2 * CORR_B_PART;
 constexpr uint32_t CORR_T_BLOCK = CORR_C * CORR_SPAN * 4;  // 32 other rows of every channel of an X_oth^T tile
 constexpr uint32_t CORR_T_PART = CORR_C * CORR_BN * 4;     // an X_oth^T tile, hi or lo
-constexpr size_t CORR_SMEM = 1024 + 2 * CORR_A_PART + CORR_STAGES * CORR_STAGE + 8 * (CORR_STAGES + 1);
 constexpr float CORR_LOG2E = 1.4426950408889634f;
 constexpr float CORR_LN2 = 0.6931471805599453f;
-static_assert(CORR_SMEM <= 232448, "one CTA an SM");
+// bf16 mode: a [row][128] bf16 row is two 128-byte swizzle rows of 64 values
+constexpr int CORR_SPAN_BF16 = 64;
+constexpr uint32_t CORR_TILE_BF16 = CORR_BM * CORR_C * 2;          // an own or other tile
+constexpr uint32_t CORR_BLOCK_BF16 = CORR_BM * CORR_SPAN_BF16 * 2;  // one 64-channel block of it
+static_assert(CORR_BM == CORR_BN, "own and other tiles of one size");
 
 // Timing ablations for `chip_smoke.py --matcher` (wrong results, never in
 // the library the port loads): MK_ABLATE_EXP replaces every ex2 by a
@@ -327,8 +346,179 @@ split_desc_t_kernel(const float* __restrict__ x0, const float* __restrict__ x1, 
 }
 
 struct CorrMaps {
-  CUtensorMap own_hi, own_lo, oth_hi, oth_lo;
+  CUtensorMap own_hi, own_lo, oth_hi, oth_lo;  // the bf16 mode reads only the hi maps
 };
+
+// bf16 mode's prep: rows of x0 (r0 rows, blockIdx.y = 0) or x1 (r1 rows,
+// blockIdx.y = 1), C bf16 channels each, copied bit for bit into scratch
+// [x0 | x1], each (rows, 128) with channels past C zero; one thread per 8
+// channels of a row.
+__global__ void __launch_bounds__(256)
+pad_desc_bf16_kernel(const uint16_t* __restrict__ x0, const uint16_t* __restrict__ x1, uint16_t* __restrict__ scratch,
+                     int r0, int r1, int C) {
+  const bool second = blockIdx.y == 1;
+  const uint16_t* x = second ? x1 : x0;
+  const long long rows = second ? r1 : r0;
+  uint16_t* out = scratch + (second ? static_cast<long long>(r0) * CORR_C : 0LL);
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long row = e / (CORR_C / 8);
+  const int c0 = static_cast<int>(e % (CORR_C / 8)) * 8;
+  if (row >= rows) return;
+  uint4 v;
+  if (C == CORR_C && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    v = *reinterpret_cast<const uint4*>(x + row * CORR_C + c0);
+  } else {
+    uint16_t h[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) h[k] = c0 + k < C ? x[row * C + c0 + k] : 0;
+    v = make_uint4(h[0] | (uint32_t(h[1]) << 16), h[2] | (uint32_t(h[3]) << 16), h[4] | (uint32_t(h[5]) << 16),
+                   h[6] | (uint32_t(h[7]) << 16));
+  }
+  *reinterpret_cast<uint4*>(out + row * CORR_C + c0) = v;
+}
+
+// d (64 x 64 fp32) = or += A (64 x 16 bf16) B^T (64 x 16), both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The geometry a C entry receives (ops/fused_matcher.py::corr_geometry):
+// the own map then the other map, each dims (5), byte strides (4), box (5),
+// innermost first: dims (span, rows, 128 / span, 1, B), box (span, box_rows,
+// 128 / span, 1, 1), box_rows 64 either way; span 32 fp32 values or 64 bf16.
+inline bool corr_geometry_ok(const long long* g, int B, int rows, int box_rows, int span = CORR_SPAN) {
+  return g[0] == span && g[1] == rows && g[2] == CORR_C / span && g[3] == 1 && g[4] == B && g[9] == span &&
+         g[10] == box_rows && g[11] == CORR_C / span && g[12] == 1 && g[13] == 1;
+}
+
+// Floats of the split descriptors in scratch: [d0 hi | d0 lo | d1 hi | d1 lo],
+// each (B rows, 128). K2a's partials follow them.
+inline long long corr_split_floats(int B, int M, int N) {
+  return 2LL * (static_cast<long long>(B) * M + static_cast<long long>(B) * N) * CORR_C;
+}
+
+// The prep kernel: d0 (B, M, C) and d1 (B, N, C) split into scratch
+// (corr_split_floats). Returns 0 or a cudaError_t.
+inline int corr_split(const float* d0, const float* d1, float* scratch, int B, int M, int N, int C, cudaStream_t st) {
+  const long long rows0 = static_cast<long long>(B) * M, rows1 = static_cast<long long>(B) * N;
+  const long long most = rows0 > rows1 ? rows0 : rows1;
+  split_desc_kernel<<<dim3(static_cast<unsigned>((most * (CORR_C / 4) + 255) / 256), 2), 256, 0, st>>>(
+      d0, d1, scratch, static_cast<int>(rows0), static_cast<int>(rows1), C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The hi and lo maps of one split set (`part` floats apart) from its 14-entry geometry.
+inline int encode_pair(CUtensorMap* hi, CUtensorMap* lo, const float* split, long long part, const long long* geom) {
+  int rc = encode_map(hi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, split, geom, geom + 5, geom + 9);
+  if (rc == 0) rc = encode_map(lo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, split + part, geom, geom + 5, geom + 9);
+  return rc;
+}
+
+// The operand modes of the forward kernels (corr_fwd_kernel, fused_topk.cu's
+// topk_kernel): the bytes of a 64-row tile in shared memory, the span of
+// their tensor maps, the prep into scratch, the maps, the TMA load of a
+// tile, and the product of an own and an other tile in accumulator chains
+// x, h (issue, then sum once the products are waited for). Everything else
+// in those kernels is one code for both.
+struct CorrTf32 {
+  static constexpr uint32_t kTile = 2 * CORR_A_PART;  // hi then lo
+  static constexpr int kSpan = CORR_SPAN;
+  // the descriptors' split in scratch: corr_split_floats, set 1 after set 0
+  static long long scratch_floats(int B, int M, int N) { return corr_split_floats(B, M, N); }
+  static int prep(const void* d0, const void* d1, float* scratch, int B, int M, int N, int C, cudaStream_t st) {
+    return corr_split(static_cast<const float*>(d0), static_cast<const float*>(d1), scratch, B, M, N, C, st);
+  }
+  // the maps of set 0 (B M rows) or set 1 (B N rows) of the scratch
+  static int encode(CUtensorMap* hi, CUtensorMap* lo, float* scratch, int set, int B, int M, int N,
+                    const long long* geom) {
+    const long long rows = static_cast<long long>(B) * (set ? N : M);
+    return encode_pair(hi, lo, scratch + (set ? corr_split_floats(B, M, 0) : 0LL), rows * CORR_C, geom);
+  }
+  static __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* hi, const CUtensorMap* lo, uint32_t bar,
+                                              int row, int b) {
+    mbar_expect_tx(bar, kTile);
+    tma_load5(dst, hi, bar, row, 0, 0, b);
+    tma_load5(dst + kTile / 2, lo, bar, row, 0, 0, b);
+  }
+  static __device__ __forceinline__ void issue(float (&x)[32], float (&h)[4][32], uint32_t own, uint32_t oth) {
+    issue_corr<4>(x, h, own, own + CORR_A_PART, oth, oth + CORR_B_PART);
+  }
+  static __device__ __forceinline__ void sum(float (&s)[32], float (&x)[32], float (&h)[4][32]) {
+    corr_sum<4>(s, x, h);
+  }
+};
+
+// bf16 mode: one pass, 8 k16 slices in two interleaved chains of 4 (h[0]
+// the even slices, h[1] the odd; x and h[2..3] unused), so a chain is as
+// long as the fp32 mode's hi*hi chains and its truncating sums bias s no
+// more; the two are added in registers.
+struct CorrBf16 {
+  static constexpr uint32_t kTile = CORR_TILE_BF16;
+  static constexpr int kSpan = CORR_SPAN_BF16;
+  // [d0 | d1] as bf16 (B rows, 128), in floats
+  static long long scratch_floats(int B, int M, int N) {
+    return (static_cast<long long>(B) * M + static_cast<long long>(B) * N) * CORR_C / 2;
+  }
+  static int prep(const void* d0, const void* d1, float* scratch, int B, int M, int N, int C, cudaStream_t st) {
+    const long long rows0 = static_cast<long long>(B) * M, rows1 = static_cast<long long>(B) * N;
+    const long long most = rows0 > rows1 ? rows0 : rows1;
+    pad_desc_bf16_kernel<<<dim3(static_cast<unsigned>((most * (CORR_C / 8) + 255) / 256), 2), 256, 0, st>>>(
+        static_cast<const uint16_t*>(d0), static_cast<const uint16_t*>(d1), reinterpret_cast<uint16_t*>(scratch),
+        static_cast<int>(rows0), static_cast<int>(rows1), C);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int encode(CUtensorMap* hi, CUtensorMap*, float* scratch, int set, int B, int M, int N,
+                    const long long* geom) {
+    const uint16_t* at =
+        reinterpret_cast<const uint16_t*>(scratch) + (set ? static_cast<long long>(B) * M * CORR_C : 0LL);
+    return encode_map(hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, at, geom, geom + 5, geom + 9);
+  }
+  static __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* hi, const CUtensorMap*, uint32_t bar,
+                                              int row, int b) {
+    mbar_expect_tx(bar, kTile);
+    tma_load5(dst, hi, bar, row, 0, 0, b);
+  }
+  static __device__ __forceinline__ void issue(float (&)[32], float (&h)[4][32], uint32_t own, uint32_t oth) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CORR_C / 16; ++kk)
+      wgmma_ss_n64_bf16(h[kk & 1], corr_desc(own, CORR_BLOCK_BF16, kk), corr_desc(oth, CORR_BLOCK_BF16, kk), kk >= 2);
+    wgmma_commit();
+  }
+  static __device__ __forceinline__ void sum(float (&s)[32], float (&)[32], float (&h)[4][32]) {
+    fence_regs(h[0]);
+    fence_regs(h[1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = h[0][i] + h[1][i];
+  }
+};
+
+// Shared memory of a forward kernel in mode Op: the own tile, the ring, the
+// mbarriers, 1024 bytes of alignment slack.
+template <class Op>
+constexpr size_t corr_smem() {
+  return 1024 + (1 + CORR_STAGES) * Op::kTile + 8 * (CORR_STAGES + 1);
+}
+static_assert(corr_smem<CorrTf32>() <= 232448, "one CTA an SM");
 
 // The shift of an online logsumexp in the exp2 domain: the running max, or
 // 0 where it is infinite (as torch.logsumexp), so exp2(u - shift) is never
@@ -401,15 +591,16 @@ __device__ __forceinline__ float2 corr_lse_row(float m0, float m1, float l0, flo
 //   kPair (K4): all other rows twice: lse_row[b n_own + row] with the
 //     dustbin (alpha2 = alpha log2 e) after the first sweep, then
 //     out[b][row][col] = exp(2 s - lse_row - lse_col[b][col]).
-template <bool kPair>
+// Op: the operand mode (CorrTf32, CorrBf16).
+template <bool kPair, class Op>
 __global__ void __launch_bounds__(CORR_NT, 1)
-corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, int tiles_per_chunk, float c,
-                 float2* __restrict__ part, const float* __restrict__ lse_col, float* __restrict__ out,
-                 float* __restrict__ lse_row, float alpha2) {
+corr_fwd_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, int tiles_per_chunk, float c,
+                float2* __restrict__ part, const float* __restrict__ lse_col, float* __restrict__ out,
+                float* __restrict__ lse_row, float alpha2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t a_hi = base, a_lo = base + CORR_A_PART, ring = base + 2 * CORR_A_PART;
-  const uint32_t bar0 = ring + CORR_STAGES * CORR_STAGE, a_bar = bar0 + 8 * CORR_STAGES;
+  const uint32_t own = base, ring = base + Op::kTile;
+  const uint32_t bar0 = ring + CORR_STAGES * Op::kTile, a_bar = bar0 + 8 * CORR_STAGES;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int o0 = blockIdx.x * CORR_BM, b = blockIdx.z;
@@ -419,11 +610,8 @@ corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, in
   const int total = kPair ? 2 * nt : nt;
 
   auto load_stage = [&](int t) {
-    const uint32_t bar = bar0 + 8 * (t % CORR_STAGES), stage = ring + (t % CORR_STAGES) * CORR_STAGE;
-    const int row = (first + t % nt) * CORR_BN;
-    mbar_expect_tx(bar, CORR_STAGE);
-    tma_load5(stage, &maps.oth_hi, bar, row, 0, 0, b);
-    tma_load5(stage + CORR_B_PART, &maps.oth_lo, bar, row, 0, 0, b);
+    Op::load(ring + (t % CORR_STAGES) * Op::kTile, &maps.oth_hi, &maps.oth_lo, bar0 + 8 * (t % CORR_STAGES),
+             (first + t % nt) * CORR_BN, b);
   };
   if (tid == 0) {
 #pragma unroll
@@ -433,9 +621,7 @@ corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, in
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(a_bar, 2 * CORR_A_PART);
-    tma_load5(a_hi, &maps.own_hi, a_bar, o0, 0, 0, b);
-    tma_load5(a_lo, &maps.own_lo, a_bar, o0, 0, 0, b);
+    Op::load(own, &maps.own_hi, &maps.own_lo, a_bar, o0, b);
     for (int t = 0; t < CORR_STAGES && t < total; ++t) load_stage(t);
   }
   mbar_wait(a_bar, 0);
@@ -450,9 +636,8 @@ corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, in
 
   for (int t = 0; t < total; ++t) {
     const int st = t % CORR_STAGES;
-    const uint32_t stage = ring + st * CORR_STAGE;
     if (!CORR_ABLATE_LOADS || t < CORR_STAGES) mbar_wait(bar0 + 8 * st, (t / CORR_STAGES) & 1);
-    issue_corr(x, h, a_hi, a_lo, stage, stage + CORR_B_PART);
+    Op::issue(x, h, own, ring + st * Op::kTile);
     const int j0 = (first + t % nt) * CORR_BN;  // the other row of accumulator column 0
     float bc[16];  // K4's writes: -lse_col log2 e of this thread's columns, loaded under the products
     if (kPair && t >= nt) {
@@ -463,7 +648,7 @@ corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, in
       }
     }
     wgmma_wait();
-    corr_sum(s, x, h);
+    Op::sum(s, x, h);
 
     if (!kPair || t < nt) {
       corr_lse_tile(s, c, n_oth - j0, t4, m0, m1, l0, l1);
@@ -519,14 +704,6 @@ corr_tf32_kernel(const __grid_constant__ CorrMaps maps, int n_own, int n_oth, in
   }
 }
 
-// geom: the own map then the other map, each dims (5), byte strides (4),
-// box (5), innermost first (ops/fused_matcher.py::corr_geometry): dims
-// (32, rows, 4, 1, B), box (32, box_rows, 4, 1, 1), box_rows 64 either way.
-inline bool corr_geometry_ok(const long long* g, int B, int rows, int box_rows) {
-  return g[0] == CORR_SPAN && g[1] == rows && g[2] == CORR_C / CORR_SPAN && g[3] == 1 && g[4] == B &&
-         g[9] == CORR_SPAN && g[10] == box_rows && g[11] == CORR_C / CORR_SPAN && g[12] == 1 && g[13] == 1;
-}
-
 // geom of an X^T map (ops/fused_matcher.py::corr_t_geometry): dims (32, 128,
 // pad / 32, 1, B), box (32, 128, 2, 1, 1), pad the rows padded to 64.
 inline bool corr_t_geometry_ok(const long long* g, int B, int rows) {
@@ -535,59 +712,34 @@ inline bool corr_t_geometry_ok(const long long* g, int B, int rows) {
          g[9] == CORR_SPAN && g[10] == CORR_C && g[11] == CORR_BN / CORR_SPAN && g[12] == 1 && g[13] == 1;
 }
 
-// Floats of the split descriptors in scratch: [d0 hi | d0 lo | d1 hi | d1 lo],
-// each (B rows, 128). K2a's partials follow them.
-inline long long corr_split_floats(int B, int M, int N) {
-  return 2LL * (static_cast<long long>(B) * M + static_cast<long long>(B) * N) * CORR_C;
-}
-
-// The prep kernel: d0 (B, M, C) and d1 (B, N, C) split into scratch
-// (corr_split_floats). Returns 0 or a cudaError_t.
-inline int corr_split(const float* d0, const float* d1, float* scratch, int B, int M, int N, int C, cudaStream_t st) {
-  const long long rows0 = static_cast<long long>(B) * M, rows1 = static_cast<long long>(B) * N;
-  const long long most = rows0 > rows1 ? rows0 : rows1;
-  split_desc_kernel<<<dim3(static_cast<unsigned>((most * (CORR_C / 4) + 255) / 256), 2), 256, 0, st>>>(
-      d0, d1, scratch, static_cast<int>(rows0), static_cast<int>(rows1), C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The hi and lo maps of one split set (`part` floats apart) from its 14-entry geometry.
-inline int encode_pair(CUtensorMap* hi, CUtensorMap* lo, const float* split, long long part, const long long* geom) {
-  int rc = encode_map(hi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, split, geom, geom + 5, geom + 9);
-  if (rc == 0) rc = encode_map(lo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, split + part, geom, geom + 5, geom + 9);
-  return rc;
-}
-
-// The engine on descriptors d0 (B, M, C) and d1 (B, N, C): the prep kernel
-// into scratch (corr_split_floats), then corr_tf32_kernel<kPair> with
-// own = d1 (!kPair) or d0 (kPair) over `chunks` chunks of the other rows, each
-// the same whole number of 64-row tiles and none empty
-// (ops/fused_matcher.py::col_lse_chunks; 1 for kPair). Returns 0, a
-// cudaError_t, or ERR_ENCODE + the encoder's CUresult.
-template <bool kPair>
-int corr_launch(const float* d0, const float* d1, float* scratch, const long long* geom, int B, int M, int N, int C,
+// The engine on descriptors d0 (B, M, C) and d1 (B, N, C), fp32 or bf16 as
+// Op: the prep kernel into scratch (Op::scratch_floats), then
+// corr_fwd_kernel<kPair, Op> with own = d1 (!kPair) or d0 (kPair) over
+// `chunks` chunks of the other rows, each the same whole number of 64-row
+// tiles and none empty (ops/fused_matcher.py::col_lse_chunks; 1 for kPair).
+// Returns 0, a cudaError_t, or ERR_ENCODE + the encoder's CUresult.
+template <bool kPair, class Op>
+int corr_launch(const void* d0, const void* d1, float* scratch, const long long* geom, int B, int M, int N, int C,
                 int chunks, float inv_temp, float alpha, float2* part, const float* lse_col, float* out,
                 float* lse_row, cudaStream_t st) {
   const int n_own = kPair ? M : N, n_oth = kPair ? N : M;
   const int tiles = (n_oth + CORR_BN - 1) / CORR_BN, per = chunks < 1 ? 0 : (tiles + chunks - 1) / chunks;
   if (B < 1 || M < 1 || N < 1 || C < 1 || C > CORR_C || chunks < 1 || (kPair && chunks != 1) ||
-      (chunks - 1) * per >= tiles || !corr_geometry_ok(geom, B, n_own, CORR_BM) ||
-      !corr_geometry_ok(geom + 14, B, n_oth, CORR_BN))
+      (chunks - 1) * per >= tiles || !corr_geometry_ok(geom, B, n_own, CORR_BM, Op::kSpan) ||
+      !corr_geometry_ok(geom + 14, B, n_oth, CORR_BN, Op::kSpan))
     return static_cast<int>(cudaErrorInvalidValue);
-  int rc = corr_split(d0, d1, scratch, B, M, N, C, st);
+  int rc = Op::prep(d0, d1, scratch, B, M, N, C, st);
   if (rc != 0) return rc;
-  const long long rows0 = static_cast<long long>(B) * M, rows1 = static_cast<long long>(B) * N;
-  float* h0 = scratch;
-  float* h1 = scratch + corr_split_floats(B, M, 0);
-  CorrMaps maps;
-  rc = encode_pair(&maps.own_hi, &maps.own_lo, kPair ? h0 : h1, (kPair ? rows0 : rows1) * CORR_C, geom);
-  if (rc == 0) rc = encode_pair(&maps.oth_hi, &maps.oth_lo, kPair ? h1 : h0, (kPair ? rows1 : rows0) * CORR_C, geom + 14);
+  CorrMaps maps = {};
+  rc = Op::encode(&maps.own_hi, &maps.own_lo, scratch, kPair ? 0 : 1, B, M, N, geom);
+  if (rc == 0) rc = Op::encode(&maps.oth_hi, &maps.oth_lo, scratch, kPair ? 1 : 0, B, M, N, geom + 14);
   if (rc != 0) return rc;
   // per launch: the attribute belongs to the current device
-  const cudaError_t e = cudaFuncSetAttribute(corr_tf32_kernel<kPair>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(CORR_SMEM));
+  constexpr size_t smem = corr_smem<Op>();
+  const cudaError_t e = cudaFuncSetAttribute(corr_fwd_kernel<kPair, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  corr_tf32_kernel<kPair><<<dim3((n_own + CORR_BM - 1) / CORR_BM, chunks, B), CORR_NT, CORR_SMEM, st>>>(
+  corr_fwd_kernel<kPair, Op><<<dim3((n_own + CORR_BM - 1) / CORR_BM, chunks, B), CORR_NT, smem, st>>>(
       maps, n_own, n_oth, per, inv_temp * CORR_LOG2E, part, lse_col, out, lse_row, alpha * CORR_LOG2E);
   return static_cast<int>(cudaGetLastError());
 }

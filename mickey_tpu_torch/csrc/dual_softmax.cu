@@ -3,7 +3,9 @@
 //
 // Replaces mickey_tpu/ops/fused_matcher.py's Pallas kernels of
 // fused_dual_softmax / fused_dual_softmax_vjp:
-//   K4  _pair_softmax_kernel (:107) -> mk_pair_softmax_f32: with
+//   K4  _pair_softmax_kernel (:107) -> mk_pair_softmax_f32 (mk_pair_softmax_bf16
+//       on the bf16 descriptors of cfg.TPU.MATCHER_BF16, the engine's bf16
+//       mode: one bf16 wgmma pass, as _corr_block's bf16 branch): with
 //       s = dsc0 dsc1^T / T, per row i the dustbin-augmented
 //       lse_row_i = log(sum_j exp(s_ij) + exp(alpha)), and the dense output
 //       P_ij = exp(s_ij - lse_row_i) exp(s_ij - lse_col_j). Its first pass
@@ -408,10 +410,20 @@ extern "C" int mk_dual_softmax_row_blocks(int M) { return (M + BWD_WARP_ROWS - 1
 extern "C" int mk_pair_softmax_f32(const void* d0, const void* d1, const void* lse_col, void* out,
                                    void* lse_row, void* scratch, const long long* geom, int B, int M,
                                    int N, int C, float inv_temp, float alpha, void* stream) {
-  return corr_launch<true>(static_cast<const float*>(d0), static_cast<const float*>(d1),
-                           static_cast<float*>(scratch), geom, B, M, N, C, 1, inv_temp, alpha, nullptr,
-                           static_cast<const float*>(lse_col), static_cast<float*>(out),
-                           static_cast<float*>(lse_row), static_cast<cudaStream_t>(stream));
+  return corr_launch<true, CorrTf32>(d0, d1, static_cast<float*>(scratch), geom, B, M, N, C, 1, inv_temp, alpha,
+                                     nullptr, static_cast<const float*>(lse_col), static_cast<float*>(out),
+                                     static_cast<float*>(lse_row), static_cast<cudaStream_t>(stream));
+}
+
+// mk_pair_softmax_f32 on bf16 descriptors (the engine's bf16 mode): scratch
+// (B M + B N) 64 floats for their [row][128] bf16 copy; geom the bf16 maps.
+// out and lse_row stay fp32.
+extern "C" int mk_pair_softmax_bf16(const void* d0, const void* d1, const void* lse_col, void* out,
+                                    void* lse_row, void* scratch, const long long* geom, int B, int M,
+                                    int N, int C, float inv_temp, float alpha, void* stream) {
+  return corr_launch<true, CorrBf16>(d0, d1, static_cast<float*>(scratch), geom, B, M, N, C, 1, inv_temp, alpha,
+                                     nullptr, static_cast<const float*>(lse_col), static_cast<float*>(out),
+                                     static_cast<float*>(lse_row), static_cast<cudaStream_t>(stream));
 }
 
 // r (B, M), c (B, N) = the row and column sums of G o P, G (B, M, N).

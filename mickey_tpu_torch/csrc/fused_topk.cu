@@ -18,7 +18,12 @@
 // fp32 accuracy as 3xTF32 wgmma on the correlation engine of corr_tf32.cuh
 // (its design is there), on one split of the descriptors: K2a's prep
 // writes it, K2b reads it (its wrapper passes K2a's scratch) and runs no
-// prep of its own. K2a: each CTA owns 64 columns (dsc1 rows) and sweeps one
+// prep of its own. Under cfg.TPU.MATCHER_BF16 the JAX package hands both
+// Pallas kernels bf16 descriptors, which they multiply in one MXU pass with
+// fp32 accumulation (_corr_block's bf16 branch): mk_col_lse_bf16 and
+// mk_pair_topk_bf16 are the same kernels in the engine's bf16 mode (one bf16
+// wgmma pass, exact for bf16 operands), K2b again on K2a's prepared copy.
+// K2a: each CTA owns 64 columns (dsc1 rows) and sweeps one
 // chunk of dsc0's rows; col_lse_combine_kernel folds the chunks' (max, sum)
 // partials in a fixed order and adds alpha, so no float atomics and two
 // launches agree bitwise.
@@ -26,11 +31,12 @@
 // What bounds K2b on the H100: the correlation, 3 x 2 B M N C flops at
 // 495 TFLOP/s TF32 (0.012 ms at B = 2, M = N = 1938, C = 128; the FFMA
 // body it replaces was capped by 67 TFLOP/s fp32, 0.029 ms, and took 0.61
-// ms on an H100 SXM at 700 W), and two exponentials a score, against
+// ms on an H100 SXM at 700 W; bf16 mode: 2 B M N C flops at 989 TFLOP/s,
+// 0.0019 ms), and two exponentials a score, against
 // reading the descriptors and writing the (B, L, M) table. In practice the
 // per-tile epilogues: one warpgroup a CTA is one warp an SM partition, which
 // hides no latency, so every dependent chain in an epilogue adds to the
-// tile's time. Design (topk_tf32_kernel, one warpgroup of 64 own rows of
+// tile's time. Design (topk_kernel, one warpgroup of 64 own rows of
 // dsc0, K4's two sweeps):
 //  - sweep 1 is K4's first sweep, the same issue_corr chains and the same
 //    corr_lse_tile / corr_lse_row, so K2b's s and lse_row are K4's bit for
@@ -88,9 +94,13 @@ constexpr int TOPK_NAN_LAST = 2;     // in its last column
 // ~1e-5 of rounding.
 constexpr float TOPK_KEY_MARGIN = 1e-3f;
 // a CTA's lists: two a thread (its rows g and g + 8), TOPK_MAX_L entries
-// of 8 bytes each
+// of 8 bytes each, after the engine's shared memory
 constexpr size_t TOPK_LIST_BYTES = CORR_NT * 2 * TOPK_MAX_L * 8;
-static_assert(CORR_SMEM + TOPK_LIST_BYTES <= 232448, "one CTA an SM");
+template <class Op>
+constexpr size_t topk_smem() {
+  return corr_smem<Op>() + TOPK_LIST_BYTES;
+}
+static_assert(topk_smem<CorrTf32>() <= 232448, "one CTA an SM");
 static_assert(TOPK_MAX_CHUNKS * TOPK_KEYS <= 64 && TOPK_MAX_CHUNKS * TOPK_MAX_L <= 64,
               "the fold and the merge rank two entries a lane");
 enum TopkMode : int { TOPK_BOTH = 0, TOPK_SWEEP1 = 1, TOPK_SWEEP2 = 2 };
@@ -299,7 +309,7 @@ __device__ __forceinline__ void topk_finish(const TopkArgs& a, const int2* lists
   }
 }
 
-// K2b on the engine, in corr_tf32_kernel's accumulator layout: one CTA owns
+// K2b on the engine in mode Op, in corr_fwd_kernel's accumulator layout: one CTA owns
 // 64 rows of dsc0 (blockIdx.x) of one image (blockIdx.z) and sweeps chunk
 // blockIdx.y of dsc1's column tiles (all of them for TOPK_BOTH).
 //  - sweep 1 (TOPK_BOTH, TOPK_SWEEP1) is K4's, the same corr_lse_tile; each
@@ -312,14 +322,14 @@ __device__ __forceinline__ void topk_finish(const TopkArgs& a, const int2* lists
 //    row's floor (topk_floor): no score of a row's best L is left out, and
 //    few others pass; TOPK_BOTH writes the outputs, TOPK_SWEEP2 its chunk's
 //    partials for topk_merge_kernel.
-template <int kMode>
+template <int kMode, class Op>
 __global__ void __launch_bounds__(CORR_NT, 1)
-topk_tf32_kernel(const __grid_constant__ CorrMaps maps, const TopkArgs a) {
+topk_kernel(const __grid_constant__ CorrMaps maps, const TopkArgs a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t a_hi = base, a_lo = base + CORR_A_PART, ring = base + 2 * CORR_A_PART;
-  const uint32_t bar0 = ring + CORR_STAGES * CORR_STAGE, a_bar = bar0 + 8 * CORR_STAGES;
+  const uint32_t own = base, ring = base + Op::kTile;
+  const uint32_t bar0 = ring + CORR_STAGES * Op::kTile, a_bar = bar0 + 8 * CORR_STAGES;
   // thread t's lists of rows g, g + 8 at lists + (2 t + {0, 1}) TOPK_MAX_L
   int2* lists = reinterpret_cast<int2*>(smem_raw + (a_bar + 8 - raw));
 
@@ -330,11 +340,8 @@ topk_tf32_kernel(const __grid_constant__ CorrMaps maps, const TopkArgs a) {
   const int total = kMode == TOPK_BOTH ? 2 * nt : nt;
 
   auto load_stage = [&](int t) {
-    const uint32_t bar = bar0 + 8 * (t % CORR_STAGES), stage = ring + (t % CORR_STAGES) * CORR_STAGE;
-    const int row = (first + t % nt) * CORR_BN;
-    mbar_expect_tx(bar, CORR_STAGE);
-    tma_load5(stage, &maps.oth_hi, bar, row, 0, 0, b);
-    tma_load5(stage + CORR_B_PART, &maps.oth_lo, bar, row, 0, 0, b);
+    Op::load(ring + (t % CORR_STAGES) * Op::kTile, &maps.oth_hi, &maps.oth_lo, bar0 + 8 * (t % CORR_STAGES),
+             (first + t % nt) * CORR_BN, b);
   };
   if (kMode != TOPK_SWEEP1) {
     for (int e = tid; e < 2 * CORR_NT * TOPK_MAX_L; e += CORR_NT)
@@ -348,9 +355,7 @@ topk_tf32_kernel(const __grid_constant__ CorrMaps maps, const TopkArgs a) {
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(a_bar, 2 * CORR_A_PART);
-    tma_load5(a_hi, &maps.own_hi, a_bar, o0, 0, 0, b);
-    tma_load5(a_lo, &maps.own_lo, a_bar, o0, 0, 0, b);
+    Op::load(own, &maps.own_hi, &maps.own_lo, a_bar, o0, b);
     for (int t = 0; t < CORR_STAGES && t < total; ++t) load_stage(t);
   }
 
@@ -386,9 +391,8 @@ topk_tf32_kernel(const __grid_constant__ CorrMaps maps, const TopkArgs a) {
 
   for (int t = 0; t < total; ++t) {
     const int st = t % CORR_STAGES;
-    const uint32_t stage = ring + st * CORR_STAGE;
     if (!CORR_ABLATE_LOADS || t < CORR_STAGES) mbar_wait(bar0 + 8 * st, (t / CORR_STAGES) & 1);
-    issue_corr(x, h, a_hi, a_lo, stage, stage + CORR_B_PART);
+    Op::issue(x, h, own, ring + st * Op::kTile);
     const int j0 = (first + t % nt) * CORR_BN;  // the column of accumulator column 0
     // -lse_col log2 e and scr1 of this thread's 16 columns (index 2 j + e:
     // column 8 j + 2 t4 + e), loaded under the products
@@ -400,7 +404,7 @@ topk_tf32_kernel(const __grid_constant__ CorrMaps maps, const TopkArgs a) {
       q[k] = col < a.N ? s1[col] : 0.f;
     }
     wgmma_wait();
-    corr_sum(s, x, h);
+    Op::sum(s, x, h);
 
     if (kMode == TOPK_SWEEP1 || (kMode == TOPK_BOTH && t < nt)) {
       corr_lse_tile(s, a.c, a.N - j0, t4, m0, m1, l0, l1);  // s is u now, -inf past the last column
@@ -657,6 +661,26 @@ __global__ void topk_merge_kernel(const int2* __restrict__ plist, const float4* 
 
 }  // namespace
 
+namespace {
+
+// K2a in mode Op: corr_launch, then the fixed-order combine of the chunks'
+// partials, which follow the prepared descriptors in scratch.
+template <class Op>
+int col_lse_launch(const void* d0, const void* d1, void* lse_col, void* scratch, const long long* geom, int B, int M,
+                   int N, int C, int chunks, float inv_temp, float alpha, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  float2* part = reinterpret_cast<float2*>(sc + Op::scratch_floats(B, M, N));
+  int rc = corr_launch<false, Op>(d0, d1, sc, geom, B, M, N, C, chunks, inv_temp, alpha, part, nullptr, nullptr,
+                                  nullptr, st);
+  if (rc != 0) return rc;
+  col_lse_combine_kernel<<<(B * N + 255) / 256, 256, 0, st>>>(part, static_cast<float*>(lse_col), B, chunks, N,
+                                                                alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // d0 (B, M, C), d1 (B, N, C) fp32, C <= 128 -> lse_col (B, N). scratch:
 // corr_split_floats(B, M, N) floats of split descriptors (corr_launch), then
 // the partials, B x chunks x N float2; chunks: how many chunks of dsc0's rows
@@ -664,15 +688,15 @@ __global__ void topk_merge_kernel(const int2* __restrict__ plist, const float4* 
 // (own) then dsc0's.
 extern "C" int mk_col_lse_f32(const void* d0, const void* d1, void* lse_col, void* scratch, const long long* geom,
                               int B, int M, int N, int C, int chunks, float inv_temp, float alpha, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float2* part = reinterpret_cast<float2*>(static_cast<float*>(scratch) + corr_split_floats(B, M, N));
-  int rc = corr_launch<false>(static_cast<const float*>(d0), static_cast<const float*>(d1),
-                              static_cast<float*>(scratch), geom, B, M, N, C, chunks, inv_temp, alpha, part, nullptr,
-                              nullptr, nullptr, st);
-  if (rc != 0) return rc;
-  col_lse_combine_kernel<<<(B * N + 255) / 256, 256, 0, st>>>(part, static_cast<float*>(lse_col), B, chunks, N,
-                                                                alpha);
-  return static_cast<int>(cudaGetLastError());
+  return col_lse_launch<CorrTf32>(d0, d1, lse_col, scratch, geom, B, M, N, C, chunks, inv_temp, alpha, stream);
+}
+
+// mk_col_lse_f32 on bf16 descriptors (the engine's bf16 mode): scratch holds
+// their [row][128] bf16 copy, (B M + B N) 64 floats, then the partials; geom
+// the bf16 maps (span 64).
+extern "C" int mk_col_lse_bf16(const void* d0, const void* d1, void* lse_col, void* scratch, const long long* geom,
+                               int B, int M, int N, int C, int chunks, float inv_temp, float alpha, void* stream) {
+  return col_lse_launch<CorrBf16>(d0, d1, lse_col, scratch, geom, B, M, N, C, chunks, inv_temp, alpha, stream);
 }
 
 // A split launch's work buffer, in floats from its start: per (b, chunk,
@@ -694,32 +718,25 @@ static TopkWork topk_work(int B, int M, int L, int chunks) {
   return w;
 }
 
-// d0 (B, M, C), d1 (B, N, C) fp32, C <= 128; scr0 (B, M), scr1 (B, N),
-// lse_col (B, N) from col_lse -> vals, idxs (B, L, M), stats (B, M, 3),
-// lse_row (B, M); L <= 16. split: corr_split_floats(B, M, N) floats,
-// written here with do_split, else holding these descriptors' split
-// (col_lse's scratch); geom: the maps of dsc0's split (own) then dsc1's;
-// chunks: how many chunks of dsc1's column tiles (at most TOPK_MAX_CHUNKS, each the same
-// whole number of tiles, none empty: ops/fused_matcher.py::pair_topk_chunks);
-// work (chunks > 1): mk_pair_topk_work_floats(B, M, L, chunks) floats, laid
-// out by topk_work.
-extern "C" int mk_pair_topk_f32(const void* d0, const void* d1, const void* scr0, const void* scr1,
-                                const void* lse_col, void* vals, void* idxs, void* stats, void* lse_row, void* split,
-                                void* work, const long long* geom, int B, int M, int N, int C, int L, int chunks,
-                                float inv_temp, float alpha, int do_split, void* stream) {
+namespace {
+
+// K2b in mode Op (mk_pair_topk_f32's arguments).
+template <class Op>
+int pair_topk_launch(const void* d0, const void* d1, const void* scr0, const void* scr1, const void* lse_col,
+                     void* vals, void* idxs, void* stats, void* lse_row, void* split, void* work,
+                     const long long* geom, int B, int M, int N, int C, int L, int chunks, float inv_temp, float alpha,
+                     int do_split, void* stream) {
   const int tiles = (N + CORR_BN - 1) / CORR_BN, per = chunks < 1 ? 0 : (tiles + chunks - 1) / chunks;
   if (split == nullptr || B < 1 || M < 1 || N < 1 || C < 1 || C > CORR_C || L < 1 || L > TOPK_MAX_L || chunks < 1 ||
       chunks > TOPK_MAX_CHUNKS || (chunks > 1 && work == nullptr) || (chunks - 1) * per >= tiles ||
-      !corr_geometry_ok(geom, B, M, CORR_BM) || !corr_geometry_ok(geom + 14, B, N, CORR_BN))
+      !corr_geometry_ok(geom, B, M, CORR_BM, Op::kSpan) || !corr_geometry_ok(geom + 14, B, N, CORR_BN, Op::kSpan))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(split);
-  int rc = do_split ? corr_split(static_cast<const float*>(d0), static_cast<const float*>(d1), sc, B, M, N, C, st) : 0;
-  CorrMaps maps;
-  if (rc == 0) rc = encode_pair(&maps.own_hi, &maps.own_lo, sc, static_cast<long long>(B) * M * CORR_C, geom);
-  if (rc == 0)
-    rc = encode_pair(&maps.oth_hi, &maps.oth_lo, sc + corr_split_floats(B, M, 0),
-                     static_cast<long long>(B) * N * CORR_C, geom + 14);
+  int rc = do_split ? Op::prep(d0, d1, sc, B, M, N, C, st) : 0;
+  CorrMaps maps = {};
+  if (rc == 0) rc = Op::encode(&maps.own_hi, &maps.own_lo, sc, 0, B, M, N, geom);
+  if (rc == 0) rc = Op::encode(&maps.oth_hi, &maps.oth_lo, sc, 1, B, M, N, geom + 14);
   if (rc != 0) return rc;
   TopkArgs a = {};
   a.M = M;
@@ -735,14 +752,14 @@ extern "C" int mk_pair_topk_f32(const void* d0, const void* d1, const void* scr0
   a.vals = static_cast<float*>(vals);
   a.idxs = static_cast<int*>(idxs);
   a.stats = static_cast<float*>(stats);
-  const size_t smem = CORR_SMEM + TOPK_LIST_BYTES;
+  constexpr size_t smem = topk_smem<Op>();
   const dim3 grid((M + CORR_BM - 1) / CORR_BM, chunks, B);
   // per launch: the attributes belong to the current device
   if (chunks == 1) {
-    const cudaError_t e = cudaFuncSetAttribute(topk_tf32_kernel<TOPK_BOTH>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e = cudaFuncSetAttribute(topk_kernel<TOPK_BOTH, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    topk_tf32_kernel<TOPK_BOTH><<<grid, CORR_NT, smem, st>>>(maps, a);
+    topk_kernel<TOPK_BOTH, Op><<<grid, CORR_NT, smem, st>>>(maps, a);
     return static_cast<int>(cudaGetLastError());
   }
   const TopkWork w = topk_work(B, M, L, chunks);
@@ -752,22 +769,52 @@ extern "C" int mk_pair_topk_f32(const void* d0, const void* d1, const void* scr0
   a.keys = wk + w.keys;
   a.plist = reinterpret_cast<int2*>(wk + w.plist);
   a.bar = wk + w.bar;
-  cudaError_t e = cudaFuncSetAttribute(topk_tf32_kernel<TOPK_SWEEP1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(topk_kernel<TOPK_SWEEP1, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(topk_tf32_kernel<TOPK_SWEEP2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(topk_kernel<TOPK_SWEEP2, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  topk_tf32_kernel<TOPK_SWEEP1><<<grid, CORR_NT, smem, st>>>(maps, a);
+  topk_kernel<TOPK_SWEEP1, Op><<<grid, CORR_NT, smem, st>>>(maps, a);
   topk_combine_kernel<<<(B * M + 3) / 4, 128, 0, st>>>(a.lse_part, a.keys, a.lse_row, a.bar, B, chunks, M, L,
                                                        a.alpha2);
-  topk_tf32_kernel<TOPK_SWEEP2><<<grid, CORR_NT, smem, st>>>(maps, a);
+  topk_kernel<TOPK_SWEEP2, Op><<<grid, CORR_NT, smem, st>>>(maps, a);
   topk_merge_kernel<<<(B * M + 3) / 4, 128, 0, st>>>(a.plist, a.pstat, a.vals, a.idxs, a.stats, B, chunks, M, N,
                                                      L);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The limits of mk_pair_topk_f32 and the size of its work buffer, for its
+}  // namespace
+
+// d0 (B, M, C), d1 (B, N, C) fp32, C <= 128; scr0 (B, M), scr1 (B, N),
+// lse_col (B, N) from col_lse -> vals, idxs (B, L, M), stats (B, M, 3),
+// lse_row (B, M); L <= 16. split: corr_split_floats(B, M, N) floats,
+// written here with do_split, else holding these descriptors' split
+// (col_lse's scratch); geom: the maps of dsc0's split (own) then dsc1's;
+// chunks: how many chunks of dsc1's column tiles (at most TOPK_MAX_CHUNKS, each the same
+// whole number of tiles, none empty: ops/fused_matcher.py::pair_topk_chunks);
+// work (chunks > 1): mk_pair_topk_work_floats(B, M, L, chunks) floats, laid
+// out by topk_work.
+extern "C" int mk_pair_topk_f32(const void* d0, const void* d1, const void* scr0, const void* scr1,
+                                const void* lse_col, void* vals, void* idxs, void* stats, void* lse_row, void* split,
+                                void* work, const long long* geom, int B, int M, int N, int C, int L, int chunks,
+                                float inv_temp, float alpha, int do_split, void* stream) {
+  return pair_topk_launch<CorrTf32>(d0, d1, scr0, scr1, lse_col, vals, idxs, stats, lse_row, split, work, geom, B, M,
+                                    N, C, L, chunks, inv_temp, alpha, do_split, stream);
+}
+
+// mk_pair_topk_f32 on bf16 descriptors (the engine's bf16 mode): split holds
+// or receives their [row][128] bf16 copy (mk_col_lse_bf16's scratch), geom
+// the bf16 maps.
+extern "C" int mk_pair_topk_bf16(const void* d0, const void* d1, const void* scr0, const void* scr1,
+                                 const void* lse_col, void* vals, void* idxs, void* stats, void* lse_row, void* split,
+                                 void* work, const long long* geom, int B, int M, int N, int C, int L, int chunks,
+                                 float inv_temp, float alpha, int do_split, void* stream) {
+  return pair_topk_launch<CorrBf16>(d0, d1, scr0, scr1, lse_col, vals, idxs, stats, lse_row, split, work, geom, B, M,
+                                    N, C, L, chunks, inv_temp, alpha, do_split, stream);
+}
+
+// The limits of mk_pair_topk_f32 / _bf16 and the size of their work buffer, for its
 // wrapper (ops/fused_matcher.py): the most L and column chunks it takes, and
 // the floats a launch in `chunks` > 1 chunks needs (0 for one chunk, -1
 // outside the limits).

@@ -8,16 +8,58 @@ tests compare like with like. Parameters arrive already in PyTorch layout
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from .. import parallel
 
+# Rounded convs (conv2d's compute_dtype) on the card run cuDNN with TF32
+# allowed for that call; ``rounded_convs_plain`` turns it off.
+_ROUNDED_TF32 = [True]
 
-def conv2d(p, x: torch.Tensor) -> torch.Tensor:
-    """x (B, H, W, Cin) -> (B, H, W, Cout); stride 1, 'SAME' padding."""
+
+@contextlib.contextmanager
+def rounded_convs_plain():
+    """Within it, conv2d's rounded convs on the card take cuDNN's fp32
+    kernels (TF32 off): the plain version of the mode, for holding it and
+    timing it against."""
+    _ROUNDED_TF32[0] = False
+    try:
+        yield
+    finally:
+        _ROUNDED_TF32[0] = True
+
+
+@contextlib.contextmanager
+def _tf32_convs(on: bool):
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def conv2d(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """x (B, H, W, Cin) -> (B, H, W, Cout); stride 1, 'SAME' padding.
+
+    ``compute_dtype`` (bf16, ``TPU.HEADS_BF16``) rounds only the product's
+    operands, x and the weights, to nearest even, as JAX's ``astype``; the
+    sums stay fp32 and so does the output (the JAX package's
+    ``preferred_element_type``). Gradients flow through the rounding as
+    through JAX's cast: the conv's backward in fp32 at the rounded operands,
+    its gradients rounded to bf16 on their way back. On the card the conv
+    runs in cuDNN with TF32 allowed for this call only: bf16 values are
+    exact in TF32, so every product is exact; the tensor cores' fp32 sums
+    truncate. Elsewhere the port keeps TF32 off (``models.builder``)."""
     w = p["w"].to(x.dtype)
-    out = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2).permute(0, 2, 3, 1)
+    rounded = compute_dtype is not None and x.dtype != compute_dtype
+    if rounded:
+        x, w = (t.to(compute_dtype).to(t.dtype) for t in (x, w))
+    with _tf32_convs(_ROUNDED_TF32[0]) if rounded and x.is_cuda else contextlib.nullcontext():
+        out = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2).permute(0, 2, 3, 1)
     if "b" in p:
         out = out + p["b"].to(out.dtype)
     return out

@@ -74,12 +74,19 @@ class TopKCorrespondences(NamedTuple):
 
 def topk_correspondences_from_heads(params, kpts, depths, scores, descs, cfg) -> TopKCorrespondences:
     """Fused matcher stage on stacked (2B) head outputs, first B rows the
-    image0 side; ``kpts`` already in absolute pixels."""
+    image0 side; ``kpts`` already in absolute pixels. Under
+    ``TPU.MATCHER_BF16`` the descriptors are rounded to bf16 (to nearest
+    even, as JAX's ``astype``) and the kernels take their bf16 mode; on the
+    CPU the plain versions compute on the rounded values in fp32, as the JAX
+    kernels do in interpret mode (its own CPU fallback would return a bf16
+    correlation instead)."""
     fm = cfg.FEATURE_MATCHER.DUAL_SOFTMAX
     b = kpts.shape[0] // 2
     (k0, k1), (d0, d1), (s0, s1), (c0, c1) = ((t[:b], t[b:]) for t in (kpts, depths, scores, descs))
     kps0, depth0, scr0, dsc0 = _flatten_maps(k0, d0, s0, c0)
     kps1, depth1, scr1, dsc1 = _flatten_maps(k1, d1, s1, c1)
+    if cfg.TPU.get("MATCHER_BF16", False):
+        dsc0, dsc1 = dsc0.to(torch.bfloat16), dsc1.to(torch.bfloat16)
     top_scores, top_idx, row_ok = fused_topk_scores(
         dsc0.contiguous(), dsc1.contiguous(), scr0[..., 0], scr1[..., 0],
         params["matcher"].get("dustbin_score", 0.0),

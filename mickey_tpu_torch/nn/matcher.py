@@ -9,7 +9,10 @@ the card takes the fused forward (K4) at inference and the fused forward
 with its analytic backward (K4 + K5) in training, and on a CPU tensor the
 dense ``dual_softmax``; every other matcher type takes ``sinkhorn`` on every
 device. Sinkhorn has no Pallas kernel in the JAX package, so it is plain
-PyTorch here.
+PyTorch here. Under ``TPU.MATCHER_BF16`` the inference route rounds the
+descriptors to bf16 first (the fused forward's bf16 mode on the card, the
+dense ``dual_softmax`` of the rounded values in fp32 on the CPU: the JAX
+kernel's arithmetic); training ignores the knob, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,12 +74,13 @@ def match_scores(params, dsc0: torch.Tensor, dsc1: torch.Tensor, cfg, train: boo
     fm = cfg.FEATURE_MATCHER.DUAL_SOFTMAX
     dustbin = params.get("dustbin_score", 0.0)
     kw = dict(temperature=float(fm.TEMPERATURE), use_dustbin=bool(fm.USE_DUSTBIN))
-    if cfg.TPU.get("USE_PALLAS_MATCHER", True) and dsc0.device.type != "cpu":
+    if cfg.TPU.get("USE_PALLAS_MATCHER", True):
         if not train:
             if cfg.TPU.get("MATCHER_BF16", False):
-                raise NotImplementedError("the bf16-descriptor matcher is not ported yet")
-            return fused_dual_softmax(dsc0, dsc1, dustbin, **kw)
-        if cfg.TPU.get("USE_PALLAS_MATCHER_GRAD", True):
+                dsc0, dsc1 = dsc0.to(torch.bfloat16), dsc1.to(torch.bfloat16)
+            if dsc0.device.type != "cpu":
+                return fused_dual_softmax(dsc0, dsc1, dustbin, **kw)
+        elif cfg.TPU.get("USE_PALLAS_MATCHER_GRAD", True) and dsc0.device.type != "cpu":
             return fused_dual_softmax_vjp(dsc0, dsc1, dustbin, **kw)
     return dual_softmax(dsc0, dsc1, dustbin, **kw)
 

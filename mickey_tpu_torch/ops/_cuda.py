@@ -38,7 +38,8 @@ LINK_LIBS = ("-ldl",)  # dlsym of the tensor-map encoder (hopper.cuh)
 LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "flash_attention_packed_f32": 0,
             "flash_attention_f32": 0, "flash_attention_packed_upcast": 0, "col_lse": 0, "pair_topk": 0,
             "hypothesis_scores": 0, "pair_softmax": 0, "dual_softmax_bwd_sums": 0,
-            "dual_softmax_bwd_grads": 0, "lse_bwd": 0}
+            "dual_softmax_bwd_grads": 0, "lse_bwd": 0, "col_lse_bf16": 0, "pair_topk_bf16": 0,
+            "pair_softmax_bf16": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
@@ -48,9 +49,12 @@ _SIGNATURES = {
     "mk_flash_attention_f32": [_P] * 4 + [_LLP, _P, _LLP] + [_I] * 4 + [_F, _P],
     "mk_flash_attention_packed_upcast_bf16": [_P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "mk_col_lse_f32": [_P] * 4 + [_LLP] + [_I] * 5 + [_F, _F, _P],
+    "mk_col_lse_bf16": [_P] * 4 + [_LLP] + [_I] * 5 + [_F, _F, _P],
     "mk_pair_topk_f32": [_P] * 11 + [_LLP] + [_I] * 6 + [_F, _F, _I, _P],
+    "mk_pair_topk_bf16": [_P] * 11 + [_LLP] + [_I] * 6 + [_F, _F, _I, _P],
     "mk_hypothesis_scores_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
     "mk_pair_softmax_f32": [_P] * 6 + [_LLP] + [_I] * 4 + [_F, _F, _P],
+    "mk_pair_softmax_bf16": [_P] * 6 + [_LLP] + [_I] * 4 + [_F, _F, _P],
     "mk_dual_softmax_bwd_sums_f32": [_P] * 9 + [_LLP] + [_I] * 4 + [_F, _I, _P],
     "mk_dual_softmax_bwd_grads_f32": [_P] * 11 + [_LLP] + [_I] * 4 + [_F, _I, _P],
     "mk_lse_bwd_f32": [_P] * 10 + [_LLP] + [_I] * 4 + [_F, _I, _P],

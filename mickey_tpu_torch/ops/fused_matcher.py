@@ -37,6 +37,15 @@ through TMA tensor maps (``corr_geometry``). ``corr_3xtf32_plain``,
 ``col_lse_3xtf32_plain``, ``pair_topk_3xtf32_plain`` and
 ``pair_softmax_3xtf32_plain`` repeat that arithmetic on the CPU, for the
 tests.
+
+bf16 descriptors (``cfg.TPU.MATCHER_BF16``, the forward routes only): the
+three wrappers dispatch on the descriptors' dtype, as the JAX package's
+``_corr_block`` does, to the engine's bf16 mode (``mk_col_lse_bf16``,
+``mk_pair_topk_bf16``, ``mk_pair_softmax_bf16``: one bf16 ``wgmma`` pass
+with fp32 accumulation, exact for bf16 operands). Both sets share one dtype;
+scores, logsumexps and outputs stay fp32. Their plain versions are the fp32
+ones: ``_correlation`` upcasts bf16 descriptors before an fp32 product, which
+is the bf16 kernels' arithmetic up to the order of the sums.
 Backward (K5): ``dual_softmax_bwd_sums`` (r, c) and ``dual_softmax_bwd_grads``
 (dd0, dd1), both recomputing the correlation from the saved logsumexps on
 the same engine; the gradients' dS products are 3xTF32 too, dS split in
@@ -88,7 +97,8 @@ def _alpha(dustbin: float, use_dustbin: bool) -> float:
 
 def _correlation(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float) -> torch.Tensor:
     # fp32 product; TF32 is off (models.builder pins it), as the reference's
-    # Precision.HIGHEST demands
+    # Precision.HIGHEST demands. bf16 descriptors are upcast first: every
+    # product of two bf16 values is exact in fp32, as in the bf16 kernels.
     return torch.matmul(dsc0.float(), dsc1.float().transpose(1, 2)) * inv_temp
 
 
@@ -129,22 +139,32 @@ def pair_softmax_3xtf32_plain(dsc0, dsc1, lse_col, inv_temp: float, alpha: float
 
 
 @functools.lru_cache(maxsize=64)
-def corr_geometry(b: int, n_own: int, n_oth: int):
+def corr_geometry(b: int, n_own: int, n_oth: int, item: int = 4):
     """The ``geom`` argument of the engine's C entries: the tensor maps of
-    the split own rows, then of the other rows, each a contiguous
-    (B, rows, 128) fp32 array read ``CORR_ROWS`` rows of all 128 channels a
-    box (``map_geometry`` of it as (B, 1, rows, 128): dims (32, rows, 4, 1,
-    B), a box (32, 64, 4, 1, 1) lands as four blocks of 64 128-byte rows)."""
-    maps = [map_geometry((b, 1, rows, CORR_C), (rows * CORR_C, rows * CORR_C, CORR_C, 1), 4, CORR_ROWS, CORR_C)
+    the prepared own rows, then of the other rows, each a contiguous
+    (B, rows, 128) array of ``item``-byte values read ``CORR_ROWS`` rows of
+    all 128 channels a box (``map_geometry`` of it as (B, 1, rows, 128)).
+    fp32 (item 4, the split's hi and lo parts alike): dims (32, rows, 4, 1,
+    B), a box (32, 64, 4, 1, 1) lands as four blocks of 64 128-byte rows;
+    bf16 (item 2): dims (64, rows, 2, 1, B), a box (64, 64, 2, 1, 1) lands as
+    two. The cache is keyed by the item size too."""
+    maps = [map_geometry((b, 1, rows, CORR_C), (rows * CORR_C, rows * CORR_C, CORR_C, 1), item, CORR_ROWS, CORR_C)
             for rows in (n_own, n_oth)]
     return (ctypes.c_longlong * 28)(*(x for g in maps for part in g for x in part))
 
 
-def _corr_scratch(b: int, m: int, n: int, device, chunks: int = 0) -> torch.Tensor:
-    """The split descriptors: dsc0 hi, lo, then dsc1 hi, lo, each (B, rows,
-    128); then, for K2a, ``chunks`` (max, sum) partials of each of B x N
-    columns."""
-    return torch.empty(2 * (b * m + b * n) * CORR_C + 2 * b * chunks * n, dtype=torch.float32, device=device)
+def _prep_floats(b: int, m: int, n: int, dtype) -> int:
+    """Floats of the prepared descriptors in scratch: fp32, dsc0 hi, lo,
+    then dsc1 hi, lo, each (B, rows, 128); bf16, dsc0 then dsc1, each (B,
+    rows, 128) bf16."""
+    per_row = 2 * CORR_C if dtype == torch.float32 else CORR_C // 2
+    return (b * m + b * n) * per_row
+
+
+def _corr_scratch(b: int, m: int, n: int, device, chunks: int = 0, dtype=torch.float32) -> torch.Tensor:
+    """The prepared descriptors of ``dtype`` (``_prep_floats``); then, for
+    K2a, ``chunks`` (max, sum) partials of each of B x N columns."""
+    return torch.empty(_prep_floats(b, m, n, dtype) + 2 * b * chunks * n, dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -167,13 +187,14 @@ def pair_topk_chunks(sms: int, b: int, m: int, n: int, most: int) -> int:
 
 
 def topk_split(dsc0: torch.Tensor, dsc1: torch.Tensor):
-    """The scratch that K2a splits dsc0 and dsc1 into and K2b reads
-    (``_corr_scratch`` with K2a's partials); None on the CPU."""
+    """The scratch that K2a prepares dsc0 and dsc1 in (splits them, or
+    copies bf16 ones) and K2b reads (``_corr_scratch`` with K2a's partials);
+    None on the CPU."""
     if not dsc0.is_cuda:
         return None
     b, m, _ = dsc0.shape
     n = dsc1.shape[1]
-    return _corr_scratch(b, m, n, dsc0.device, col_lse_chunks(_sm_count(dsc0.device), b, m, n))
+    return _corr_scratch(b, m, n, dsc0.device, col_lse_chunks(_sm_count(dsc0.device), b, m, n), dsc0.dtype)
 
 
 def col_lse_chunks(sms: int, b: int, m: int, n: int) -> int:
@@ -217,14 +238,29 @@ def _t_scratch(b: int, m: int, n: int, device) -> torch.Tensor:
     return torch.empty(2 * b * (_rows_padded(m) + _rows_padded(n)) * CORR_C, dtype=torch.float32, device=device)
 
 
-def _split_for(split, b: int, m: int, n: int, device):
-    """The backward's split descriptors and whether its kernels write them:
-    ``split``, a forward's scratch that holds this (B, M, N) pair's split
-    already (K2a's or K4's, saved in the autograd context), or a new one."""
+def _launch(kernel: str, dsc0, dsc1, *args) -> None:
+    """Launch the C entry of ``kernel`` in the descriptors' mode,
+    ``mk_<kernel>_f32`` or ``mk_<kernel>_bf16``, on (dsc0, dsc1, *args, the
+    current stream), and count it in ``LAUNCHES[kernel]`` or
+    ``LAUNCHES[kernel + "_bf16"]``."""
+    bf16 = dsc0.dtype == torch.bfloat16
+    name = f"{kernel}_bf16" if bf16 else kernel
+    rc = getattr(_cuda.lib(), f"mk_{kernel}_{'bf16' if bf16 else 'f32'}")(
+        dsc0.data_ptr(), dsc1.data_ptr(), *args, _cuda.stream_ptr(dsc0))
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+
+
+def _split_for(split, b: int, m: int, n: int, device, dtype=torch.float32):
+    """The prepared descriptors of ``dtype`` a kernel reads and whether it
+    writes them: ``split``, a scratch that holds this (B, M, N) pair's
+    already (K2a's for K2b; K2a's or K4's, saved in the autograd context, for
+    the backward), or a new one."""
     if split is None:
-        return _corr_scratch(b, m, n, device), 1
-    if split.device != device or split.dtype != torch.float32 or split.numel() < 2 * (b * m + b * n) * CORR_C:
-        raise ValueError(f"split: expected an fp32 scratch on {device} of at least {2 * (b * m + b * n) * CORR_C} "
+        return _corr_scratch(b, m, n, device, dtype=dtype), 1
+    need = _prep_floats(b, m, n, dtype)
+    if split.device != device or split.dtype != torch.float32 or split.numel() < need:
+        raise ValueError(f"split: expected an fp32 scratch on {device} of at least {need} "
                          f"values, got {split.dtype} {tuple(split.shape)} on {split.device}")
     return split, 0
 
@@ -233,26 +269,25 @@ def _split_for(split, b: int, m: int, n: int, device):
 
 
 def col_lse_plain(dsc0, dsc1, inv_temp: float, alpha: float) -> torch.Tensor:
+    """Plain version of ``col_lse``, of its fp32 and bf16 kernels alike
+    (``_correlation`` upcasts bf16 descriptors)."""
     return _col_lse_from(_correlation(dsc0, dsc1, inv_temp), alpha)
 
 
 def col_lse(dsc0: torch.Tensor, dsc1: torch.Tensor, inv_temp: float, alpha: float, scratch=None) -> torch.Tensor:
-    """(B, N) logaddexp(logsumexp_i s_ij, alpha) with s = dsc0 dsc1^T * inv_temp.
-    ``scratch`` (``_corr_scratch`` with ``col_lse_chunks``' partials): where
-    the kernel splits the descriptors, for a caller that keeps the split."""
+    """(B, N) logaddexp(logsumexp_i s_ij, alpha) with s = dsc0 dsc1^T * inv_temp;
+    fp32 or bf16 descriptors, an fp32 result. ``scratch`` (``_corr_scratch``
+    of their dtype with ``col_lse_chunks``' partials): where the kernel
+    prepares the descriptors, for a caller that keeps them."""
     if dsc0.device.type == "cpu":
         return col_lse_plain(dsc0, dsc1, inv_temp, alpha)
     B, M, N, C = _require_descs(dsc0, dsc1, "col_lse")
     dev = dsc0.device
     chunks = col_lse_chunks(_sm_count(dev), B, M, N)
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    scratch = _corr_scratch(B, M, N, dev, chunks) if scratch is None else scratch
-    rc = _cuda.lib().mk_col_lse_f32(
-        dsc0.data_ptr(), dsc1.data_ptr(), out.data_ptr(), scratch.data_ptr(), corr_geometry(B, N, M), B, M, N, C,
-        chunks, float(inv_temp), float(alpha), _cuda.stream_ptr(dsc0),
-    )
-    _cuda.check(rc, "col_lse")
-    _cuda.LAUNCHES["col_lse"] += 1
+    scratch = _corr_scratch(B, M, N, dev, chunks, dsc0.dtype) if scratch is None else scratch
+    _launch("col_lse", dsc0, dsc1, out.data_ptr(), scratch.data_ptr(), corr_geometry(B, N, M, dsc0.element_size()),
+            B, M, N, C, chunks, float(inv_temp), float(alpha))
     return out
 
 
@@ -336,9 +371,9 @@ def topk_lists_plain(f: torch.Tensor, topl: int, chunks: int = 1):
 
 
 def pair_topk_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int):
-    """Plain version of ``pair_topk``: the same four outputs from the dense
-    (B, M, N) final scores, with the TPU kernel's selection rounds written
-    out."""
+    """Plain version of ``pair_topk``, of its fp32 and bf16 kernels alike:
+    the same four outputs from the dense (B, M, N) final scores, with the TPU
+    kernel's selection rounds written out."""
     return _pair_topk_from(_correlation(dsc0, dsc1, inv_temp), scr0, scr1, lse_col, alpha, topl, _topk_rounds)
 
 
@@ -367,10 +402,10 @@ def _topk_work(b: int, m: int, topl: int, chunks: int, device):
 
 def pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, topl: int, split=None):
     """Returns (vals (B, L, M) f32, idxs (B, L, M) i32 flat ``i*N + j``,
-    stats (B, M, 3) = per-row (mass, non-finite count, min), lse_row (B, M)).
-    ``split``: ``col_lse``'s scratch after its launch on these descriptors
-    (``topk_split``), whose split the kernel reads; without it the wrapper
-    splits them first."""
+    stats (B, M, 3) = per-row (mass, non-finite count, min), lse_row (B, M));
+    fp32 or bf16 descriptors. ``split``: ``col_lse``'s scratch after its
+    launch on these descriptors (``topk_split``), whose prepared copy the
+    kernel reads; without it the wrapper prepares them first."""
     if dsc0.device.type == "cpu":
         return pair_topk_plain(dsc0, dsc1, scr0, scr1, lse_col, inv_temp, alpha, topl)
     B, M, N, C = _require_descs(dsc0, dsc1, "pair_topk")
@@ -385,16 +420,12 @@ def pair_topk(dsc0, dsc1, scr0, scr1, lse_col, inv_temp: float, alpha: float, to
     idxs = torch.empty((B, topl, M), dtype=torch.int32, device=dev)
     stats = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
     lse_row = torch.empty((B, M), dtype=torch.float32, device=dev)
-    split, do_split = _split_for(split, B, M, N, dev)
+    split, do_split = _split_for(split, B, M, N, dev, dsc0.dtype)
     work = _topk_work(B, M, topl, chunks, dev)
-    rc = _cuda.lib().mk_pair_topk_f32(
-        dsc0.data_ptr(), dsc1.data_ptr(), scr0.data_ptr(), scr1.data_ptr(), lse_col.data_ptr(),
-        vals.data_ptr(), idxs.data_ptr(), stats.data_ptr(), lse_row.data_ptr(), split.data_ptr(),
-        None if work is None else work.data_ptr(), corr_geometry(B, M, N), B, M, N, C, topl, chunks,
-        float(inv_temp), float(alpha), do_split, _cuda.stream_ptr(dsc0),
-    )
-    _cuda.check(rc, "pair_topk")
-    _cuda.LAUNCHES["pair_topk"] += 1
+    _launch("pair_topk", dsc0, dsc1, scr0.data_ptr(), scr1.data_ptr(), lse_col.data_ptr(), vals.data_ptr(),
+            idxs.data_ptr(), stats.data_ptr(), lse_row.data_ptr(), split.data_ptr(),
+            None if work is None else work.data_ptr(), corr_geometry(B, M, N, dsc0.element_size()), B, M, N, C,
+            topl, chunks, float(inv_temp), float(alpha), do_split)
     return vals, idxs, stats, lse_row
 
 
@@ -434,7 +465,7 @@ def _topk_table(dsc0, dsc1, scr0, scr1, inv_temp: float, alpha: float, prefilter
 
 
 def fused_topk_scores(
-    dsc0: torch.Tensor,  # (B, M, C) L2-normalized descriptors, fp32
+    dsc0: torch.Tensor,  # (B, M, C) L2-normalized descriptors, fp32 or bf16
     dsc1: torch.Tensor,  # (B, N, C)
     scr0: torch.Tensor,  # (B, M) detection scores
     scr1: torch.Tensor,  # (B, N)
@@ -472,13 +503,18 @@ def dense_topk_scores(scores: torch.Tensor, prefilter: int, row_topl: int = 16):
 DUAL_SOFTMAX_MAX_C = CORR_C
 
 
-def _require_descs(dsc0, dsc1, name: str):
+def _require_descs(dsc0, dsc1, name: str, dtypes=(torch.float32, torch.bfloat16)):
+    """(B, M, N, C) of descriptors a kernel takes: contiguous, on one card,
+    of one dtype among ``dtypes`` (the forward kernels: fp32 or bf16; the
+    backward: fp32)."""
     B, M, C = dsc0.shape
     N = dsc1.shape[1]
     if C > DUAL_SOFTMAX_MAX_C:
         raise ValueError(f"{name}: descriptor depth {C} > {DUAL_SOFTMAX_MAX_C}")
-    _cuda.require(dsc0, "dsc0", torch.float32, (B, M, C), dsc0.device)
-    _cuda.require(dsc1, "dsc1", torch.float32, (B, N, C), dsc0.device)
+    if dsc0.dtype not in dtypes:
+        raise TypeError(f"{name}: descriptors of {dsc0.dtype}; the kernels take {', '.join(map(str, dtypes))}")
+    _cuda.require(dsc0, "dsc0", dsc0.dtype, (B, M, C), dsc0.device)
+    _cuda.require(dsc1, "dsc1", dsc0.dtype, (B, N, C), dsc0.device)
     return B, M, N, C
 
 
@@ -488,13 +524,15 @@ def _pair_softmax_from(s: torch.Tensor, lse_col: torch.Tensor, alpha: float):
 
 
 def pair_softmax_plain(dsc0, dsc1, lse_col, inv_temp: float, alpha: float):
+    """Plain version of ``pair_softmax``, of its fp32 and bf16 kernels alike."""
     return _pair_softmax_from(_correlation(dsc0, dsc1, inv_temp), lse_col, alpha)
 
 
 def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float, scratch=None):
     """(out (B, M, N) = exp(s - lse_row) exp(s - lse_col), lse_row (B, M)),
-    lse_row with the dustbin column ``alpha``; ``lse_col`` from ``col_lse``;
-    ``scratch`` (``_corr_scratch``) as for ``col_lse``."""
+    both fp32, lse_row with the dustbin column ``alpha``; fp32 or bf16
+    descriptors; ``lse_col`` from ``col_lse``; ``scratch``
+    (``_corr_scratch`` of their dtype) as for ``col_lse``."""
     if dsc0.device.type == "cpu":
         return pair_softmax_plain(dsc0, dsc1, lse_col, inv_temp, alpha)
     B, M, N, C = _require_descs(dsc0, dsc1, "pair_softmax")
@@ -502,14 +540,9 @@ def pair_softmax(dsc0, dsc1, lse_col, inv_temp: float, alpha: float, scratch=Non
     dev = dsc0.device
     out = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     lse_row = torch.empty((B, M), dtype=torch.float32, device=dev)
-    scratch = _corr_scratch(B, M, N, dev) if scratch is None else scratch
-    rc = _cuda.lib().mk_pair_softmax_f32(
-        dsc0.data_ptr(), dsc1.data_ptr(), lse_col.data_ptr(), out.data_ptr(), lse_row.data_ptr(),
-        scratch.data_ptr(), corr_geometry(B, M, N), B, M, N, C, float(inv_temp), float(alpha),
-        _cuda.stream_ptr(dsc0),
-    )
-    _cuda.check(rc, "pair_softmax")
-    _cuda.LAUNCHES["pair_softmax"] += 1
+    scratch = _corr_scratch(B, M, N, dev, dtype=dsc0.dtype) if scratch is None else scratch
+    _launch("pair_softmax", dsc0, dsc1, lse_col.data_ptr(), out.data_ptr(), lse_row.data_ptr(), scratch.data_ptr(),
+            corr_geometry(B, M, N, dsc0.element_size()), B, M, N, C, float(inv_temp), float(alpha))
     return out, lse_row
 
 
@@ -536,7 +569,7 @@ def dual_softmax_bwd_sums(dsc0, dsc1, g, lse_row, lse_col, inv_temp: float, spli
     forward's split of these descriptors (``_split_for``), else made here."""
     if dsc0.device.type == "cpu":
         return dual_softmax_bwd_sums_plain(dsc0, dsc1, g, lse_row, lse_col, inv_temp)
-    B, M, N, C = _require_descs(dsc0, dsc1, "dual_softmax_bwd_sums")
+    B, M, N, C = _require_descs(dsc0, dsc1, "dual_softmax_bwd_sums", (torch.float32,))
     for t, name, shape in ((g, "g", (B, M, N)), (lse_row, "lse_row", (B, M)), (lse_col, "lse_col", (B, N))):
         _cuda.require(t, name, torch.float32, shape, dsc0.device)
     lib = _cuda.lib()
@@ -608,7 +641,7 @@ def dual_softmax_bwd_grads(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp: floa
     ``split`` as for ``dual_softmax_bwd_sums``."""
     if dsc0.device.type == "cpu":
         return dual_softmax_bwd_grads_plain(dsc0, dsc1, g, lse_row, lse_col, r, c, inv_temp)
-    B, M, N, C = _require_descs(dsc0, dsc1, "dual_softmax_bwd_grads")
+    B, M, N, C = _require_descs(dsc0, dsc1, "dual_softmax_bwd_grads", (torch.float32,))
     for t, name, shape in ((g, "g", (B, M, N)), (lse_row, "lse_row", (B, M)), (lse_col, "lse_col", (B, N)),
                            (r, "r", (B, M)), (c, "c", (B, N))):
         _cuda.require(t, name, torch.float32, shape, dsc0.device)
@@ -652,8 +685,11 @@ def _forward(dsc0, dsc1, inv_temp: float, alpha: float, split=None):
 
 
 def fused_dual_softmax(dsc0, dsc1, dustbin, temperature: float = 0.1, use_dustbin: bool = True):
-    """(B, M, N) dual-softmax match scores, forward only (no autograd graph)."""
-    d0, d1 = (d.detach().float().contiguous() for d in (dsc0, dsc1))
+    """(B, M, N) fp32 dual-softmax match scores, forward only (no autograd
+    graph). bf16 descriptors (``cfg.TPU.MATCHER_BF16``) stay bf16 and take
+    the kernels' bf16 mode; any other dtype is computed in fp32."""
+    d0, d1 = (d.detach().contiguous() if d.dtype == torch.bfloat16 else d.detach().float().contiguous()
+              for d in (dsc0, dsc1))
     return _forward(d0, d1, float(1.0 / temperature), _alpha(dustbin, use_dustbin))[0]
 
 
@@ -704,7 +740,7 @@ def lse_bwd(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp: float, split=None):
     dustbin-augmented logsumexps; ``split`` as for ``dual_softmax_bwd_sums``."""
     if dsc0.device.type == "cpu":
         return lse_bwd_plain(dsc0, dsc1, gr, gc, lse_row, lse_col, inv_temp)
-    B, M, N, C = _require_descs(dsc0, dsc1, "lse_bwd")
+    B, M, N, C = _require_descs(dsc0, dsc1, "lse_bwd", (torch.float32,))
     for t, name, shape in ((gr, "gr", (B, M)), (gc, "gc", (B, N)), (lse_row, "lse_row", (B, M)),
                            (lse_col, "lse_col", (B, N))):
         _cuda.require(t, name, torch.float32, shape, dsc0.device)

@@ -1,9 +1,12 @@
 """Weighted sampling without replacement via Gumbel top-k.
 
 Port of ``mickey_tpu/ops/sampling.py`` driven by a ``torch.Generator``
-instead of a JAX key. The two give different numbers from the same seed, so
-the parity tests replay JAX's draws and inject the indices (see
-``solver.procrustes_ransac``).
+instead of a JAX key: ``gumbel_topk_sample``, ``gumbel_topk_sample_draws``
+and the public ``weighted_sample_without_replacement`` (torch.multinomial
+without replacement). The JAX package's ``approx`` option (``approx_max_k``
+for large k) is not taken: off a TPU it returns the exact top-k. The two
+PRNGs give different numbers from the same seed, so the parity tests replay
+JAX's draws and inject the indices (see ``solver.procrustes_ransac``).
 
 Inside a data-parallel step (``parallel.global_batch``) a call that names
 its ``batch_axis`` draws the noise of the whole global batch from the
@@ -78,3 +81,25 @@ def gumbel_topk_sample_draws(generator: Optional[torch.Generator], log_weights: 
         return gumbel_topk_sample(generator, log_weights.expand((draws,) + log_weights.shape), k,
                                   None if batch_axis is None else batch_axis + 1)
     return torch.stack([gumbel_topk_sample(generator, log_weights, k, batch_axis) for _ in range(draws)])
+
+
+NEG_INF = -1e30
+
+
+def sample_log_weights(weights: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """log(weights) where positive (floored at ``eps``), -1e30 elsewhere, as
+    the JAX package's ``weighted_sample_without_replacement`` forms them. A
+    subnormal weight counts as 0, as there: XLA flushes subnormals to zero
+    on the CPU and the TPU alike."""
+    positive = weights >= torch.finfo(weights.dtype).tiny
+    return torch.where(positive, torch.log(torch.clamp(weights, min=eps)), NEG_INF)
+
+
+def weighted_sample_without_replacement(generator: Optional[torch.Generator], weights: torch.Tensor, k: int,
+                                        eps: float = 1e-30) -> torch.Tensor:
+    """``torch.multinomial(weights, k)`` without replacement, as the JAX
+    package's public sampler (``mickey_tpu/ops/sampling.py:100``): k indices
+    (..., k) int32 drawn with probability proportional to the nonnegative
+    ``weights`` (..., N); zero weights are never drawn while enough positive
+    ones remain."""
+    return gumbel_topk_sample(generator, sample_log_weights(weights, eps), k)

@@ -13,7 +13,10 @@ The dense route's prefilter is an exact ``torch.topk`` of the flat scores,
 sorted descending, where the JAX package takes
 ``approx_max_k(recall_target=0.95)``: a deliberate deviation, as in the loss.
 With ``prefilter`` 0 (or at least N0 * N1) the draws sample the whole flat
-matrix and index it directly.
+matrix and index it directly. ``TPU.SAMPLING = "approx"`` (the JAX
+package's ``approx_max_k`` in its Gumbel top-k draws) is taken as
+``"exact"``: off a TPU ``approx_max_k`` returns the exact top-k, so this is
+the JAX package's answer on every device but its own (``sampling_mode``).
 
 All it_matches x it_RANSAC minimal Kabsch solves run as one batched call,
 and so does their scoring: the fused scoring kernel
@@ -34,6 +37,7 @@ import torch
 from ..geometry import backproject_3d, inlier_counting_3d, soft_inlier_counting_3d, weighted_procrustes
 from ..ops.hypothesis_scoring import hypothesis_scores
 from ..ops.sampling import gumbel_topk_sample, gumbel_topk_sample_draws
+from ..ops.sampling import sample_log_weights as log_weights
 
 NEG_INF = -1e30
 
@@ -55,10 +59,6 @@ class PoseEstimate(NamedTuple):
 class Draws(NamedTuple):
     outer_local: torch.Tensor  # (it, B, S) positions in the sampling table (top-P, or the flat matrix)
     ridx: torch.Tensor  # (it, B, R, C) positions among each draw's S samples
-
-
-def log_weights(scores: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
-    return torch.where(scores > 0, torch.log(torch.clamp(scores, min=eps)), NEG_INF)
 
 
 def draw_samples(generator: Optional[torch.Generator], w_table: torch.Tensor, it_matches: int,
@@ -205,8 +205,24 @@ def estimate_pose_topk(top_scores, top_idx, row_ok, kps0, depth0, kps1, depth1, 
     )
 
 
+SAMPLING_MODES = ("exact", "approx")
+
+
+def sampling_mode(cfg) -> str:
+    """``TPU.SAMPLING`` of ``cfg``: "exact", or "approx", which draws the same
+    samples here (module docstring). Any other value is refused, where the
+    JAX package would take it as "exact"."""
+    mode = str(cfg.TPU.get("SAMPLING", "exact"))
+    if mode not in SAMPLING_MODES:
+        raise ValueError(f"TPU.SAMPLING = {mode!r}: expected one of {SAMPLING_MODES}")
+    return mode
+
+
 def solver_kw(cfg) -> dict:
-    """The PROCRUSTES.* solver settings of ``cfg`` as keyword arguments."""
+    """The PROCRUSTES.* solver settings of ``cfg`` as keyword arguments,
+    after ``TPU.SAMPLING`` is read (``sampling_mode``: either mode draws
+    exactly)."""
+    sampling_mode(cfg)
     pc = cfg.PROCRUSTES
     return dict(it_matches=pc.IT_MATCHES, it_ransac=pc.IT_RANSAC, num_samples=pc.NUM_SAMPLED_MATCHES,
                 num_corr=pc.NUM_CORR_3D_3D, num_refinements=pc.NUM_REFINEMENTS, th_inlier=pc.TH_INLIER,

@@ -703,7 +703,8 @@ def test_fit_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
     assert res["timing"]["steps"] == res["cached_timing"]["steps"] == 2 and res["keyframes"] == 2
     assert res["cache_frames"] == 10 and res["cache_bytes_fp32"] == 2 * res["cache_bytes_bf16"] == 10 * 9 * 8 * 384 * 4
     assert res["val_cached_vs_plain"] == 0.0 and res["image_panels"] == "ran: 6 panels"
-    assert set(launches) == {name for name, _, _ in chip_smoke.KERNELS}  # no launch on the CPU
+    # no launch on the CPU
+    assert set(launches) == {name for name, _, _ in chip_smoke.KERNELS + chip_smoke.BF16_KERNELS}
     times = chip_smoke.fit_times(ctx, runs=1, iters=1)
     assert len(times["staged_step_ms_turns"]) == len(times["staged_default_bwd_ms_turns"]) == 1
     assert times["grad_leaves"] > 0 and times["grad_leaves_apart_deterministic"] == 0
@@ -831,7 +832,7 @@ def test_ddp_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
     assert train["backend"] == "gloo on cpu" and len(train["world1_step_ms"]["nccl world 1"]) == 2
     assert train["bn_rel"] <= chip_smoke.DDP_RTOL and train["moments_rel"] <= chip_smoke.GRAD_TOL
     assert {"ddp, one process", "ddp, rank 0", "ddp, rank 1"} <= set(checked)
-    assert set(launches) == {name for name, _, _ in chip_smoke.KERNELS}
+    assert set(launches) == {name for name, _, _ in chip_smoke.KERNELS + chip_smoke.BF16_KERNELS}
     cfg = _tiny_cfg()
     cfg.DATASET.WIDTH, cfg.DATASET.HEIGHT = 116, 130
     chip_smoke.write_val_split(str(tmp_path / "split"), queries=11, height=130, width=116)
@@ -844,3 +845,79 @@ def test_ddp_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
     with pytest.raises(chip_smoke.SmokeError, match="differs from the ranks' rows"):
         chip_smoke.run_ddp_submission(build_model(cfg, device="cpu"), cfg, str(tmp_path / "split"), batch=3,
                                       launch_timeout=300)
+
+
+def test_bf16_phase_rehearsal(monkeypatch, one_torch_thread):
+    """Phase 3h at a tiny size, plain against plain: the bf16 kernels'
+    checks on rounded descriptors (ragged sizes too), the MATCHER_BF16 paths
+    (both layouts, the full output, the table cross-check, a table that is
+    not the fp32 route's), the rounded convs against fp64, the HEADS_BF16
+    stage and its timing in turns, the kernels' times and the rows of the
+    ``kernels`` line with every key of the contract."""
+    monkeypatch.setattr(chip_smoke, "_elapsed_ms", _wall_ms)  # CUDA events need the card
+    inp = _tiny_kernel_inputs()
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    inp_b, tin_b = chip_smoke.bf16_kernel_inputs(inp, tin)
+    assert inp_b["dsc0"].dtype == tin_b["dsc1"].dtype == torch.bfloat16
+    errs = chip_smoke.check_bf16_kernels(inp_b, tin_b, sizes=(70, 65, 64, 1))
+    assert errs == {name: 0.0 for name, _, _ in chip_smoke.BF16_KERNELS}
+    cfg = _tiny_cfg()
+    model = build_model(cfg, _tiny_params(cfg), device="cpu")
+    paths = chip_smoke.run_bf16_paths(model, *chip_smoke.slice_inputs("cpu", pairs=2, height=112, width=140))
+    assert set(paths["conf"]) == {"general", "shared"} and len(paths["full_conf"]) == 2
+    assert paths["table"]["fused_share_of_rtol"] < 1.0 and paths["table"]["vs_fp32_table_rel"] > 0
+    assert all(v == 0 for v in paths["launches"].values())  # the CPU launches nothing
+    convs = chip_smoke.check_rounded_convs(model, "cpu", maps=1, rows=5, cols=6)
+    assert len(convs) == 9 and all(c["mode"] <= c["bound"] for c in convs.values())
+    heads = chip_smoke.check_heads_bf16(model, "cpu", batches=(2,), height=112, width=140, iters=1)
+    assert heads["B=2"]["norm_rel_vs_plain"] == 0.0 and heads["B=2"]["norm_rel_vs_fp32"] > 0
+    assert set(heads["B=2"]["ms"]) == {"fp32", "bf16", "bf16_plain"}
+    kt = chip_smoke.bf16_kernel_times(inp_b, tin_b, reps=1)
+    res = {"errs": errs, "kt": kt, "bounds": chip_smoke.bf16_bounds(inp_b, tin_b), "paths": paths,
+           "heads": {"convs": convs, "stage": heads}}
+    rows = chip_smoke.bf16_kernel_rows(res, {name: 1 for name, _, _ in chip_smoke.BF16_KERNELS})
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"}
+    assert [r["name"] for r in rows] == [n for n, _, _ in chip_smoke.BF16_KERNELS] and all(keys <= set(r) for r in rows)
+    assert "timing (bf16): ok" in chip_smoke.bf16_lines(res, "card")
+
+
+def test_bf16_bounds_and_launch_check():
+    """The bf16 kernels' bounds: one bf16 pass at 989 TFLOP/s and the
+    descriptors at 2 bytes a value (K2a, K2b by operations at the serving
+    shape, K4 by P's bytes at the training shape); the MATCHER_BF16 paths'
+    launch check refuses a path that launched an fp32 engine kernel."""
+    big, train = torch.empty((2, 1938, 128), device="meta"), torch.empty((8, 1938, 128), device="meta")
+    big_b, train_b = big.to(torch.bfloat16), train.to(torch.bfloat16)
+    ms, by = chip_smoke.col_lse_bound(big_b, big_b, chip_smoke.PEAK_BF16, 1.0)
+    assert by == "operations" and ms == pytest.approx(2.0 * 2 * 1938 ** 2 * 128 / chip_smoke.PEAK_BF16 * 1e3)
+    assert ms == pytest.approx(chip_smoke.col_lse_bound(big, big)[0] * chip_smoke.PEAK_TF32 / chip_smoke.PEAK_BF16 / 3)
+    ms, by = chip_smoke.pair_softmax_bound(train_b, train_b, chip_smoke.PEAK_BF16, 1.0)
+    assert by == "bytes" and ms == pytest.approx((2 * 8 * 1938 * 128 * 2 + (2 * 8 * 1938 + 8 * 1938 ** 2) * 4)
+                                                 / chip_smoke.PEAK_BYTES * 1e3)
+    assert chip_smoke.pair_topk_bound(big_b, big_b, 16, chip_smoke.PEAK_BF16, 1.0)[1] == "operations"
+    counts = {name: 0 for name, _, _ in chip_smoke.KERNELS + chip_smoke.BF16_KERNELS}
+    counts.update({n: 1 for n in chip_smoke.BF16_PATH_KERNELS})
+    chip_smoke._launched(counts, "x", chip_smoke.BF16_PATH_KERNELS, chip_smoke.BF16_PATH_ABSENT)
+    with pytest.raises(chip_smoke.SmokeError):
+        chip_smoke._launched(dict(counts, col_lse=1), "x", chip_smoke.BF16_PATH_KERNELS, chip_smoke.BF16_PATH_ABSENT)
+    with pytest.raises(chip_smoke.SmokeError):
+        chip_smoke._launched(dict(counts, pair_topk_bf16=0), "x", chip_smoke.BF16_PATH_KERNELS)
+
+
+def test_bf16_checks_catch_a_wrong_kernel(monkeypatch):
+    """A bf16 K2a that rounds its result to bf16 (a bf16-output product)
+    fails the RTOL check, though its plain version is right."""
+    from mickey_tpu_torch.ops import fused_matcher as fm
+
+    inp = _tiny_kernel_inputs()
+    tin = chip_smoke.train_kernel_inputs("cpu", pairs=2, kpts=37, desc=16)
+    inp_b, tin_b = chip_smoke.bf16_kernel_inputs(inp, tin)
+    col_lse = fm.col_lse
+
+    def rounded(d0, d1, *a, **k):
+        out = col_lse(d0, d1, *a, **k)
+        return out.to(torch.bfloat16).float() if d0.dtype == torch.bfloat16 else out
+    monkeypatch.setattr(fm, "col_lse", rounded)
+    with pytest.raises(chip_smoke.SmokeError, match="col_lse_bf16"):
+        chip_smoke.check_bf16_kernels(inp_b, tin_b, sizes=(70, 65))
