@@ -104,8 +104,8 @@ Phases, one line each, any failure exits non-zero:
              profiled run), and ``call_with_ref_feats`` and
              ``model(..., lite=True)`` alone at B = 12; and the training
              entry point on a larger split of its own (two train scenes of
-             96 pairs: 24 steps an epoch; two val scenes of 96 pairs, drawn
-             in one shuffled order: 24 batches): ms a step inside
+             48 pairs: 12 steps an epoch; two val scenes of 48 pairs, drawn
+             in one shuffled order: 12 batches): ms a step inside
              ``fit`` and its loader share, staged and from the bf16 cache,
              validation pairs/s cached and plain with the cached runs'
              keyframe hit share, the cache's build rate and bytes; the
@@ -148,9 +148,32 @@ Phases, one line each, any failure exits non-zero:
              timed in turns with it and the fp32 heads; the bf16 kernels
              timed beside the fp32 engine on the same descriptors.
 
+   tensor parallel (3i) - the Megatron-sharded backbone (``parallel.py``'s
+             grid, ``shard_backbone``) on two gloo ranks sharing the card
+             against one process, at full width with the seeded weights: the
+             ViT-L forward on B = 2 pairs of 714x532 (4 images) in bf16 with
+             packed (K1) and unpacked (K1b) attention and in fp32 (K1f), 8
+             heads a rank: the fp32 map within rtol = atol = 2e-5, each bf16
+             map within twice the bf16 backbone's own envelope, the ranks
+             bitwise, two passes bitwise, the mode's kernel once a block and
+             no other attention kernel, each rank's split leaves half of one
+             process's bytes; then dp 1 x tp 2 steps (B = 8, 3 steps, the
+             small loss budget and the same injected draws): with the exact
+             backbone against one process at phase 3g's tolerances, with the
+             default bf16 backbone against one process fed the ranks' own
+             feature map, bit for bit; the forward's and the step's ms a rank.
+
 ``python3 chip_smoke.py --submission`` runs the submission phase and its
 timing alone; ``--fit`` the training entry point's; ``--demo`` phase 3f's;
-``--ddp`` phase 3g's; ``--bf16`` phase 3h's, with its kernels' rows.
+``--ddp`` phase 3g's; ``--bf16`` phase 3h's, with its kernels' rows; ``--tp``
+phase 3i's. ``python3 chip_smoke.py --curve`` runs the overfit proxy
+(``tools/train_curve_torch.py``) alone: 150 steps of the staged step on the
+geometric feature map, in fp32 and under ``TPU.HEADS_BF16`` (its convs in
+bf16), every step finite, each curve held to ``tests/test_convergence.py``'s
+three gates; it is not a phase of the whole run, whose checks hold the port
+against its plain versions and one process: at one seed the gates are a draw
+that ``mickey_tpu``'s own tool loses when its CPU thread count changes
+(PERF.md).
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
@@ -174,7 +197,8 @@ and adds their and their plain versions' distances from fp64.
 Prints the card's name and power limit first, then which of the image
 decoders ``cv2``, ``PIL`` and ``torchvision.io`` import and whether the
 trainer's optional ``matplotlib`` and ``tensorboardX`` do, the script's
-seconds, a JSON line of per-kernel results before the last line, and
+seconds with each phase's, a JSON line of per-kernel results before the last
+line, and
 ``{"ok": true, "device": ...}`` last. There
 is no CPU mode: without CUDA it exits 1 before printing any result. The phase
 functions take the device and the sizes as arguments, so the CPU tests
@@ -1770,6 +1794,13 @@ def main() -> int:
     from mickey_tpu_torch.weights import init_params_numpy
 
     t_start = time.perf_counter()
+    phase_s, lap = {}, [t_start]
+
+    def _lap() -> float:  # seconds since the previous lap
+        now = time.perf_counter()
+        lap.append(now)
+        return round(now - lap[-2], 1)
+
     dev = torch.device("cuda:0")
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1780,6 +1811,7 @@ def main() -> int:
     lib, log = _cuda.build()
     ptx = [ln.strip() for ln in log.splitlines() if any(w in ln for w in ("registers", "Compiling entry", "spill", "arning"))]
     print("build: ok | " + " | ".join(ptx), flush=True)
+    phase_s["1 build"] = _lap()
 
     # 2. kernels vs plain, at the main paths' shapes: serving (ViT-L 714x532,
     #    B = 2) and training (B = 8 pairs, 1938 keypoints, C = 128)
@@ -1794,6 +1826,10 @@ def main() -> int:
         return demo_report(cfg, dev, card)
     if "--ddp" in sys.argv[1:]:
         return ddp_report(cfg, dev, card)
+    if "--tp" in sys.argv[1:]:
+        return tp_report(cfg, dev, card)
+    if "--curve" in sys.argv[1:]:
+        return curve_report(dev, card)
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
@@ -1820,6 +1856,7 @@ def main() -> int:
     print("kernels: ok | " + " ".join(f"{k} max|diff|={v:.3e}" for k, v in errs.items())
           + f" | bf16 attention at S in {ATTN_SEQS} and seq_len < S: max|diff|={ragged:.3e}"
           + f" | fp32 attention there: max|diff| / max|ref| = {ragged32:.3e}", flush=True)
+    phase_s["2 kernels"] = _lap()
 
     # 3a. serving slice at full width in both layouts, the general layout on
     #     unpacked attention, then a small input against the plain CPU path
@@ -1844,6 +1881,7 @@ def main() -> int:
     print(f"slice: ok | launches {serve_launches} | conf {g.inliers.tolist()} valid {g.valid.tolist()} | "
           f"unpacked attention: launches {unpacked_launches} conf {outs_u['general'].inliers.tolist()} {unpacked} | "
           f"small-input vs plain {small}", flush=True)
+    phase_s["3a slice"] = _lap()
 
     # 3b. the exact path at full width: fp32 backbone (K1f), the full output
     #     on the dense route, and the dense route's lite outputs; then the
@@ -1875,6 +1913,7 @@ def main() -> int:
           f"{outs_xd['general'].inliers.tolist()} shared {outs_xd['shared'].inliers.tolist()} | fp32 unpacked vs packed "
           f"{agree_xu} launches {exact_unpacked_launches} | bf16 vs fp32 {agree_bf16} | dense vs fused table {table} | "
           f"checkpoint {ckpt} | small-input vs plain {small_x}", flush=True)
+    phase_s["3b exact"] = _lap()
 
     # 3c. training at full width: B = 8 pairs of 714x532, 3 staged steps on
     #     each matcher route, then a small step of each against the CPU path
@@ -1890,6 +1929,7 @@ def main() -> int:
         small_train = check_train_against_plain(small_loss_cfg(c), params, dev, pairs=2, height=224, width=252)
         print(f"train ({route}): ok | launches {train_launches[route]} | steps {steps} | "
               f"small-input vs plain {small_train}", flush=True)
+    phase_s["3c train"] = _lap()
 
     # 3d. the submission CLI at full width on a synthetic val split (two
     #     scenes of 540 x 720 raw-cached frames, 26 pairs, batches of 12)
@@ -1897,18 +1937,20 @@ def main() -> int:
     write_val_split(sub_dir.name)
     sub = run_submission(model, cfg, sub_dir.name)
     print(submission_line(sub), flush=True)
+    phase_s["3d submission"] = _lap()
 
     # 3e. the training entry point at full width on a synthetic Map-free
     #     split of 540 x 720 raw-cached frames: fit, resume, validation, the
     #     feature cache (its kernels checked first, outside the counted run)
     fit_errs = check_fit_kernels(fit_kernel_inputs(dev, cfg))
     fit_dir = tempfile.TemporaryDirectory(prefix="mickey_fit_")
-    (fit, fit_ctx), fit_launches = _counted(lambda: run_fit(cfg, fit_dir.name, dev))
+    (fit, fit_ctx), fit_launches = _counted(lambda: run_fit(cfg, fit_dir.name, dev, params=params))
     print(fit_line(fit, fit_errs), flush=True)
     fit_timing = fit_times(fit_ctx)  # printed after phase 4; its trainers freed before phase 4 reads peak memory
-    del params, fit_ctx
+    del fit_ctx
     gc.collect()
     fit_dir.cleanup()
+    phase_s["3e fit"] = _lap()
 
     # 3f. the demo CLI at full width on two 720 x 540 JPEGs, the int8
     #     backbone, the ViT-g/14 SwiGLU backbone (bf16 and int8); their
@@ -1917,19 +1959,21 @@ def main() -> int:
                                                               K0, K1, small_ims)
     del cpu_model
     gc.collect()
+    phase_s["3f demo and variants"] = _lap()
 
     # 3g. the native ingest; the train step under the data-parallel layer (a
     #     world-1 NCCL group bitwise no group, two ranks against one
     #     process); predict on two ranks over phase 3d's split
     ddp_dir = tempfile.TemporaryDirectory(prefix="mickey_ddp_")
     ingest = ingest_rates(ddp_dir.name)
-    ddp_train, ddp_launches = run_ddp_train(cfg, dev)
+    ddp_train, ddp_launches = run_ddp_train(cfg, dev, params=params)
     write_val_split(ddp_dir.name)
     ddp_sub = run_ddp_submission(model, cfg, ddp_dir.name)
     print(ddp_line(ingest, ddp_train, ddp_sub, card), flush=True)
     ddp_dir.cleanup()
     gc.collect()
     torch.cuda.empty_cache()
+    phase_s["3g ddp"] = _lap()
 
     # 3h. the bf16 modes: the bf16 kernels against their plain versions, the
     #     MATCHER_BF16 paths at full width (both layouts, the full output),
@@ -1938,6 +1982,17 @@ def main() -> int:
     print(bf16_lines(bf16, card), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_s["3h bf16"] = _lap()
+
+    # 3i. the tensor-parallel backbone: the ViT-L forward on two ranks (bf16
+    #     packed and unpacked, fp32) and dp 1 x tp 2 steps (exact and bf16
+    #     backbone), each against one process
+    tp_res, tp_launches, tp_rank_launches = run_tp_phase(cfg, dev, params=params)
+    del params
+    print(tp_line(tp_res, card), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["3i tp"] = _lap()
 
     # 4. timing
     B = image0.shape[0]
@@ -1979,10 +2034,11 @@ def main() -> int:
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
             ablation_launches, *sub["launches"], fit_launches, *variant_launches, ddp_launches, ddp_sub["launches"],
-            bf16["paths"]["launches"])
+            bf16["paths"]["launches"], tp_launches, *tp_rank_launches)
     for n, e in fit_errs.items():  # the kernels checked again at the fit's shapes
         errs[n] = max(errs[n], e)
-    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_s["4 timing"] = _lap()
+    print(f"total: {time.perf_counter() - t_start:.1f} s | phases s {json.dumps(phase_s)}", flush=True)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r[n] for r in runs), "max_abs_err": errs[n], "ms": kt[n][0],
@@ -2929,10 +2985,11 @@ FIT_TRAIN_QUERIES = 17  # 16 consecutive pairs a scene
 FIT_SAMPLES_A_SCENE = 16  # N_SAMPLES_SCENE: 32 pairs, 4 batches of 8
 FIT_VAL_QUERIES = 40  # x5 subsampling: 8 pairs a scene
 VAL_BATCHES = 2
-# the timing's own split (fit_window_times): FIT_SCENES scenes of each kind
-FIT_TIMING_TRAIN_QUERIES = 97  # 96 consecutive pairs a scene
-FIT_TIMING_SAMPLES = 96  # N_SAMPLES_SCENE: 192 pairs, 24 steps of 8
-FIT_TIMING_VAL_QUERIES = 480  # x5 subsampling: 96 pairs a scene, each drawn once
+# the timing's own split (fit_window_times): FIT_SCENES scenes of each kind; half the scale it
+# first had (24 steps and 24 val batches), to keep the whole script near 900 s
+FIT_TIMING_TRAIN_QUERIES = 49  # 48 consecutive pairs a scene
+FIT_TIMING_SAMPLES = 48  # N_SAMPLES_SCENE: 96 pairs, 12 steps of 8
+FIT_TIMING_VAL_QUERIES = 240  # x5 subsampling: 48 pairs a scene, each drawn once
 VAL_TOL = 1e-5  # cached against plain validation: tests/test_training.py's lock (rtol, atol)
 
 
@@ -3068,7 +3125,7 @@ def check_fit_kernels(inp) -> dict:
 
 def run_fit(cfg, root, dev, *, batch: int = 8, samples: int = FIT_SAMPLES_A_SCENE,
             val_batches: int = VAL_BATCHES, train_queries: int = FIT_TRAIN_QUERIES,
-            val_queries: int = FIT_VAL_QUERIES):
+            val_queries: int = FIT_VAL_QUERIES, params=None):
     """Phase 3e: the training entry point at ``cfg``'s width on a synthetic
     Map-free split under ``root`` (frames of ``cfg``'s size in raw-frame
     caches: ``FIT_SCENES`` train scenes of ``train_queries`` queries with
@@ -3181,8 +3238,9 @@ def run_fit(cfg, root, dev, *, batch: int = 8, samples: int = FIT_SAMPLES_A_SCEN
     if not torch.equal(rows, fmap):
         raise SmokeError(f"feature cache: fp32 rows differ from the train step's maps, max |diff| "
                          f"{(rows - fmap).abs().max().item():.3e}")
-    staged = MicKeyTrainer(cfg, seed=SEED, device=dev, out_dir=os.path.join(root, "run3"))
-    cached = MicKeyTrainer(cfg, seed=SEED, device=dev, out_dir=os.path.join(root, "run4"))
+    # params: init_params_numpy(cfg, SEED) made once by the caller, or by each trainer
+    staged = MicKeyTrainer(cfg, params=params, seed=SEED, device=dev, out_dir=os.path.join(root, "run3"))
+    cached = MicKeyTrainer(cfg, params=params, seed=SEED, device=dev, out_dir=os.path.join(root, "run4"))
     cached.feature_cache = c32
     m_staged = staged.training_step(tb)
     m_cached = cached.training_step({k: v for k, v in tb.items() if not k.startswith("image")})
@@ -3919,7 +3977,7 @@ def _dp_backend(dev) -> tuple:
 
 
 def run_ddp_train(cfg, dev, *, pairs: int = 8, height: int = 714, width: int = 532, steps: int = 3,
-                  launch_timeout: float = 600.0) -> dict:
+                  launch_timeout: float = 600.0, params=None) -> dict:
     """The training step under the data-parallel layer
     (``parallel.data_parallel_steps``) at ``cfg``'s width:
 
@@ -3933,13 +3991,15 @@ def run_ddp_train(cfg, dev, *, pairs: int = 8, height: int = 714, width: int = 5
       looser one; each step's time (the first holds each process's
       warm-up).
 
-    Returns the checks' numbers and this process's kernel launches."""
+    Every run starts from ``params`` (``init_params_numpy(cfg, SEED)``, made
+    once by the caller and sent to the ranks), or makes it itself. Returns
+    the checks' numbers and this process's kernel launches."""
     from mickey_tpu_torch import parallel
     from mickey_tpu_torch.parallel import data_parallel_steps
 
     batch = {k: v.cpu().numpy() for k, v in train_batch(dev, pairs, height, width).items()}
     res = {}
-    (plain, grouped), launches = _counted(lambda: _world_one(cfg, dev, batch, steps))
+    (plain, grouped), launches = _counted(lambda: _world_one(cfg, dev, batch, steps, params))
     for k, a, b in (("first step's parameters", plain["first"]["params"], grouped["first"]["params"]),
                     ("first step's moments", (plain["first"]["mu"], plain["first"]["nu"]),
                      (grouped["first"]["mu"], grouped["first"]["nu"])),
@@ -3958,50 +4018,63 @@ def run_ddp_train(cfg, dev, *, pairs: int = 8, height: int = 714, width: int = 5
     idx, ridx = inject_draws(np.random.default_rng(SEED + 21), pairs, height // df, width // df, gh.IT_MATCHES,
                              small.LOSS_CLASS.SAMPLER.NUM_SAMPLES_MATCHES, gh.IT_RANSAC, gh.NUM_CORR_3d3d)
     override = (idx.numpy(), ridx.numpy())
-    one, one_launches = _counted(lambda: data_parallel_steps(small, batch, steps, SEED, override, device=dev))
+    one, one_launches = _counted(lambda: data_parallel_steps(small, batch, steps, SEED, override, params,
+                                                             device=dev))
     _launched(one_launches, "ddp, one process", TRAIN_KERNELS)
     backend, device = _dp_backend(dev)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    two = parallel.launch(data_parallel_steps, 2, backend, device, args=(small, batch, steps, SEED, override),
+    two = parallel.launch(data_parallel_steps, 2, backend, device, args=(small, batch, steps, SEED, override, params),
                           timeout_s=launch_timeout)
     res["two_rank_launch_s"] = time.perf_counter() - t0
     res["default_launch"] = default_launch_ranks()
-    for what, tree in (("first step's state", lambda t: t["first"]), ("last parameters", lambda t: t["params"])):
-        if not all(np.array_equal(x, y) for x, y in zip(_flat(tree(two[0])), _flat(tree(two[1])))):
-            raise SmokeError(f"ddp: the two ranks' {what} differ")
-    for r, t in enumerate(two):
-        _launched(t["launches"], f"ddp, rank {r}", TRAIN_KERNELS)
+    res.update(hold_ranks_against_one(one, two, "ddp"))
+    res.update(backend=f"{backend} on {device or 'cuda:0, cuda:1'}",
+               one_process_step_ms=[t * 1e3 for t in one["seconds"]],
+               two_rank_step_ms=[[t * 1e3 for t in r["seconds"]] for r in two],
+               rank_launches=[t["launches"] for t in two])
+    return res, {k: launches[k] + one_launches[k] for k in launches}
+
+
+def hold_ranks_against_one(one: dict, ranks: list, what: str, kernels=TRAIN_KERNELS) -> dict:
+    """``data_parallel_steps``' results on the ranks of a group against one
+    process's, on the same batch and injected draws: every rank's state
+    bitwise rank 0's, every rank's launches ``kernels``, the first step's
+    metrics and BN running stats at DDP_RTOL, its Adam first moments at
+    GRAD_TOL normwise, the later steps' loss and grad norm at
+    DDP_LATER_RTOL. Returns the distances."""
+    for what_tree, tree in (("first step's state", lambda t: t["first"]), ("last parameters", lambda t: t["params"])):
+        for r, other in enumerate(ranks[1:], 1):
+            if not all(np.array_equal(x, y) for x, y in zip(_flat(tree(ranks[0])), _flat(tree(other)))):
+                raise SmokeError(f"{what}: rank {r}'s {what_tree} differs from rank 0's")
+    for r, t in enumerate(ranks):
+        _launched(t["launches"], f"{what}, rank {r}", kernels)
 
     def rel(m1, m2):
         return {k: abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12) for k in ("loss", "grad_norm", "loss_rot", "loss_trans")}
 
     # the first step is held tight; Adam's first update moves an entry whose gradient is near 0 by lr
     # times a sign that a rounding may flip, so the later steps are held loosely (constants above)
-    m1, m2 = one["metrics"][0], two[0]["metrics"][0]
+    n = len(ranks)
+    m1, m2 = one["metrics"][0], ranks[0]["metrics"][0]
     errs = rel(m1, m2)
     if m2["num_valid"] != m1["num_valid"] or max(errs.values()) > DDP_RTOL:
-        raise SmokeError(f"ddp: 2-rank metrics {m2} against one process's {m1}")
-    later = [rel(a, b) for a, b in zip(one["metrics"][1:], two[0]["metrics"][1:])]
-    for i, (e, a, b) in enumerate(zip(later, one["metrics"][1:], two[0]["metrics"][1:])):
+        raise SmokeError(f"{what}: {n}-rank metrics {m2} against one process's {m1}")
+    later = [rel(a, b) for a, b in zip(one["metrics"][1:], ranks[0]["metrics"][1:])]
+    for i, (e, a, b) in enumerate(zip(later, one["metrics"][1:], ranks[0]["metrics"][1:])):
         if b["num_valid"] != a["num_valid"] or max(e["loss"], e["grad_norm"]) > DDP_LATER_RTOL:
-            raise SmokeError(f"ddp: step {i + 2}'s 2-rank metrics {b} against one process's {a}")
-    f1, f2 = one["first"], two[0]["first"]
+            raise SmokeError(f"{what}: step {i + 2}'s {n}-rank metrics {b} against one process's {a}")
+    f1, f2 = one["first"], ranks[0]["first"]
     bn = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
              for path, a, b in _leaves(f2["params"], f1["params"]) if path[-1] in ("mean", "var"))
     if bn > DDP_RTOL:
-        raise SmokeError(f"ddp: 2-rank BN running stats {bn:.3e} from one process's")
+        raise SmokeError(f"{what}: {n}-rank BN running stats {bn:.3e} from one process's")
     mu = max(_norm_rel(torch.from_numpy(a), torch.from_numpy(b))
              for path, a, b in _leaves(f2["mu"], f1["mu"]) if path[-1] not in ("mean", "var"))
     if mu > GRAD_TOL:
-        raise SmokeError(f"ddp: 2-rank first moments {mu:.3e} normwise from one process's")
-    res.update(backend=f"{backend} on {device or 'cuda:0, cuda:1'}", metrics_rel=errs, bn_rel=bn, moments_rel=mu,
-               later_steps_metrics_rel=later,
-               one_process_step_ms=[t * 1e3 for t in one["seconds"]],
-               two_rank_step_ms=[[t * 1e3 for t in r["seconds"]] for r in two],
-               rank_launches=[t["launches"] for t in two])
-    return res, {k: launches[k] + one_launches[k] for k in launches}
+        raise SmokeError(f"{what}: {n}-rank first moments {mu:.3e} normwise from one process's")
+    return {"metrics_rel": errs, "bn_rel": bn, "moments_rel": mu, "later_steps_metrics_rel": later}
 
 
 def default_launch_ranks() -> str:
@@ -4025,20 +4098,20 @@ def default_launch_ranks() -> str:
     return f"ranks on {devices} in {time.perf_counter() - t0:.1f} s"
 
 
-def _world_one(cfg, dev, batch, steps: int):
+def _world_one(cfg, dev, batch, steps: int, params=None):
     """``steps`` steps with no process group, then the same in a world-1
     NCCL group (gloo on the CPU) joined by this process (and left after)."""
     from mickey_tpu_torch import parallel
     from mickey_tpu_torch.parallel import data_parallel_steps
 
-    plain = data_parallel_steps(cfg, batch, steps, SEED, device=dev)
+    plain = data_parallel_steps(cfg, batch, steps, SEED, params=params, device=dev)
     with tempfile.TemporaryDirectory(prefix="mickey_rdv_") as tmp:
         backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
         parallel.init_data_parallel(backend, dev, init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
         try:
             if parallel.world().size != 1:
                 raise SmokeError("ddp: the world-1 group has another size")
-            grouped = data_parallel_steps(cfg, batch, steps, SEED, device=dev)
+            grouped = data_parallel_steps(cfg, batch, steps, SEED, params=params, device=dev)
         finally:
             parallel.close_data_parallel()
     return plain, grouped
@@ -4475,6 +4548,404 @@ def bf16_report(cfg, dev, card: str, inp, tin) -> int:
     print(bf16_lines(res, card), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s after the build", flush=True)
     print(json.dumps({"kernels": bf16_kernel_rows(res, res["paths"]["launches"])}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# -- 3i. the tensor-parallel backbone -----------------------------------------------------
+
+TP = 2
+# the backbone's modes under tensor parallelism: (MICKEY.DINOV2.FLOAT16, TPU.PACKED_ATTENTION) and the one
+# attention kernel each must launch, once a block a pass
+TP_MODES = {"bf16 packed": (True, True, "flash_attention_packed"),
+            "bf16 unpacked": (True, False, "flash_attention"),
+            "fp32": (False, True, "flash_attention_packed_f32")}
+#  Tensor-parallel against one process (the same weights and images): the
+#      fp32 map at rtol = atol = TP_F32_RTOL, mickey_tpu's own lock on its TP
+#      forward (tests/test_tensor_parallel.py); only the order of the
+#      row-parallel sums differs. A bf16 map is held to the bf16 backbone's
+#      own envelope E, the one-process bf16 map's max |diff| / max |ref|
+#      from the one-process fp32 map: its distance from the one-process bf16
+#      map within TP_BF16_ENVELOPES x E. Both bf16 maps are roundings of the
+#      one fp32 function by different sums (a rank rounds its partial sums
+#      to bf16 before the group adds them, as the JAX partitioner does for a
+#      bf16 dot), each at about E from it, so they lie up to 2 E apart (on
+#      the CPU at ViT-S: 1.77e-2 apart, each 1.44e-2 and 1.52e-2 from fp32).
+#      The ranks' maps bitwise equal, each rank's passes bitwise equal.
+TP_F32_RTOL = 2e-5
+TP_BF16_ENVELOPES = 2.0
+#  The dp 1 x tp 2 step against one process: with the exact backbone
+#      (MICKEY.DINOV2.FLOAT16=False, K1f on each rank's 8 heads) at phase 3g's
+#      tolerances, only the order of the row-parallel sums differing; with the
+#      default bf16 backbone against one process fed the ranks' own feature
+#      map, bit for bit (the heads are replicated: one step). The bf16 TP map
+#      is another bf16 rounding of the backbone (above); the one process's
+#      step on its own bf16 map is printed beside, how far the step moves for
+#      that rounding alone.
+TP_TRAIN_KERNELS = ("flash_attention_packed_f32",) + TRAIN_KERNELS[1:]
+
+
+def tp_configs(cfg) -> dict:
+    """name -> ``cfg`` in each of ``TP_MODES``."""
+    out = {}
+    for name, (bf16, packed, _) in TP_MODES.items():
+        c = cfg.clone()
+        c.MICKEY.DINOV2.FLOAT16, c.TPU.PACKED_ATTENTION = bf16, packed
+        out[name] = c
+    return out
+
+
+def _attention_each_block(launches: dict, path: str, kernel: str, blocks: int) -> None:
+    """``path`` launched ``kernel`` once in each of its ``blocks`` block
+    passes and no other attention kernel."""
+    _launched(launches, path, (kernel,), tuple(k for k in ATTENTION_KERNELS if k != kernel))
+    if launches[kernel] != blocks:
+        raise SmokeError(f"{path}: {kernel} launched {launches[kernel]} times in {blocks} block passes")
+
+
+def check_tp_forward(one: dict, ranks: list, depth: int, runs: int) -> dict:
+    """``parallel.tensor_parallel_features`` on the ranks of a model group
+    against one process's (tolerances above); each rank's passes launched
+    its mode's attention kernel once a block and no other attention kernel;
+    each rank's split leaves 1/tp of one process's bytes. Returns the
+    distances and the bytes."""
+    tp = len(ranks)
+    res = {}
+    f32 = one["maps"]["fp32"]["fmap"]
+    for name, (_, _, kernel) in TP_MODES.items():
+        ref = one["maps"][name]["fmap"]
+        got = [r["maps"][name]["fmap"] for r in ranks]
+        if got[0].shape != ref.shape or not np.isfinite(got[0]).all():
+            raise SmokeError(f"tp {name}: map {got[0].shape} against {ref.shape}, or not finite")
+        for r, (g, rk) in enumerate(zip(got, ranks)):
+            if not np.array_equal(g, got[0]):
+                raise SmokeError(f"tp {name}: rank {r}'s map differs from rank 0's")
+            if not rk["maps"][name]["repeats"]:
+                raise SmokeError(f"tp {name}: rank {r}'s passes differ from each other")
+            _attention_each_block(rk["maps"][name]["launches"], f"tp {name}, rank {r}", kernel, depth * runs)
+        dist = float(np.abs(got[0] - ref).max() / np.abs(ref).max())
+        if name == "fp32":
+            over = np.abs(got[0] - ref) - TP_F32_RTOL * (1.0 + np.abs(ref))
+            if (over > 0).any():
+                raise SmokeError(f"tp fp32: map beyond rtol = atol = {TP_F32_RTOL} of one process's "
+                                 f"(max |diff| / max |ref| {dist:.3e})")
+            res[name] = {"max_rel": dist}
+        else:
+            envelope = float(np.abs(ref - f32).max() / np.abs(f32).max())
+            if dist > TP_BF16_ENVELOPES * envelope:
+                raise SmokeError(f"tp {name}: map {dist:.3e} from one process's, beyond {TP_BF16_ENVELOPES} x the "
+                                 f"bf16 backbone's own {envelope:.3e} from fp32")
+            res[name] = {"max_rel": dist, "one_process_vs_fp32_max_rel": envelope,
+                         "vs_fp32_max_rel": float(np.abs(got[0] - f32).max() / np.abs(f32).max())}
+    for r, rk in enumerate(ranks):
+        if rk["split_bytes"] * tp != one["split_bytes"]:
+            raise SmokeError(f"tp: rank {r} holds {rk['split_bytes']} bytes of split leaves, not 1/{tp} of "
+                             f"{one['split_bytes']}")
+    res["bytes"] = {"one_process": {"backbone": one["backbone_bytes"], "split": one["split_bytes"]},
+                    "ranks": [{"backbone": rk["backbone_bytes"], "split": rk["split_bytes"]} for rk in ranks]}
+    return res
+
+
+def backbone_bytes(backbone) -> int:
+    """Bytes of storage behind a backbone tree's leaves."""
+    from mickey_tpu_torch.weights import tree_leaves
+
+    return sum(t.untyped_storage().nbytes() for _, t in tree_leaves(backbone))
+
+
+def split_bytes(backbone) -> int:
+    """Bytes of storage behind the leaves that tensor parallelism splits
+    (``vit_tp_split``: the qkv, proj, fc1 and fc2 weights, the qkv and fc1
+    biases) in a backbone tree: 1/tp of one process's on a rank."""
+    from mickey_tpu_torch.parallel import vit_tp_split
+    from mickey_tpu_torch.weights import tree_leaves
+
+    dims = dict(tree_leaves(vit_tp_split(backbone)))
+    return sum(t.untyped_storage().nbytes() for path, t in tree_leaves(backbone) if dims.get(path) is not None)
+
+
+def tensor_parallel_features(cfgs: dict, images, params=None, seed: int = 0, device="cuda",
+                             runs: int = 2) -> dict:
+    """The frozen backbone's feature map of ``images`` (an array (B, H, W,
+    3)) on this rank's shard of the backbone, under each config of ``cfgs``
+    (name -> config: the dtype and the attention layout may differ, the
+    weights do not), ``runs`` passes each: what each rank of a model group
+    runs in phase 3i, and one process alone to be held against them. The
+    weights are ``params`` (``mickey_tpu``'s layout) or
+    ``init_params_numpy(first config, seed)``. The model group is this
+    process's (``parallel.tensor_parallel()``). In a process group the
+    backbone runs on the rank's device, else on ``device``.
+
+    Returns, per config, the first pass's map (numpy fp32), whether every
+    later pass gave it bit for bit, each pass's ms on the host clock (the
+    device synchronized) and the kernels launched; and the bytes behind this
+    rank's backbone and behind its split leaves (``split_bytes``)."""
+    from mickey_tpu_torch import parallel
+    from mickey_tpu_torch.nn.dinov2 import VIT_CONFIGS
+    from mickey_tpu_torch.nn.extractor import backbone_features
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.weights import init_params_numpy, params_to_torch
+
+    tp = parallel.tensor_parallel()
+    first = next(iter(cfgs.values()))
+    dev = parallel.world().device if torch.distributed.is_initialized() else torch.device(device)
+    params = init_params_numpy(first, seed) if params is None else params
+    heads = VIT_CONFIGS[first.MICKEY.DINOV2.get("VARIANT", "vit_large")]["num_heads"]
+    backbone = parallel.shard_backbone(tp, params_to_torch(params, first, dev)["dinov2"], heads)
+    x = torch.as_tensor(np.ascontiguousarray(images)).to(dev)
+    out = {}
+    for name, cfg in cfgs.items():
+        before = dict(_cuda.LAUNCHES)
+        maps, ms = [], []
+        for _ in range(runs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                fmap = backbone_features({"dinov2": backbone}, x, cfg, tp)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            maps.append(fmap)
+        out[name] = {"fmap": maps[0].float().cpu().numpy(), "repeats": all(torch.equal(m, maps[0]) for m in maps[1:]),
+                     "ms": ms, "launches": {k: v - before[k] for k, v in _cuda.LAUNCHES.items()}}
+    return {"tp": (tp.rank, tp.size), "maps": out,
+            "backbone_bytes": backbone_bytes(backbone), "split_bytes": split_bytes(backbone)}
+
+
+def tp_fmap_steps(cfg, batch: dict, steps: int, seed: int, override, params, fmap=None, device="cuda") -> dict:
+    """``steps`` staged steps of a ``MicKeyTrainer`` in this process's model
+    group (``parallel.tensor_parallel()``; dp 1) on one ``batch``, split
+    where the staged step splits (``StagedTrainStep.__call__``): the feature
+    map of ``train_step.backbone_fwd`` on the rank's shard (fp32, the bf16
+    backbone's output cast), or ``fmap`` where given, then
+    ``train_step.grad_step`` on it
+    with the injected draws ``override``. The one-process side of a check
+    feeds it the ranks' own map, so that only the backbone's split differs.
+    Returns the map, the metrics, the trainables and Adam's moments after
+    the first step and the trainables after the last (``data_parallel_steps``'
+    keys), and the kernels launched."""
+    from mickey_tpu_torch import parallel
+    from mickey_tpu_torch.models import MicKeyTrainer
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.weights import params_to_numpy
+
+    before = dict(_cuda.LAUNCHES)
+    tp = parallel.tensor_parallel()
+    dev = parallel.world().device if torch.distributed.is_initialized() else device
+    tr = MicKeyTrainer(cfg, params=params, seed=seed, device=dev, tp=tp)
+    b = tr.device_batch(batch)
+    if fmap is None:
+        x = tr.train_step.backbone_fwd(tr.backbone, b["image0"], b["image1"])
+    else:
+        x = torch.from_numpy(fmap).to(tr.device)
+    override = tuple(torch.as_tensor(o).to(tr.device) for o in override)
+    metrics, first = [], None
+    for _ in range(steps):
+        _, m = tr.train_step.grad_step(tr.state, x, b, tr.generator, tr.topk, sample_override=override)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if first is None:
+            opt = tr.state.opt_state
+            first = {"params": params_to_numpy(tr.state.params), "mu": tr._moments(opt.mu), "nu": tr._moments(opt.nu)}
+    return {"fmap": x.cpu().numpy(), "first": first, "params": params_to_numpy(tr.state.params), "metrics": metrics,
+            "launches": {k: v - before[k] for k, v in _cuda.LAUNCHES.items()}}
+
+
+def tp_rank(forward, cfgs: dict, images, runs: int, small, small_bf16, batch: dict, steps: int, override,
+            params) -> tuple:
+    """What each rank of phase 3i runs, in one spawn on the seeded weights
+    ``params``: ``forward`` (``tensor_parallel_features``) on its shard in
+    each of ``cfgs``, then, where ``steps``, ``parallel.data_parallel_steps``
+    of ``small`` (the exact backbone) and ``tp_fmap_steps`` of
+    ``small_bf16`` on ``batch`` with the injected draws ``override``."""
+    from mickey_tpu_torch import parallel
+
+    out = forward(cfgs, images, params, SEED, "cuda", runs)
+    if not steps:
+        return out, None, None
+    return (out, parallel.data_parallel_steps(small, batch, steps, SEED, override, params=params),
+            tp_fmap_steps(small_bf16, batch, steps, SEED, override, params))
+
+
+def hold_tp_bf16_step(ranks: list, one: dict, own: dict, what: str) -> dict:
+    """``tp_fmap_steps`` on the ranks of a model group (the default bf16
+    backbone split over them) against one process fed the ranks' own
+    feature map (``one``): the heads are replicated, so the two compute one
+    step, and every rank's map, metrics and state must be bit for bit the
+    one process's; each rank launched ``TRAIN_KERNELS``. ``own``: one
+    process on its own bf16 map (not held): how far the step moves for the
+    backbone's other rounding. Returns the maps' and the steps' distances."""
+    for r, t in enumerate(ranks):
+        _launched(t["launches"], f"{what}, rank {r}", TRAIN_KERNELS)
+        if not np.array_equal(t["fmap"], ranks[0]["fmap"]):
+            raise SmokeError(f"{what}: rank {r}'s feature map differs from rank 0's")
+        for name, a, b in (("metrics", t["metrics"], one["metrics"]), ("first step's state", t["first"], one["first"]),
+                           ("last parameters", t["params"], one["params"])):
+            if name == "metrics":
+                same = a == b
+            else:
+                same = all(np.array_equal(x, y) for x, y in zip(_flat(a), _flat(b)))
+            if not same:
+                raise SmokeError(f"{what}: rank {r}'s {name} differ from one process's on the ranks' map")
+    _launched(one["launches"], f"{what}, one process on the ranks' map", TRAIN_KERNELS[1:], ATTENTION_KERNELS)
+
+    tp_map, own_map = ranks[0]["fmap"], own["fmap"]
+    return {"bitwise_one_process_on_the_ranks_map": True,
+            "map_max_rel_vs_own": float(np.abs(tp_map - own_map).max() / np.abs(own_map).max()),
+            "own_map_step_metrics": own["metrics"], "tp_step_metrics": one["metrics"],
+            "grad_norm_rel_vs_own": [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                                     for a, b in zip(one["metrics"], own["metrics"])]}
+
+
+def run_tp_phase(cfg, dev, *, pairs: int = 2, height: int = 714, width: int = 532, runs: int = 2,
+                 train_pairs: int = 8, steps: int = 3, launch_timeout: float = 900.0,
+                 entry=None, params=None) -> tuple:
+    """Phase 3i: the tensor-parallel backbone on ``TP`` ranks
+    (``_dp_backend``: gloo on cuda:0 with one card; ``tp_rank``) against
+    one process, at ``cfg``'s width with the seeded weights:
+
+    - the forward (``tensor_parallel_features``; ``entry`` in its place,
+      for the CPU tests) on 2 ``pairs`` (2 x pairs images) in each of
+      ``TP_MODES``, ``runs`` passes: ``check_tp_forward``; each rank's ms a
+      pass against one process's;
+    - a dp 1 x tp ``TP`` training step (``parallel.data_parallel_steps``)
+      with the exact backbone against one process: ``train_pairs`` pairs,
+      ``steps`` steps at the small loss budget with the same injected draws,
+      held as phase 3g holds its ranks (``hold_ranks_against_one``); the
+      step ms of both;
+    - the same steps with the default bf16 backbone (``tp_fmap_steps``)
+      against one process fed the ranks' feature map, bit for bit
+      (``hold_tp_bf16_step``), and beside one process on its own bf16 map.
+
+    Steps are left out where ``steps`` is 0. Every run starts from
+    ``params`` (``init_params_numpy(cfg, SEED)``, made here where not given;
+    sent to the ranks). Returns (the checks' numbers and times, this
+    process's kernel launches in the counted runs, the ranks' launches)."""
+    from mickey_tpu_torch import parallel
+    from mickey_tpu_torch.nn.dinov2 import VIT_CONFIGS
+    from mickey_tpu_torch.weights import init_params_numpy
+
+    entry = tensor_parallel_features if entry is None else entry
+    cfgs = tp_configs(cfg)
+    depth = VIT_CONFIGS[cfg.MICKEY.DINOV2.get("VARIANT", "vit_large")]["depth"]
+    image0, image1, _, _ = slice_inputs(dev, pairs, height, width)
+    images = torch.cat([image0, image1]).cpu().numpy()
+    small_bf16, small = small_loss_cfg(cfg), small_loss_cfg(cfg)
+    small_bf16.MICKEY.DINOV2.FLOAT16, small.MICKEY.DINOV2.FLOAT16 = True, False
+    gh = small.LOSS_CLASS.GENERATE_HYPOTHESES
+    df = int(cfg.MICKEY.DINOV2.DOWN_FACTOR)
+    batch = {k: v.cpu().numpy() for k, v in train_batch(dev, train_pairs, height, width).items()}
+    idx, ridx = inject_draws(np.random.default_rng(SEED + 21), train_pairs, height // df, width // df,
+                             gh.IT_MATCHES, small.LOSS_CLASS.SAMPLER.NUM_SAMPLES_MATCHES, gh.IT_RANSAC, gh.NUM_CORR_3d3d)
+    override = (idx.numpy(), ridx.numpy())
+    backend, device = _dp_backend(dev)
+    res = {"backend": f"{backend} on {device or 'cuda:0, cuda:1'}", "tp": TP}
+
+    params = init_params_numpy(cfg, SEED) if params is None else params
+    one, launches = _counted(lambda: tensor_parallel_features(cfgs, images, params, SEED, dev, runs))
+    one_step, step_launches = _counted(
+        lambda: parallel.data_parallel_steps(small, batch, steps, SEED, override, params=params, device=dev)
+        if steps else None)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(tp_rank, TP, backend, device, timeout_s=launch_timeout, tp=TP,
+                            args=(entry, cfgs, images, runs, small, small_bf16, batch, steps, override, params))
+    res["launch_s"] = time.perf_counter() - t0
+    fwd, two, two_bf16 = zip(*ranks)
+    res["forward"] = check_tp_forward(one, list(fwd), depth, runs)
+    res["forward_ms"] = {name: {"one_process": one["maps"][name]["ms"], "ranks": [r["maps"][name]["ms"] for r in fwd]}
+                         for name in TP_MODES}
+    rank_launches = [r["maps"][name]["launches"] for r in fwd for name in TP_MODES]
+    if steps:
+        _launched(step_launches, "tp step, one process", TP_TRAIN_KERNELS)
+        res["train"] = hold_ranks_against_one(one_step, list(two), f"tp step (dp 1 x tp {TP})", TP_TRAIN_KERNELS)
+        res["train_step_ms"] = {"one_process": [t * 1e3 for t in one_step["seconds"]],
+                                "ranks": [[t * 1e3 for t in r["seconds"]] for r in two]}
+        fed, fed_launches = _counted(
+            lambda: tp_fmap_steps(small_bf16, batch, steps, SEED, override, params, two_bf16[0]["fmap"], dev))
+        own = tp_fmap_steps(small_bf16, batch, steps, SEED, override, params, device=dev)
+        res["train_bf16"] = hold_tp_bf16_step(list(two_bf16), fed, own, f"tp bf16 step (dp 1 x tp {TP})")
+        launches = {k: launches[k] + step_launches[k] + fed_launches[k] for k in launches}
+        rank_launches += [t["launches"] for t in two] + [t["launches"] for t in two_bf16]
+    return res, launches, rank_launches
+
+
+def tp_line(res: dict, card: str) -> str:
+    return (f"tp: ok | {card} | times on the host clock of {res['tp']} ranks over {res['backend']} (gloo's "
+            f"collectives pass through the host: the layer's cost, not scaling over cards) | {json.dumps(res)}")
+
+
+def tp_report(cfg, dev, card: str) -> int:
+    """``--tp``: phase 3i alone, at full width with the seeded random weights."""
+    t_start = time.perf_counter()
+    res, _, _ = run_tp_phase(cfg, dev)
+    print(tp_line(res, card), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s after the build", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# -- the overfit proxy (tools/train_curve_torch.py) ------------------------------------------
+
+CURVE_STEPS, CURVE_EVAL_EVERY, CURVE_LR = 150, 30, 4e-4  # tests/test_convergence.py's run
+# the mode's gate on a CPU device (HEADS_BF16_ON_CPU) lets the CPU tests rehearse it; the card ignores it
+CURVE_MODES = {"fp32": None, "HEADS_BF16": {"TPU.HEADS_BF16": True, "TPU.HEADS_BF16_ON_CPU": True}}
+
+
+def run_curve_phase(dev, steps: int = CURVE_STEPS, eval_every: int = CURVE_EVAL_EVERY) -> tuple:
+    """The port's overfit proxy (``tools/train_curve_torch.run_curve``:
+    ``grad_step`` on the geometric feature map, ``ValStep.tail`` at a fixed
+    seed at each eval point), ``steps`` steps from seed 0 at lr 4e-4, in
+    fp32 and under ``TPU.HEADS_BF16``, each curve in a process of its own,
+    both at once (``run_curves``), every step's loss and gradients finite
+    (``require_finite``); then ``hold_curves``. Returns (the curves' eval
+    points and summaries, the kernels the curves launched)."""
+    from tools.train_curve_torch import run_curves
+
+    results = run_curves(CURVE_MODES, steps, eval_every, 0, CURVE_LR, dev)
+    launches = {}
+    for _, counts in results.values():
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    return hold_curves({name: curve for name, (curve, _) in results.items()}), launches
+
+
+def hold_curves(curves: dict) -> dict:
+    """Each curve of ``CURVE_MODES``: the mode's with its convs in bf16 and
+    the fp32 one without, and ``tests/test_convergence.py``'s three gates
+    (``gate_failures``), every one of which it must meet. Returns the
+    curves' eval points and summaries."""
+    from tools.train_curve_torch import gate_failures
+
+    out, missed = {}, {}
+    for name, curve in curves.items():
+        if curve["heads_bf16"] != (CURVE_MODES[name] is not None):
+            raise SmokeError(f"curve {name}: the heads' convs {'did not run' if CURVE_MODES[name] else 'ran'} in bf16")
+        out[name] = {k: curve[k] for k in ("eval", "eval_loss_ratio", "initial_vcre", "final_vcre", "initial_R_err",
+                                           "final_R_err", "steps_run", "wall_s", "heads_bf16", "device")}
+        if gate_failures(curve):
+            missed[name] = gate_failures(curve)
+    if missed:
+        raise SmokeError(f"curve: gates of tests/test_convergence.py missed {json.dumps(missed)}; curves "
+                         f"{json.dumps(out)}")
+    return out
+
+
+def curve_line(curves: dict, card: str) -> str:
+    return f"curve: ok | {card} | tests/test_convergence.py's gates met | {json.dumps(curves)}"
+
+
+def curve_report(dev, card: str) -> int:
+    """``--curve``: the overfit proxy's two curves, failing where a curve
+    misses a gate of ``tests/test_convergence.py``."""
+    t_start = time.perf_counter()
+    curves, launches = run_curve_phase(dev)
+    print(curve_line(curves, card), flush=True)
+    print(f"curve launches {launches}", flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s after the build", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -18,6 +18,20 @@ same checkpoint decision; rank 0 alone writes checkpoints, logs, image
 panels and the feature cache (the others wait for it). ``TRAINING.BATCH_SIZE``
 stays the global batch. With one rank nothing of this acts.
 
+Tensor parallelism (``tp``, by default ``parallel.tensor_parallel()``;
+``mickey_tpu``'s ``MicKeyTrainer(mesh=get_mesh_2d(tp))``): ``dp`` is then the
+rank's data group and ``tp`` its model group of a ``parallel.init_grid``.
+The whole backbone is broadcast from global rank 0 first (over the data
+group, then the model group), its fingerprint taken for the feature cache,
+then each rank keeps its shard (``parallel.shard_backbone``); the staged
+train and validation steps and the image panels run the sharded backbone
+over the model group. The loaders shard by the data rank and size: the
+ranks of a model group read the same rows and take the same branches (a
+rank-dependent branch around a backbone pass would leave its peers waiting
+in the all-reduce). Checkpoints, logs and the printed lines come from
+global rank 0 alone (data rank 0 and model rank 0); the feature cache is
+built by rank 0's model group together and written by rank 0.
+
 Every image batch is cropped on the host to multiples of the patch size
 (``data/io.crop_to_patches``, from the bottom and the right, so the
 intrinsics hold) before it reaches the backbone: in the train step, both
@@ -38,6 +52,7 @@ import torch
 from .. import parallel
 from ..data.io import crop_to_patches
 from ..evaluation.pose_io import precision_recall
+from ..nn.dinov2 import VIT_CONFIGS
 from ..training.checkpoint import (
     convert_dinov2_state_dict,
     load_torch_state_dict,
@@ -74,13 +89,17 @@ class MicKeyTrainer:
     Turns TF32 off process-wide, as ``models.build_model`` does: the
     matcher's fp32 correlation stands in for the reference's
     Precision.HIGHEST product. ``dp``: this rank of a data-parallel group
-    (module docstring); ``device`` is then the rank's."""
+    (module docstring); ``device`` is then the rank's. ``tp``: this rank of
+    a model group that splits the backbone (module docstring)."""
 
     def __init__(self, cfg, params=None, seed: int = 0, device="cuda", dinov2_path: Optional[str] = None,
-                 out_dir: str = "weights/mickey_tpu_torch", dp: Optional[parallel.DataParallel] = None):
+                 out_dir: str = "weights/mickey_tpu_torch", dp: Optional[parallel.DataParallel] = None,
+                 tp: Optional[parallel.TensorParallel] = None):
         self.cfg = cfg
         self.out_dir = out_dir
         self.dp = dp if dp is not None else parallel.world()
+        self.tp = tp if tp is not None else parallel.tensor_parallel()
+        self.main = self.dp.rank == 0 and self.tp.rank == 0  # global rank 0 under a grid
         self.device = torch.device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -90,18 +109,6 @@ class MicKeyTrainer:
                 path = resolve_dinov2_weights(dinov2_path)
                 if path:
                     params["dinov2"] = convert_dinov2_state_dict(load_torch_state_dict(path))
-        # the frozen backbone is never quantized here: MICKEY.DINOV2.INT8
-        # selects nothing in training, as in mickey_tpu's trainer
-        self.state, self.backbone = init_train_state(cfg, params_to_torch(params, cfg, self.device))
-        self.dp.broadcast_([t for _, t in tree_leaves(self.state.params)] + [t for _, t in tree_leaves(self.backbone)])
-        self.train_step = StagedTrainStep(cfg)
-        self.val_step = ValStep(cfg)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self._lr_fn = make_lr_fn(cfg)
-        # validation reuses each scene keyframe's features (frame key -> map)
-        self._cached_val = bool(cfg.TPU.get("CACHED_VAL", True))
-        self._val_kf_cache: Dict[str, torch.Tensor] = {}
-
         # frozen-backbone feature cache: opened or built in fit(), which has
         # the dataset; a configuration that cannot use one fails here
         self.feature_cache = None
@@ -112,6 +119,30 @@ class MicKeyTrainer:
             from ..training.feature_cache import check_cfg_cacheable
 
             check_cfg_cacheable(cfg)
+
+        # the frozen backbone is never quantized here: MICKEY.DINOV2.INT8
+        # selects nothing in training, as in mickey_tpu's trainer
+        self.state, backbone = init_train_state(cfg, params_to_torch(params, cfg, self.device))
+        # global rank 0's state everywhere: over the data group, then the model group
+        tensors = [t for _, t in tree_leaves(self.state.params)] + [t for _, t in tree_leaves(backbone)]
+        self.dp.broadcast_(tensors)
+        self.tp.broadcast_(tensors)
+        # a cache's fingerprint is the whole backbone's, whatever the rank holds
+        self._fingerprint = None
+        if self._cache_path and self.tp.size > 1:
+            from ..training.feature_cache import backbone_fingerprint
+
+            self._fingerprint = backbone_fingerprint(backbone)
+        variant = cfg.MICKEY.DINOV2.get("VARIANT", "vit_large")
+        self.backbone = parallel.shard_backbone(self.tp, backbone, VIT_CONFIGS[variant]["num_heads"])
+        del backbone, tensors
+        self.train_step = StagedTrainStep(cfg, self.tp)
+        self.val_step = ValStep(cfg, self.tp)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self._lr_fn = make_lr_fn(cfg)
+        # validation reuses each scene keyframe's features (frame key -> map)
+        self._cached_val = bool(cfg.TPU.get("CACHED_VAL", True))
+        self._val_kf_cache: Dict[str, torch.Tensor] = {}
 
         cl = cfg.LOSS_CLASS.CURRICULUM_LEARNING
         self.curriculum = bool(cl.TRAIN_CURRICULUM)
@@ -124,7 +155,7 @@ class MicKeyTrainer:
 
     # -- logging ------------------------------------------------------------
     def _get_writer(self):
-        if self.writer is None and self.dp.rank != 0:
+        if self.writer is None and not self.main:
             self.writer = False
         if self.writer is None:
             try:
@@ -292,8 +323,8 @@ class MicKeyTrainer:
     def maybe_checkpoint(self, val_metrics: Dict[str, float], epoch: int):
         """best_vcre / best_pose when their AUC improves (parameters only),
         and last every epoch with the optimizer state. Every rank tracks the
-        best AUCs; rank 0 alone writes."""
-        write = self.dp.rank == 0
+        best AUCs; global rank 0 alone writes."""
+        write = self.main
         params_host = params_to_numpy(self.state.params) if write else None
         extra = {"topk": self.topk, "epoch": epoch}
         for key, metric, name in (("auc_vcre", "val_vcre/auc_vcre", "best_vcre"),
@@ -350,7 +381,7 @@ class MicKeyTrainer:
         db = {k: v[:1] for k, v in self.device_batch(batch).items()}
         with torch.no_grad():
             params = dict(self.state.params, dinov2=self.backbone)
-            corr, _ = compute_correspondences(params, db["image0"], db["image1"], self.cfg, train=False)
+            corr, _ = compute_correspondences(params, db["image0"], db["image1"], self.cfg, train=False, tp=self.tp)
             fs = corr.final_scores
             rows, cols, msc = mutual_matches_device(fs[0])
             Rgt, tgt = batch_pose(db)
@@ -387,23 +418,39 @@ class MicKeyTrainer:
     def open_feature_cache(self, dataset):
         """The configured feature cache, its fingerprint and dtype checked
         against this backbone and FEATURE_CACHE_DTYPE; built over ``dataset``
-        first where there is none, in passes of the train step's 2B frames."""
+        first where there is none, in passes of the train step's 2B frames.
+        Data rank 0 builds (under tensor parallelism all of global rank 0's
+        model group, which the passes need, global rank 0 writing) while the
+        other data ranks wait."""
         from ..training.feature_cache import FeatureCache, build_feature_cache
 
         cache_dtype = str(self.cfg.TPU.get("FEATURE_CACHE_DTYPE", "bfloat16"))
-        if self.dp.rank != 0:  # rank 0 builds the cache where there is none
+
+        def opened():
+            return FeatureCache(self._cache_path, backbone=self.backbone, expect_dtype=cache_dtype,
+                                fingerprint=self._fingerprint)
+
+        builder = self.dp.rank == 0
+        if not builder:  # data rank 0 builds the cache where there is none
             self.dp.barrier()
-        if FeatureCache.exists(self._cache_path):
-            cache = FeatureCache(self._cache_path, backbone=self.backbone, expect_dtype=cache_dtype)
-            if self.dp.rank == 0:
+        # one branch for the whole model group: its peers run the passes together
+        exists = self.tp.broadcast_object(FeatureCache.exists(self._cache_path))
+        if exists:
+            cache = opened()
+            if builder:
                 self.dp.barrier()
             return cache
-        if self.dp.rank != 0:
+        if not builder:
             raise FileNotFoundError(f"rank 0 left no feature cache at {self._cache_path}")
-        print(f"building feature cache at {self._cache_path}", flush=True)
+        if self.main:
+            print(f"building feature cache at {self._cache_path}", flush=True)
         cache = build_feature_cache(self.cfg, self.backbone, dataset, self._cache_path,
                                     batch_size=2 * int(self.cfg.TRAINING.BATCH_SIZE), dtype=cache_dtype,
-                                    log=lambda m: print(m, flush=True))
+                                    log=(lambda m: print(m, flush=True)) if self.main else None, tp=self.tp,
+                                    fingerprint=self._fingerprint, write=self.main)
+        self.tp.barrier()  # global rank 0 has written it
+        if cache is None:
+            cache = opened()
         self.dp.barrier()
         return cache
 
@@ -421,7 +468,7 @@ class MicKeyTrainer:
         val_loader = datamodule.val_dataloader()
         if self.dp.size > 1:  # each rank reads its rows of every global batch
             train_loader.shard = val_loader.shard = (self.dp.rank, self.dp.size)
-        main = self.dp.rank == 0
+        main = self.main
         if self._cache_path:
             if self.feature_cache is None:
                 self.feature_cache = self.open_feature_cache(train_loader.dataset)

@@ -13,6 +13,17 @@ on the head-major packed qkv (``packed=True``, the default) or through
 both pick their kernel by the dtype (bf16: K1 / K1b, fp32: K1f).
 The sequence (1939 tokens for ViT-L at 714x532) is not padded: the attention
 kernels mask their own ragged tile.
+
+Tensor parallelism (``tp``, a ``parallel.TensorParallel`` of size > 1, on
+the rank's tree from ``parallel.shard_backbone``): Megatron's pattern, as
+``mickey_tpu``'s ``_block_apply`` on a (data, model) mesh. qkv is the rank's
+column shard, so its output is the packed (B, S, 3C/tp) array of the rank's
+num_heads / tp whole heads, which the attention kernels take unchanged;
+proj is the rank's row shard, applied without its bias, its partial sums
+summed over the model group in the compute dtype and the bias added after;
+fc1 and fc2 likewise. LayerNorm, LayerScale, the embeddings and SwiGLU's
+``w12`` / ``w3`` are whole on every rank, so every rank ends with the same
+tokens.
 """
 
 from __future__ import annotations
@@ -83,29 +94,54 @@ def interpolate_pos_encoding(pos_embed: torch.Tensor, h0: int, w0: int) -> torch
     return torch.cat([pos_embed[:, :1], out.to(pos_embed.dtype)], dim=1)
 
 
-def block_apply(x: torch.Tensor, bp, num_heads: int, packed: bool = True) -> torch.Tensor:
-    """One pre-norm ViT block with LayerScale; x (B, S, C) in the compute dtype."""
+def _tp_size(tp) -> int:
+    return 1 if tp is None else tp.size
+
+
+def row_parallel_linear(p, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel linear: the rank's partial product, summed over the
+    model group in x's dtype, then the whole bias. With no tensor
+    parallelism the plain (or int8) linear."""
+    if _tp_size(tp) == 1:
+        return maybe_linear(p, x)
+    if "w_q" in p:
+        raise ValueError("tensor parallelism does not split an int8 backbone")
+    out = tp.all_reduce_sum_(F.linear(x, p["w"].to(x.dtype)))
+    return out if p.get("b") is None else out + p["b"].to(x.dtype)
+
+
+def block_apply(x: torch.Tensor, bp, num_heads: int, packed: bool = True, tp=None) -> torch.Tensor:
+    """One pre-norm ViT block with LayerScale; x (B, S, C) in the compute
+    dtype. ``tp``: the model group whose rank's shard ``bp`` is (module
+    docstring), or None."""
+    if num_heads % _tp_size(tp):
+        raise ValueError(f"tensor-parallel size {_tp_size(tp)} must divide num_heads={num_heads}")
+    heads = num_heads // _tp_size(tp)
     h = layernorm(bp["norm1"], x.float(), eps=1e-6).to(x.dtype)
-    qkv = maybe_linear(bp["attn"]["qkv"], h)  # (B, S, 3C), head-major columns, in x's dtype under int8 too
+    qkv = maybe_linear(bp["attn"]["qkv"], h)  # (B, S, 3C / tp), head-major columns, in x's dtype under int8 too
+    if qkv.shape[-1] * _tp_size(tp) != 3 * x.shape[-1]:
+        raise ValueError(f"qkv gives {qkv.shape[-1]} columns for width {x.shape[-1]} at tp={_tp_size(tp)}: "
+                         "the block is not this rank's shard (parallel.shard_backbone)")
     if packed:
-        attn = flash_attention_packed(qkv, num_heads)
+        attn = flash_attention_packed(qkv, heads)
     else:
         b, s, c3 = qkv.shape
-        attn = flash_attention(*qkv_heads(qkv, num_heads), s).transpose(1, 2).reshape(b, s, c3 // 3)
-    x = x + bp["ls1"]["gamma"].to(x.dtype) * maybe_linear(bp["attn"]["proj"], attn)
+        attn = flash_attention(*qkv_heads(qkv, heads), s).transpose(1, 2).reshape(b, s, c3 // 3)
+    x = x + bp["ls1"]["gamma"].to(x.dtype) * row_parallel_linear(bp["attn"]["proj"], attn, tp)
     h = layernorm(bp["norm2"], x.float(), eps=1e-6).to(x.dtype)
     mlp = bp["mlp"]
     if "fc1" in mlp:
-        h = maybe_linear(mlp["fc2"], F.gelu(maybe_linear(mlp["fc1"], h), approximate="none"))
-    else:  # SwiGLU (swiglu_ffn.py:29-33)
+        h = row_parallel_linear(mlp["fc2"], F.gelu(maybe_linear(mlp["fc1"], h), approximate="none"), tp)
+    else:  # SwiGLU (swiglu_ffn.py:29-33), whole on every rank
         h1, h2 = maybe_linear(mlp["w12"], h).chunk(2, dim=-1)
         h = maybe_linear(mlp["w3"], F.silu(h1) * h2)
     return x + bp["ls2"]["gamma"].to(x.dtype) * h
 
 
 def vit_forward_features(params, images: torch.Tensor, num_heads: int, patch_size: int = 14,
-                         dtype: torch.dtype = torch.bfloat16, packed: bool = True) -> torch.Tensor:
-    """images (B, H, W, 3) in [0, 1] -> patch tokens (B, H/14 * W/14, C), fp32."""
+                         dtype: torch.dtype = torch.bfloat16, packed: bool = True, tp=None) -> torch.Tensor:
+    """images (B, H, W, 3) in [0, 1] -> patch tokens (B, H/14 * W/14, C), fp32;
+    ``tp`` as ``block_apply``'s."""
     b, h, w, c_in = images.shape
     h0, w0 = h // patch_size, w // patch_size
     x = images.to(dtype).reshape(b, h0, patch_size, w0, patch_size, c_in)
@@ -115,14 +151,14 @@ def vit_forward_features(params, images: torch.Tensor, num_heads: int, patch_siz
     x = torch.cat([cls, x], dim=1)
     x = x + interpolate_pos_encoding(params["pos_embed"], h0, w0).to(dtype)
     for bp in params["blocks"]:
-        x = block_apply(x, bp, num_heads, packed)
+        x = block_apply(x, bp, num_heads, packed, tp)
     x = layernorm(params["norm"], x.float(), eps=1e-6)
     return x[:, 1:]
 
 
 def vit_features_chw(params, images_nhwc: torch.Tensor, num_heads: int, patch_size: int = 14,
-                     dtype: torch.dtype = torch.bfloat16, packed: bool = True) -> torch.Tensor:
+                     dtype: torch.dtype = torch.bfloat16, packed: bool = True, tp=None) -> torch.Tensor:
     """Patch tokens as a (B, H/14, W/14, C) fp32 feature map."""
     b, h, w, _ = images_nhwc.shape
-    toks = vit_forward_features(params, images_nhwc, num_heads, patch_size, dtype, packed)
+    toks = vit_forward_features(params, images_nhwc, num_heads, patch_size, dtype, packed, tp)
     return toks.reshape(b, h // patch_size, w // patch_size, -1)

@@ -21,8 +21,10 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     return images
 
 
-def backbone_features(params, images: torch.Tensor, cfg) -> torch.Tensor:
-    """Frozen DINOv2 feature map (B, H/df, W/df, C), fp32."""
+def backbone_features(params, images: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """Frozen DINOv2 feature map (B, H/df, W/df, C), fp32. ``tp``: the model
+    group whose rank's shard ``params["dinov2"]`` is
+    (``parallel.shard_backbone``), or None."""
     images = normalize_images(images)
     df = cfg.MICKEY.DINOV2.DOWN_FACTOR
     _, h, w, _ = images.shape
@@ -31,7 +33,7 @@ def backbone_features(params, images: torch.Tensor, cfg) -> torch.Tensor:
     variant = cfg.MICKEY.DINOV2.get("VARIANT", "vit_large")
     return vit_features_chw(params["dinov2"], images, VIT_CONFIGS[variant]["num_heads"], patch_size=df,
                             dtype=torch.bfloat16 if cfg.MICKEY.DINOV2.FLOAT16 else torch.float32,
-                            packed=bool(cfg.TPU.get("PACKED_ATTENTION", True)))
+                            packed=bool(cfg.TPU.get("PACKED_ATTENTION", True)), tp=tp)
 
 
 def heads_apply(params, fmap: torch.Tensor, cfg, train: bool = False):
@@ -137,9 +139,10 @@ def correspondences_from_heads(params, feats, cfg, train: bool = False) -> Corre
                            depth_map0=d0, depth_map1=d1)
 
 
-def compute_correspondences(params, image0, image1, cfg, train: bool = False, fmap=None):
+def compute_correspondences(params, image0, image1, cfg, train: bool = False, fmap=None, tp=None):
     """Both images through backbone and heads as one stacked 2B batch, then
-    the dense matcher. Returns (Correspondences, new_params).
+    the dense matcher. Returns (Correspondences, new_params). ``tp`` as
+    ``backbone_features``'.
 
     ``fmap``: an optional precomputed (2B, H/df, W/df, C) backbone feature map,
     image0 rows first; the images are then unused and may be None. The
@@ -148,7 +151,7 @@ def compute_correspondences(params, image0, image1, cfg, train: bool = False, fm
     package."""
     if fmap is None:
         with torch.no_grad():
-            fmap = backbone_features(params, torch.cat([image0, image1], dim=0), cfg)
+            fmap = backbone_features(params, torch.cat([image0, image1], dim=0), cfg, tp)
     feats, new_params = heads_apply(params, fmap.float(), cfg, train)
     return correspondences_from_heads(params, feats, cfg, train), new_params
 

@@ -33,8 +33,21 @@ the CPU) or ``launch(fn, world)``, which builds the native libraries once
 and spawns ``world`` ranks (NCCL, a card a rank, where there are cards) in
 fresh processes that import only torch, the port and ``fn``'s module.
 
-Not ported: the tensor-parallel backbone (``get_mesh_2d``,
-``vit_tp_shardings``).
+Tensor parallelism (``get_mesh_2d``, ``vit_tp_shardings``,
+``shard_backbone``): ``init_grid(tp)`` splits the world into a (data,
+model) grid as JAX's ``reshape(dp, tp)`` of the devices does. Global rank r
+is data index r // tp and model index r % tp, so a model group is tp
+consecutive ranks and a data group every tp-th rank. ``world()`` is then
+the rank's data group, whose collectives (BatchNorm's sums, the loss's
+reductions, the gradient sum) run on that group alone: the tp ranks of a
+model group hold the same rows, and a sum over the world would count them
+tp times. ``tensor_parallel()`` is the rank's ``TensorParallel``. The
+frozen DINOv2 is Megatron-sharded over it (``shard_backbone``, the dims in
+``vit_tp_split``): each rank keeps its column shard of qkv and fc1 (whole
+heads: the qkv columns are head-major) and its row shard of proj and fc2,
+and ``nn/dinov2.block_apply`` sums the row-parallel partials over the model
+group before adding the bias. The trainable heads and matcher stay
+replicated. Without a grid nothing of this acts.
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ import time
 import traceback
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,13 +71,15 @@ import torch.distributed as dist
 
 @dataclass(frozen=True)
 class DataParallel:
-    """One rank of a data-parallel group: ``rank`` of ``size`` processes,
-    this rank's ``device``. ``size == 1`` is the single process, in which
-    every collective below is the identity."""
+    """One rank of a process group, on either axis of the grid: ``rank`` of
+    ``size`` processes, this rank's ``device``, the process ``group`` (None:
+    the default one, the whole world). ``size == 1`` is the single process,
+    in which every collective below is the identity."""
 
     rank: int = 0
     size: int = 1
     device: torch.device = torch.device("cpu")
+    group: Any = None
 
     def rows(self, n: int) -> slice:
         """This rank's contiguous rows of a global batch of ``n`` (a multiple
@@ -83,7 +98,7 @@ class DataParallel:
         if self.size == 1:
             return x
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous())
+        dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=0)
 
     def all_gather_objects(self, obj) -> List[Any]:
@@ -91,7 +106,7 @@ class DataParallel:
         if self.size == 1:
             return [obj]
         out = [None] * self.size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +114,7 @@ class DataParallel:
         if self.size == 1:
             return x
         out = x.detach().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.group)
         return out
 
     def all_reduce_(self, tensors: Sequence[torch.Tensor]) -> None:
@@ -107,32 +122,45 @@ class DataParallel:
         per dtype (the gradient leaves: one collective, not one a leaf)."""
         if self.size == 1:
             return
-        for group in _by_dtype(tensors).values():
-            flat = torch.cat([t.reshape(-1) for t in group])
-            dist.all_reduce(flat)
-            _unflatten_into(flat, group)
+        for same in _by_dtype(tensors).values():
+            flat = torch.cat([t.reshape(-1) for t in same])
+            dist.all_reduce(flat, group=self.group)
+            _unflatten_into(flat, same)
+
+    def all_reduce_sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the ranks in place, in its own dtype and without
+        autograd (the row-parallel partials of the frozen backbone); returns
+        ``x``."""
+        if self.size > 1:
+            with torch.no_grad():
+                dist.all_reduce(x, group=self.group)
+        return x
+
+    def _src(self) -> int:
+        """The global rank of the group's rank 0."""
+        return 0 if self.group is None else dist.get_global_rank(self.group, 0)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Overwrite each tensor with rank 0's, in place, through one flat
         buffer per dtype."""
         if self.size == 1:
             return
-        for group in _by_dtype(tensors).values():
-            flat = torch.cat([t.reshape(-1) for t in group])
-            dist.broadcast(flat, src=0)
-            _unflatten_into(flat, group)
+        for same in _by_dtype(tensors).values():
+            flat = torch.cat([t.reshape(-1) for t in same])
+            dist.broadcast(flat, src=self._src(), group=self.group)
+            _unflatten_into(flat, same)
 
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` on every rank."""
         if self.size == 1:
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=0)
+        dist.broadcast_object_list(box, src=self._src(), group=self.group)
         return box[0]
 
     def barrier(self) -> None:
         if self.size > 1:
-            dist.barrier(device_ids=[self.device.index] if _backend() == "nccl" else None)
+            dist.barrier(group=self.group, device_ids=[self.device.index] if _backend() == "nccl" else None)
 
     def fold(self, generator: torch.Generator) -> torch.Generator:
         """A generator on ``generator``'s device seeded from its state and
@@ -141,6 +169,13 @@ class DataParallel:
         state = generator.get_state().numpy().tobytes()
         seed = int.from_bytes(hashlib.sha256(state + self.rank.to_bytes(4, "little")).digest()[:8], "little")
         return torch.Generator(device=generator.device).manual_seed(seed & ((1 << 63) - 1))
+
+
+# One rank of a model (tensor-parallel) group: the ranks that hold the same
+# rows and split the frozen backbone's block linears (``shard_backbone``),
+# whose one collective is ``all_reduce_sum_``. ``size == 1`` is no tensor
+# parallelism.
+TensorParallel = DataParallel
 
 
 def _by_dtype(tensors) -> Dict[torch.dtype, List[torch.Tensor]]:
@@ -163,16 +198,26 @@ def _backend() -> Optional[str]:
 
 
 def world() -> DataParallel:
-    """This process's place in the default process group, or the single
-    process where there is none."""
+    """This process's data-parallel group: its data group where
+    ``init_grid`` made a grid, else its place in the default process group,
+    or the single process where there is none."""
     if _backend() is None:
         return DataParallel()
+    if _grid is not None:
+        return _grid[0]
     return DataParallel(dist.get_rank(), dist.get_world_size(), _device)
 
 
-# the device init_data_parallel chose for this process's rank (the process
-# group it joined is process-wide too)
+def tensor_parallel() -> TensorParallel:
+    """This process's model group where ``init_grid`` made a grid, else no
+    tensor parallelism."""
+    return _grid[1] if _backend() is not None and _grid is not None else TensorParallel()
+
+
+# the device init_data_parallel chose for this process's rank, and the grid
+# init_grid made (the process group it joined is process-wide too)
 _device = torch.device("cpu")
+_grid: Optional[Tuple[DataParallel, TensorParallel]] = None
 
 
 def init_data_parallel(backend: Optional[str] = None, device=None, init_method: str = "env://",
@@ -216,6 +261,29 @@ def init_data_parallel(backend: Optional[str] = None, device=None, init_method: 
     return world()
 
 
+def init_grid(tp: int, **join) -> Tuple[DataParallel, TensorParallel]:
+    """Split the world into a (data, model) grid of ``world // tp`` data
+    groups of ``tp`` ranks (``mickey_tpu``'s ``get_mesh_2d(tp)``): global
+    rank r is data index r // tp and model index r % tp. Joins the default
+    group first where this process has none (``join`` as
+    ``init_data_parallel``'s arguments). Every rank creates every group, in
+    one order, as ``torch.distributed.new_group`` requires. Returns this
+    rank's (data group, model group), which ``world()`` and
+    ``tensor_parallel()`` return from then on."""
+    global _grid
+    if _backend() is None:
+        init_data_parallel(**join)
+    size, rank = dist.get_world_size(), dist.get_rank()
+    if tp < 1 or size % tp:
+        raise ValueError(f"{size} ranks not divisible by tp={tp}")
+    dp = size // tp
+    data_groups = [dist.new_group([d * tp + m for d in range(dp)]) for m in range(tp)]
+    model_groups = [dist.new_group([d * tp + m for m in range(tp)]) for d in range(dp)]
+    d, m = divmod(rank, tp)
+    _grid = (DataParallel(d, dp, _device, data_groups[m]), TensorParallel(m, tp, _device, model_groups[d]))
+    return _grid
+
+
 def refuse_cpu_group(dp: DataParallel, asked_cpu: bool) -> None:
     """Raise where ``dp``'s group runs on the CPU of a machine with CUDA
     devices and the caller did not ask for the CPU: an entry point never
@@ -227,6 +295,9 @@ def refuse_cpu_group(dp: DataParallel, asked_cpu: bool) -> None:
 
 
 def close_data_parallel() -> None:
+    """Leave the default process group and every group of the grid."""
+    global _grid
+    _grid = None
     if _backend() is not None:
         dist.destroy_process_group()
 
@@ -292,40 +363,46 @@ def active() -> Optional[GlobalBatch]:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks whose backward sums the cotangents over the ranks:
-    every rank's loss depends on every rank's input through the sum."""
+    """Sum over a group's ranks whose backward sums the cotangents over
+    them: every rank's loss depends on every rank's input through the sum."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 def all_reduce_sum(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, with gradients (BatchNorm's sums)."""
-    return x if dp.size == 1 else _AllReduceSum.apply(x)
+    """The sum of ``x`` over ``dp``'s ranks, with gradients (BatchNorm's sums)."""
+    return x if dp.size == 1 else _AllReduceSum.apply(x, dp.group)
 
 
 # -- launching ranks ---------------------------------------------------------------------
 
 
 def _child(rank: int, world_size: int, backend: Optional[str], device, init_file: str, fn: Callable, args: tuple,
-           results) -> None:
-    """A spawned rank: join the group, run ``fn(*args)``, hand its result
-    (or its traceback) to the parent."""
+           results, tp: int = 1) -> None:
+    """A spawned rank: join the group (and the grid where ``tp`` > 1), run
+    ``fn(*args)``, hand its result (or its traceback) to the parent."""
     try:
         os.environ["LOCAL_RANK"] = str(rank)  # one host: the backend's default device is cuda:rank
         dp = init_data_parallel(backend, device, init_method=f"file://{init_file}", rank=rank,
                                 world_size=world_size, timeout_s=300.0)
         if dp.device.type == "cpu":
             torch.set_num_threads(1)  # ranks share the host's cores
+        if tp > 1:
+            init_grid(tp)
+        # every rank joined before any runs fn: a rank that returned and left the group at once
+        # would otherwise break the connection a slower peer was still making
+        DataParallel(rank, world_size, dp.device).barrier()
         try:
             out = fn(*args)
         finally:
@@ -357,7 +434,7 @@ def build_libraries_once(dp: DataParallel) -> None:
 
 
 def launch(fn: Callable, world_size: int, backend: Optional[str] = None, device=None, args: tuple = (),
-           timeout_s: float = 600.0) -> List[Any]:
+           timeout_s: float = 600.0, tp: int = 1) -> List[Any]:
     """Run ``fn(*args)`` on ``world_size`` ranks, each a fresh process
     (``spawn``) in one process group; returns their results in rank order.
 
@@ -369,11 +446,14 @@ def launch(fn: Callable, world_size: int, backend: Optional[str] = None, device=
     raise), and gloo on the CPU where there are none. ``backend="gloo"``
     runs the ranks on the CPU, or with a ``cuda:i`` ``device`` all on that
     one card. The native libraries are built here, once, before the ranks
-    start. Raises with the rank's traceback if a rank fails; a rank still
-    running after ``timeout_s`` is killed, with its peers, and the launch
-    raises."""
+    start. With ``tp`` > 1 each rank also makes the (data, model) grid
+    (``init_grid(tp)``) before it calls ``fn``. Raises with the rank's
+    traceback if a rank fails; a rank still running after ``timeout_s`` is
+    killed, with its peers, and the launch raises."""
     import torch.multiprocessing as mp
 
+    if tp < 1 or world_size % tp:
+        raise ValueError(f"{world_size} ranks not divisible by tp={tp}")
     on_cards = (torch.device(device).type == "cuda" if device is not None
                 else backend == "nccl" or (backend is None and torch.cuda.is_available()))
     build_libraries(on_cards)
@@ -382,7 +462,7 @@ def launch(fn: Callable, world_size: int, backend: Optional[str] = None, device=
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="mickey_dp_") as tmp:
         init_file = os.path.join(tmp, "rendezvous")
-        procs = [ctx.Process(target=_child, args=(r, world_size, backend, device, init_file, fn, args, results),
+        procs = [ctx.Process(target=_child, args=(r, world_size, backend, device, init_file, fn, args, results, tp),
                              daemon=True) for r in range(world_size)]
         for p in procs:
             p.start()
@@ -423,17 +503,81 @@ def launch(fn: Callable, world_size: int, backend: Optional[str] = None, device=
     return [got[r] for r in range(world_size)]
 
 
+# -- the tensor-parallel backbone --------------------------------------------------------
+
+# the port's block linears are (out, in): a column-parallel linear splits its
+# output rows (dim 0) and its bias, a row-parallel one its input columns
+# (dim 1) and keeps its bias whole
+_TP_DIMS = {"qkv": {"w": 0, "b": 0}, "proj": {"w": 1, "b": None}, "fc1": {"w": 0, "b": 0},
+            "fc2": {"w": 1, "b": None}}
+
+
+def vit_tp_split(backbone):
+    """The dim on which each leaf of the port's backbone tree is split over
+    the model group (None: kept whole), a tree of its structure
+    (``vit_tp_shardings``): qkv and fc1 weights and biases on dim 0, proj and
+    fc2 weights on dim 1 with their biases whole; LayerNorms, LayerScale,
+    the embeddings and SwiGLU's ``w12`` / ``w3`` whole."""
+
+    def walk(node, dims):
+        if isinstance(node, dict):
+            dims = dims if isinstance(dims, dict) else {}
+            return {k: walk(v, dims.get(k)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, dims) for v in node]
+        return dims if isinstance(dims, int) else None
+
+    return walk(backbone, {"blocks": {"attn": _TP_DIMS, "mlp": _TP_DIMS}})
+
+
+def shard_backbone(tp: Optional[TensorParallel], backbone, num_heads: int):
+    """This rank's tree of the frozen backbone under ``tp`` (``mickey_tpu``'s
+    ``shard_backbone``): every split leaf (``vit_tp_split``) replaced by a
+    contiguous copy of its ``tp.rank``-th of ``tp.size`` slices, so that its
+    storage shrinks by the factor; the whole leaves shared. The qkv rows are
+    head-major (``ops/flash_attention.py``), so a slice is whole heads.
+    ``backbone`` itself is left as it was. With no tensor parallelism it is
+    returned. Raises ValueError where ``tp.size`` does not divide
+    ``num_heads`` and on an int8 tree, whose quantized leaves no split
+    covers."""
+    if tp is None or tp.size == 1:
+        return backbone
+    if any("w_q" in lin for bp in backbone["blocks"] for part in ("attn", "mlp") for lin in bp[part].values()):
+        raise ValueError("tensor parallelism does not split an int8 backbone (MICKEY.DINOV2.INT8): shard the "
+                         "unquantized tree")
+    if num_heads % tp.size:
+        raise ValueError(f"tensor-parallel size {tp.size} must divide num_heads={num_heads}")
+
+    def cut(t, dim):
+        if dim is None:
+            return t
+        n = t.shape[dim] // tp.size
+        return t.narrow(dim, tp.rank * n, n).clone(memory_format=torch.contiguous_format)
+
+    def walk(node, dims):
+        if isinstance(node, dict):
+            return {k: walk(v, dims[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, d) for v, d in zip(node, dims)]
+        return cut(node, dims)
+
+    with torch.no_grad():
+        return walk(backbone, vit_tp_split(backbone))
+
+
 def data_parallel_steps(cfg, batch: Dict, steps: int = 1, seed: int = 0, sample_override=None, params=None,
-                        device="cuda") -> Dict:
+                        device="cuda", tp: Optional[TensorParallel] = None) -> Dict:
     """``steps`` staged steps of a ``MicKeyTrainer`` on one global ``batch``
     (arrays whose pairs split evenly over the ranks) in this process's
     data-parallel group, each rank on its rows: the entry ``launch`` runs on
     each rank to hold N ranks against one process, which calls it alone
     (``chip_smoke.py --ddp``). The loss draws are the rows of the global
-    ``sample_override`` (idx, ridx), or the trainer's generator's. Under a
-    group of N > 1 the model runs on the rank's device, else on ``device``.
-    Returns the trainables and Adam's moments after the first step
-    (``first``) and the trainables after the last (numpy trees,
+    ``sample_override`` (idx, ridx), or the trainer's generator's. ``tp``:
+    the model group whose ranks split the backbone (by default this
+    process's, ``tensor_parallel()``; the rows are the data group's). Under
+    a group of N > 1 ranks the model runs on the rank's device, else on
+    ``device``. Returns the trainables and Adam's moments after the first
+    step (``first``) and the trainables after the last (numpy trees,
     ``mickey_tpu``'s layout), each step's metrics, its seconds on the host
     clock (the device synchronized) and the kernels launched."""
     from .models.training_model import MicKeyTrainer
@@ -442,7 +586,9 @@ def data_parallel_steps(cfg, batch: Dict, steps: int = 1, seed: int = 0, sample_
 
     before = dict(_cuda.LAUNCHES)
     dp = world()
-    tr = MicKeyTrainer(cfg, params=params, seed=seed, device=dp.device if dp.size > 1 else device, dp=dp)
+    tp = tensor_parallel() if tp is None else tp
+    grouped = dp.size > 1 or tp.size > 1
+    tr = MicKeyTrainer(cfg, params=params, seed=seed, device=dp.device if grouped else device, dp=dp, tp=tp)
     rows = dp.rows(len(batch["T_0to1"]))
     local = {k: torch.as_tensor(v)[rows] for k, v in batch.items()}
     override = None if sample_override is None else tuple(torch.as_tensor(x)[rows].to(tr.device)

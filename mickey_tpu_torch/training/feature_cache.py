@@ -39,7 +39,7 @@ from __future__ import annotations
 import hashlib
 import json
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,12 +115,11 @@ def backbone_fingerprint(backbone) -> dict:
     }
 
 
-def _check_fingerprint(meta: dict, backbone) -> None:
+def _check_fingerprint(meta: dict, got: dict) -> None:
     want = meta.get("fingerprint")
     if not want:  # a cache directory from before fingerprints
         raise ValueError("feature cache has no backbone fingerprint (built by an older version) — rebuild it "
                          "(delete the directory)")
-    got = backbone_fingerprint(backbone)
     sig_rel = abs(got["param_sig"] - want["param_sig"]) / max(1.0, abs(want["param_sig"]))
     if got["shape_sig"] != want["shape_sig"] or got["n_leaves"] != want["n_leaves"] or sig_rel > 1e-4:
         raise ValueError(
@@ -169,13 +168,18 @@ class FeatureCache:
 
     ``backbone``: the live backbone (the port's tensors), to validate the
     stored fingerprint; a cache built from other weights would silently be
-    wrong training data. ``expect_dtype``: raise if the stored dtype differs."""
+    wrong training data. ``fingerprint``: the backbone's
+    ``backbone_fingerprint``, in place of ``backbone`` (a tensor-parallel
+    rank holds only its shard, and the fingerprint is the whole backbone's).
+    ``expect_dtype``: raise if the stored dtype differs."""
 
-    def __init__(self, root, backbone=None, expect_dtype: str = ""):
+    def __init__(self, root, backbone=None, expect_dtype: str = "", fingerprint: Optional[dict] = None):
         self.root = Path(root)
         meta = json.loads((self.root / _META).read_text())
-        if backbone is not None:
-            _check_fingerprint(meta, backbone)
+        if fingerprint is None and backbone is not None:
+            fingerprint = backbone_fingerprint(backbone)
+        if fingerprint is not None:
+            _check_fingerprint(meta, fingerprint)
         if expect_dtype and meta["dtype"] != expect_dtype:
             raise ValueError(
                 f"feature cache at {root} stores {meta['dtype']} but {expect_dtype} was requested "
@@ -231,12 +235,20 @@ def _frame_images(scenes: Dict[str, object], chunk, cfg) -> np.ndarray:
 
 
 def build_feature_cache(cfg, backbone, dataset, root, batch_size: int = 8, dtype: str = "bfloat16",
-                        log=None) -> FeatureCache:
+                        log=None, tp=None, fingerprint: Optional[dict] = None,
+                        write: bool = True) -> Optional[FeatureCache]:
     """Run the frozen backbone over every unique frame of ``dataset`` and
     write the cache directory. ``backbone``: the port's backbone tensors, on
     the device the pass runs on. Every pass takes ``batch_size`` frames (the
     last padded by repeating its last frame): with the train step's 2B, a
-    row is bitwise the train step's map of that frame."""
+    row is bitwise the train step's map of that frame.
+
+    Tensor parallelism (``mickey_tpu``'s ``mesh=``): ``tp`` is the model
+    group whose rank's shard ``backbone`` is; every rank of the group runs
+    every pass, and only the one with ``write`` writes the directory (the
+    others return None). ``fingerprint``: the whole backbone's
+    ``backbone_fingerprint``, which a shard cannot give; by default
+    ``backbone``'s."""
     from ..nn.extractor import backbone_features
 
     check_cfg_cacheable(cfg)
@@ -249,7 +261,8 @@ def build_feature_cache(cfg, backbone, dataset, root, batch_size: int = 8, dtype
     device = next(t for t in backbone.values() if torch.is_tensor(t)).device
 
     root = Path(root)
-    root.mkdir(parents=True, exist_ok=True)
+    if write:
+        root.mkdir(parents=True, exist_ok=True)
     mm = None
     index: Dict[str, int] = {}
     n = len(frames)
@@ -259,7 +272,9 @@ def build_feature_cache(cfg, backbone, dataset, root, batch_size: int = 8, dtype
         if len(imgs) < batch_size:  # pad the tail to the pass's batch
             imgs = np.concatenate([imgs, np.repeat(imgs[-1:], batch_size - len(imgs), axis=0)])
         with torch.no_grad():
-            fmap = backbone_features({"dinov2": backbone}, torch.from_numpy(imgs).to(device), cfg)
+            fmap = backbone_features({"dinov2": backbone}, torch.from_numpy(imgs).to(device), cfg, tp)
+        if not write:
+            continue
         rows = to_storage(fmap[: len(chunk)], dtype)
         if mm is None:
             mm = np.memmap(root / _DATA, dtype=store, mode="w+", shape=(n, *rows.shape[1:]))
@@ -268,12 +283,14 @@ def build_feature_cache(cfg, backbone, dataset, root, batch_size: int = 8, dtype
         mm[start : start + len(chunk)] = rows
         if log:
             log(f"feature cache: {min(start + batch_size, n)}/{n} frames")
+    if not write:
+        return None
     mm.flush()
     (root / _META).write_text(json.dumps({
         "dtype": dtype,
         "fmap_shape": list(mm.shape[1:]),
         "keys": index,
-        "fingerprint": backbone_fingerprint(backbone),
+        "fingerprint": backbone_fingerprint(backbone) if fingerprint is None else fingerprint,
     }))
     del mm
     return FeatureCache(root)

@@ -41,6 +41,13 @@ same update and ``grad_norm`` is the global gradient's. Validation inside it
 takes the global loss metrics and draws; its per-pair outputs are this
 rank's rows.
 
+Tensor parallelism (``parallel.init_grid``): both steps take the model
+group (``tp``), the counterpart of ``make_staged_train_step(cfg,
+mesh=tp_mesh)`` and ``make_staged_val_step``; their backbone passes then run
+the rank's shard of the backbone (``parallel.shard_backbone``), whose
+partial sums the group adds, and every rank of the group gets the same
+feature map. Everything after the backbone is replicated over the group.
+
 Validation (``ValStep``) runs the heads in eval mode (BatchNorm running
 stats read, never moved), the loss metrics at topk 100, the dense solver
 over the whole N0 x N1 matrix (prefilter 0, as the JAX package's validation
@@ -238,16 +245,18 @@ def deterministic_backward():
 
 class StagedTrainStep:
     """``step(state, backbone, batch, generator, topk_pct)`` -> (state, metrics);
-    ``grad_step`` takes a precomputed feature map instead of the backbone."""
+    ``grad_step`` takes a precomputed feature map instead of the backbone.
+    ``tp``: the model group whose rank's shard ``backbone`` is, or None."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp: Optional[parallel.TensorParallel] = None):
         self.cfg = cfg
+        self.tp = tp
         self.lc = LossConfig.from_cfg(cfg)
         self.optimizer = Optimizer(cfg)
 
     def backbone_fwd(self, backbone, image0, image1) -> torch.Tensor:
         with torch.no_grad():
-            return backbone_features({"dinov2": backbone}, torch.cat([image0, image1], dim=0), self.cfg)
+            return backbone_features({"dinov2": backbone}, torch.cat([image0, image1], dim=0), self.cfg, self.tp)
 
     def grad_step(self, state: TrainState, fmap, batch, generator=None, topk_pct: float = 100.0,
                   sample_override=None):
@@ -317,16 +326,18 @@ class ValStep:
     """Validation (module docstring). ``backbone_fwd(backbone, images)`` ->
     (n, Hp, Wp, C) in ``val_fmap_dtype``; ``tail(trainable, fmap, batch, ...)``
     on a stacked (2B, Hp, Wp, C) map, image0 rows first;
-    ``step(trainable, backbone, batch, ...)`` the plain step on images."""
+    ``step(trainable, backbone, batch, ...)`` the plain step on images.
+    ``tp`` as ``StagedTrainStep``'s."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp: Optional[parallel.TensorParallel] = None):
         self.cfg = cfg
+        self.tp = tp
         self.lc = LossConfig.from_cfg(cfg)
         self.dtype = val_fmap_dtype(cfg)
 
     def backbone_fwd(self, backbone, images) -> torch.Tensor:
         with torch.no_grad():
-            return backbone_features({"dinov2": backbone}, images, self.cfg).to(self.dtype)
+            return backbone_features({"dinov2": backbone}, images, self.cfg, self.tp).to(self.dtype)
 
     def tail(self, trainable, fmap, batch, generator=None, sample_override=None, draws=None) -> dict:
         with torch.no_grad():

@@ -921,3 +921,84 @@ def test_bf16_checks_catch_a_wrong_kernel(monkeypatch):
     monkeypatch.setattr(fm, "col_lse", rounded)
     with pytest.raises(chip_smoke.SmokeError, match="col_lse_bf16"):
         chip_smoke.check_bf16_kernels(inp_b, tin_b, sizes=(70, 65))
+
+
+def test_tp_phase_rehearsal(monkeypatch, one_torch_thread):
+    """Phase 3i at a tiny size on the CPU: the ViT-S forward (12 blocks) on
+    two gloo ranks at tp = 2 in bf16 packed and unpacked and in fp32 against
+    one process (4 images of 126 x 140), each rank's half of the split
+    bytes; the dp 1 x tp 2 steps (B = 2, 2 steps, injected draws): with the
+    exact backbone against one process at phase 3g's tolerances, with the
+    bf16 backbone against one process fed the ranks' map, bit for bit; the
+    seeded weights made once and sent to the ranks, as the whole script
+    does. The launch counts are the card's: here each kernel's plain version
+    runs."""
+    checked = []
+    monkeypatch.setattr(chip_smoke, "_launched", lambda launches, path, needed, absent=(): checked.append(path))
+    monkeypatch.setattr(chip_smoke, "_attention_each_block", lambda launches, path, kernel, blocks:
+                        checked.append((path, kernel, blocks)))
+    cfg = _tiny_train_cfg()
+    res, launches, rank_launches = chip_smoke.run_tp_phase(cfg, torch.device("cpu"), pairs=2, height=126, width=140,
+                                                           runs=2, train_pairs=2, steps=2, launch_timeout=300,
+                                                           params=init_params_numpy(cfg, chip_smoke.SEED))
+    fwd = res["forward"]
+    assert fwd["fp32"]["max_rel"] <= chip_smoke.TP_F32_RTOL
+    for mode in ("bf16 packed", "bf16 unpacked"):
+        assert 0 < fwd[mode]["max_rel"] <= chip_smoke.TP_BF16_ENVELOPES * fwd[mode]["one_process_vs_fp32_max_rel"]
+    assert [2 * r["split"] for r in fwd["bytes"]["ranks"]] == [fwd["bytes"]["one_process"]["split"]] * 2
+    assert ("tp fp32, rank 1", "flash_attention_packed_f32", 12 * 2) in checked
+    assert ("tp bf16 unpacked, rank 0", "flash_attention", 12 * 2) in checked
+    assert {"tp step, one process", "tp step (dp 1 x tp 2), rank 0", "tp step (dp 1 x tp 2), rank 1",
+            "tp bf16 step (dp 1 x tp 2), rank 1", "tp bf16 step (dp 1 x tp 2), one process on the ranks' map"
+            } <= set(checked)
+    assert res["train"]["bn_rel"] <= chip_smoke.DDP_RTOL and res["train"]["moments_rel"] <= chip_smoke.GRAD_TOL
+    assert len(res["train_step_ms"]["ranks"]) == 2 and len(res["train_step_ms"]["one_process"]) == 2
+    bf16 = res["train_bf16"]
+    assert bf16["bitwise_one_process_on_the_ranks_map"] and 0 < bf16["map_max_rel_vs_own"] < 0.1
+    assert len(bf16["grad_norm_rel_vs_own"]) == 2 and all(0 <= g < float("inf") for g in bf16["grad_norm_rel_vs_own"])
+    assert set(launches) == {name for name, _, _ in chip_smoke.KERNELS + chip_smoke.BF16_KERNELS}
+    assert len(rank_launches) == 2 * len(chip_smoke.TP_MODES) + 2 + 2
+    assert "tp: ok" in chip_smoke.tp_line(res, "card")
+
+
+def test_tp_phase_catches_a_wrong_shard(monkeypatch, one_torch_thread):
+    """Ranks whose row-parallel linears add the whole bias on every rank
+    (the group's sum then holds it twice) fail the forward's check; so does
+    a rank that launched its attention kernel in fewer blocks than it ran."""
+    import test_torch_tensor_parallel_ranks as tp_ranks
+
+    monkeypatch.setattr(chip_smoke, "_attention_each_block", lambda *a: None)
+    with pytest.raises(chip_smoke.SmokeError, match="tp bf16 packed: map .* beyond"):
+        chip_smoke.run_tp_phase(_tiny_train_cfg(), torch.device("cpu"), pairs=2, height=126, width=140, runs=1,
+                                steps=0, launch_timeout=300, entry=tp_ranks.rank_features_with_bias_on_every_rank)
+    counts = {name: 0 for name, _, _ in chip_smoke.KERNELS + chip_smoke.BF16_KERNELS}
+    monkeypatch.undo()
+    chip_smoke._attention_each_block(dict(counts, flash_attention=48), "x", "flash_attention", 48)
+    for wrong in (dict(counts, flash_attention=47), dict(counts, flash_attention=48, flash_attention_packed=1)):
+        with pytest.raises(chip_smoke.SmokeError):
+            chip_smoke._attention_each_block(wrong, "x", "flash_attention", 48)
+
+
+def test_curve_phase_rehearsal(one_torch_thread):
+    """The overfit proxy's phase at 4 steps on the CPU: both curves in
+    processes of their own (fp32; HEADS_BF16 with its CPU gate), every step
+    finite, the mode's convs in bf16. ``hold_curves`` fails on a convergence
+    gate a curve misses and on a mode whose convs did not run in bf16."""
+    from tools.train_curve_torch import run_curves
+
+    results = run_curves(chip_smoke.CURVE_MODES, 4, 2, 0, chip_smoke.CURVE_LR, "cpu")
+    curves = {name: curve for name, (curve, _) in results.items()}
+    assert [curves[n]["heads_bf16"] for n in ("fp32", "HEADS_BF16")] == [False, True]
+    assert all(c["steps_run"] == 4 and c["eval"]["step"] == [0, 2, 4] for c in curves.values())
+    assert all(set(counts) == {name for name, _, _ in chip_smoke.KERNELS + chip_smoke.BF16_KERNELS}
+               for _, counts in results.values())
+    good = {name: dict(c, eval_loss_ratio=0.5, initial_vcre=30.0, final_vcre=10.0, final_R_err=20.0)
+            for name, c in curves.items()}
+    assert set(chip_smoke.hold_curves(good)) == {"fp32", "HEADS_BF16"}
+    assert "gates met" in chip_smoke.curve_line(chip_smoke.hold_curves(good), "card")
+    for wrong, gate in ((dict(eval_loss_ratio=0.9), "eval_loss_ratio 0.9000 >= 0.70"),
+                        (dict(final_vcre=20.0), "final_vcre 20.000"), (dict(final_R_err=45.0), "final_R_err 45.000")):
+        with pytest.raises(chip_smoke.SmokeError, match=gate):
+            chip_smoke.hold_curves(dict(good, fp32=dict(good["fp32"], **wrong)))
+    with pytest.raises(chip_smoke.SmokeError, match="did not run in bf16"):
+        chip_smoke.hold_curves(dict(good, HEADS_BF16=dict(good["HEADS_BF16"], heads_bf16=False)))

@@ -145,11 +145,12 @@ def _port_modules():
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port and chip_smoke loads neither jax
-    nor any module of the JAX package, nor ``ml_dtypes`` or ``orbax``; the
-    optional ``tensorboardX`` and ``matplotlib`` load only when used."""
+    """Importing every module of the port, chip_smoke and the port's overfit
+    tool loads neither jax nor any module of the JAX package, nor
+    ``ml_dtypes`` or ``orbax``; the optional ``tensorboardX`` and
+    ``matplotlib`` load only when used."""
     code = ("import sys, importlib\n"
-            f"for m in {_port_modules()!r} + ['chip_smoke']: importlib.import_module(m)\n"
+            f"for m in {_port_modules()!r} + ['chip_smoke', 'tools.train_curve_torch']: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'mickey_tpu', 'ml_dtypes', 'orbax', 'tensorboardX', 'matplotlib')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
@@ -159,9 +160,10 @@ def test_import_leaves_jax_out():
 
 def test_no_source_imports_the_jax_package():
     """An AST scan: no ``import mickey_tpu...`` / ``from mickey_tpu...`` (nor
-    jax, ``ml_dtypes`` or ``orbax``) in the port or in chip_smoke.py."""
+    jax, ``ml_dtypes`` or ``orbax``) in the port, in chip_smoke.py or in the
+    port's overfit tool."""
     bad = []
-    for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]:
+    for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py", PORT.parent / "tools" / "train_curve_torch.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
