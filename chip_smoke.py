@@ -163,17 +163,33 @@ Phases, one line each, any failure exits non-zero:
              default bf16 backbone against one process fed the ranks' own
              feature map, bit for bit; the forward's and the step's ms a rank.
 
+   gates (3j) - the fused-against-dense route gate
+             (``tools/fused_route_gate_torch.py``) at the production shape:
+             64 planted-geometry pairs in batches of 8, 1938 keypoints, C =
+             128, the default config's P = 4096, L = 16 and RANSAC budget;
+             K2b (8, 1938, 128) at L = 16 against its plain version, bitwise
+             launch to launch, and K3 on 160 point sets of 2048 samples x 100
+             hypotheses; each route in a counted run of its own (the dense
+             route K2a + K4 and K3, the fused one K2a + K2b and K3, K3 once a
+             solve), the JAX tool's gates on the two routes' poses and
+             confidences, each route's ms a batch; then the quality tool's
+             dry run (``tools/quality_run_torch.py --dry-run``: random
+             weights, a synthesized micro-dataset, ViT-S fp32 through K1f,
+             the dense route without a prefilter) with its demo leg on two
+             JPEGs: exit 0, the zip, the evaluator's metrics, its launches.
+
 ``python3 chip_smoke.py --submission`` runs the submission phase and its
 timing alone; ``--fit`` the training entry point's; ``--demo`` phase 3f's;
 ``--ddp`` phase 3g's; ``--bf16`` phase 3h's, with its kernels' rows; ``--tp``
-phase 3i's. ``python3 chip_smoke.py --curve`` runs the overfit proxy
+phase 3i's; ``--route-gate`` and ``--quality`` the two parts of phase 3j.
+``python3 chip_smoke.py --curve`` runs the overfit proxy
 (``tools/train_curve_torch.py``) alone: 150 steps of the staged step on the
-geometric feature map, in fp32 and under ``TPU.HEADS_BF16`` (its convs in
-bf16), every step finite, each curve held to ``tests/test_convergence.py``'s
-three gates; it is not a phase of the whole run, whose checks hold the port
-against its plain versions and one process: at one seed the gates are a draw
-that ``mickey_tpu``'s own tool loses when its CPU thread count changes
-(PERF.md).
+geometric feature map at seeds 0-7, in fp32 and under ``TPU.HEADS_BF16``
+(its convs in bf16), every step finite, each mode's seed set held to the
+seed-set gate (the medians over the seeds of the eval loss ratio, the VCRE
+ratio and the final rotation error against thresholds fixed from
+``mickey_tpu``'s own curves at the same seeds), ``tests/test_convergence.py``'s
+three gates counted per curve; it is not a phase of the whole run.
 ``python3 chip_smoke.py --attention`` runs the bf16 attention kernel alone
 (``attention_report``): its checks, its times beside the library call, single
 calls and back to back, and its timing ablations, as one JSON line.
@@ -1830,6 +1846,10 @@ def main() -> int:
         return tp_report(cfg, dev, card)
     if "--curve" in sys.argv[1:]:
         return curve_report(dev, card)
+    if "--route-gate" in sys.argv[1:]:
+        return gates_report(cfg, dev, card, "route")
+    if "--quality" in sys.argv[1:]:
+        return gates_report(cfg, dev, card, "quality")
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
@@ -1994,6 +2014,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["3i tp"] = _lap()
 
+    # 3j. the JAX repo's gates: the fused-against-dense route gate at the
+    #     production shape (64 planted pairs, B = 8), K2b and K3 at its
+    #     shape first; the quality tool's dry run
+    gate_lines, gate_errs, gate_launches = run_gates_phase(cfg, dev, card)
+    for line in gate_lines:
+        print(line, flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["3j gates"] = _lap()
+    print(f"phase 3j: {phase_s['3j gates']} s", flush=True)
+
     # 4. timing
     B = image0.shape[0]
     key_feats = model.extract_feats(image0[:1])
@@ -2034,8 +2065,8 @@ def main() -> int:
 
     runs = (serve_launches, unpacked_launches, exact_launches, exact_unpacked_launches, *train_launches.values(),
             ablation_launches, *sub["launches"], fit_launches, *variant_launches, ddp_launches, ddp_sub["launches"],
-            bf16["paths"]["launches"], tp_launches, *tp_rank_launches)
-    for n, e in fit_errs.items():  # the kernels checked again at the fit's shapes
+            bf16["paths"]["launches"], tp_launches, *tp_rank_launches, *gate_launches)
+    for n, e in (*fit_errs.items(), *gate_errs.items()):  # the kernels checked again at the fit's and gate's shapes
         errs[n] = max(errs[n], e)
     phase_s["4 timing"] = _lap()
     print(f"total: {time.perf_counter() - t_start:.1f} s | phases s {json.dumps(phase_s)}", flush=True)
@@ -4889,6 +4920,167 @@ def tp_report(cfg, dev, card: str) -> int:
     return 0
 
 
+# -- phase 3j: the JAX repo's gates on the card ----------------------------------------------
+#
+#   The fused-against-dense route gate (tools/fused_route_gate_torch.py) at the production
+#   shape: 64 planted-geometry pairs in batches of 8, N = 1938, C = 128, the default config's
+#   P, L and RANSAC budget; the dense route (K2a + K4, the exact top-P, K3) and the fused one
+#   (K2a + K2b, K3) each in a counted run of its own, K3 once a solve, the JAX tool's gates;
+#   K2b and K3 first against their plain versions at that shape (K2b on the first batch's
+#   descriptors, bitwise launch to launch; K3 on the solve's 20 draws x 8 pairs = 160 point
+#   sets of 2048 samples x 100 hypotheses). Then the quality tool's dry run
+#   (tools/quality_run_torch.py: random weights, a synthesized micro-dataset, ViT-S fp32,
+#   the dense route without a prefilter) on the card, with its demo leg on two JPEGs.
+
+ROUTE_PAIRS, ROUTE_BATCH = 64, 8
+ROUTE_KERNELS = {"dense": ("col_lse", "pair_softmax", "hypothesis_scores"),
+                 "fused": ("col_lse", "pair_topk", "hypothesis_scores")}
+ROUTE_ABSENT = {"dense": ("pair_topk",), "fused": ("pair_softmax",)}
+QUALITY_KERNELS = ("flash_attention_packed_f32", "col_lse", "pair_softmax", "hypothesis_scores")
+QUALITY_ABSENT = ("flash_attention_packed", "flash_attention", "pair_topk")
+# evaluation.mapfree.summarize's keys, the JAX dry run's
+QUALITY_METRICS = ("Average Median Translation Error", "Average Median Rotation Error",
+                   "Average Median Reprojection Error", "Precision @ Pose Error < (25.0cm, 5deg)",
+                   "AUC @ Pose Error < (25.0cm, 5deg)", "Precision @ VCRE < 90px", "AUC @ VCRE < 90px",
+                   "Estimates for % of frames")
+
+
+def route_kernel_inputs(dev, shape: dict, d: dict) -> dict:
+    """K2b's and K3's inputs at the route gate's shape: ``kernel_inputs``'
+    recipe for K3 (the solve's draws x the batch's pairs point sets), the
+    gate's batch ``d`` (device tensors) for K2b's descriptors and scores;
+    the attention inputs a token."""
+    batch = d["dsc0"].shape[0]
+    inp = kernel_inputs(dev, images=2 * batch, seq=2, heads=1, kpts=shape["N"], desc=shape["C"], topl=shape["L"],
+                        prefilter=shape["P"], draws=shape["it_matches"], samples=shape["num_samples"],
+                        hyps=shape["it_ransac"], old_images=1, old_seq=2, old_len=1)
+    return dict(inp, dsc0=d["dsc0"], dsc1=d["dsc1"], scr0=d["scr0"][..., 0], scr1=d["scr1"][..., 0])
+
+
+def check_route_kernels(inp) -> dict:
+    """K2b and K3 against their plain versions at the route gate's shape
+    (``_topk_checked``, ``_close_k3``), each bitwise from launch to launch.
+    Returns name -> max |diff|."""
+    calls = kernel_calls(inp)
+    out, ref = (f() for f in calls["pair_topk"])
+    res = {"pair_topk": _topk_checked(out, ref, "pair_topk, the route gate's shape")}
+    _bitwise(calls["pair_topk"][0], out, "pair_topk, the route gate's shape")
+    out, ref = (f() for f in calls["hypothesis_scores"])
+    res["hypothesis_scores"] = _close_k3(out, ref, "hypothesis_scores, the route gate's shape")
+    _bitwise(calls["hypothesis_scores"][0], out, "hypothesis_scores, the route gate's shape")
+    return res
+
+
+def run_route_gate(cfg, dev, *, pairs: int = ROUTE_PAIRS, batch: int = ROUTE_BATCH, n: int = 1938, c: int = 128,
+                   tiny: bool = False) -> dict:
+    """Phase 3j's route gate: the kernels at its shape (on its first
+    batch), then each route over the ``pairs`` planted pairs in a counted
+    run of its own (its kernels launched, the other route's not, K3 once a
+    solve), the JAX tool's gates (``gate_failures``) on ``summarize``'s
+    stats, and each route's ms on the first batch (CUDA events). ``tiny``:
+    the JAX tool's ``--cpu`` shape. Returns the stats, the kernels' max
+    |diff|, the launches and the ms."""
+    from tools.fused_route_gate_torch import (batch_generator, gate_failures, gate_shape, make_pair_batch,
+                                              make_routes, run_routes, summarize)
+
+    shape = gate_shape(cfg, n, c, tiny=tiny)
+    d, _ = make_pair_batch(np.random.default_rng(SEED), batch, shape["N"], shape["C"])
+    d = {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+    errs = check_route_kernels(route_kernel_inputs(dev, shape, d))
+    rows, launches = {}, {}
+    for route in ("dense", "fused"):
+        out, launches[route] = _counted(lambda: run_routes(shape, pairs, batch, SEED, dev, cfg, names=(route,)))
+        rows.update(out)
+        _launched(launches[route], f"route gate, {route} route", ROUTE_KERNELS[route],
+                  ROUTE_ABSENT[route] + ("flash_attention_packed", "flash_attention", "flash_attention_packed_f32"))
+        _once_per_solve(launches[route], f"route gate, {route} route", max(1, pairs // batch))
+    stats = summarize(rows, shape)
+    missed = gate_failures(stats)
+    if missed:
+        raise SmokeError(f"route gate: {missed}; stats {json.dumps(stats)}")
+    ms = {name: time_ms(lambda: fn(d, batch_generator(dev, 0)), iters=5, warmup=1)
+          for name, fn in make_routes(cfg, shape).items()}
+    return {"stats": stats, "errs": errs, "launches": launches, "ms": ms, "pairs": pairs, "batch": batch}
+
+
+def route_line(res: dict, card: str) -> str:
+    st = res["stats"]
+    return (f"route gate: ok | {card} | {res['pairs']} pairs in batches of {res['batch']}, shape {json.dumps(st['shape'])}"
+            f" | dense {json.dumps(st['dense'])} | fused {json.dumps(st['fused'])} | paired {json.dumps(st['paired'])}"
+            f" | the JAX tool's gates met | K2b, K3 against plain max|diff| {json.dumps(res['errs'])}, bitwise launch "
+            f"to launch | launches {json.dumps({r: _nonzero(c) for r, c in res['launches'].items()})} | ms a batch "
+            f"{json.dumps(res['ms'])}")
+
+
+def run_quality(dev, root) -> dict:
+    """Phase 3j's quality run: ``tools/quality_run_torch.py --dry-run`` on
+    ``dev`` in a counted run, its demo leg on two 720 x 540 JPEGs
+    (``write_demo_inputs``, ``MICKEY_TOY_EXAMPLE``): exit 0, the zip
+    written, the evaluator's metrics those of the JAX dry run
+    (``QUALITY_METRICS``), K1f and the dense route's kernels launched (no
+    prefilter: no K2b), K3 once a solve (the demo pair and one batch of the
+    micro split's 6 pairs). Returns the metrics, the launches and seconds."""
+    from tools.quality_run_torch import parser, quality_run
+
+    root = Path(root)
+    (root / "toy").mkdir(parents=True, exist_ok=True)
+    write_demo_inputs(root / "toy")
+    args = parser().parse_args(["--dry-run", "--out", str(root / "q"), "--device", str(dev)])
+    saved = {k: os.environ.get(k) for k in ("MICKEY_TOY_EXAMPLE", "MICKEY_ALLOW_RANDOM_BACKBONE")}
+    os.environ["MICKEY_TOY_EXAMPLE"] = str(root / "toy")
+    t0 = time.perf_counter()
+    try:
+        (rc, metrics), launches = _counted(lambda: quality_run(args))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    if rc != 0 or not (root / "q" / "submission.zip").is_file():
+        raise SmokeError(f"quality dry run: exit {rc}, zip written {(root / 'q' / 'submission.zip').is_file()}")
+    if tuple(metrics) != QUALITY_METRICS:
+        raise SmokeError(f"quality dry run: metrics {sorted(metrics)}, the JAX dry run's {sorted(QUALITY_METRICS)}")
+    _launched(launches, "quality dry run", QUALITY_KERNELS, QUALITY_ABSENT)
+    _once_per_solve(launches, "quality dry run", 2)
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches, "seconds": round(seconds, 1)}
+
+
+def quality_line(res: dict, card: str) -> str:
+    return (f"quality: ok | {card} | tools/quality_run_torch.py --dry-run exit 0 in {res['seconds']} s, demo leg and "
+            f"submission.zip, the evaluator's metrics {json.dumps(res['metrics'])} | launches "
+            f"{json.dumps(_nonzero(res['launches']))}")
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_gates_phase(cfg, dev, card: str) -> tuple:
+    """Phase 3j: the route gate, then the quality dry run. Returns (the
+    lines, the kernels' max |diff|, the runs' launch counts)."""
+    route = run_route_gate(cfg, dev)
+    with tempfile.TemporaryDirectory(prefix="mickey_quality_") as root:
+        quality = run_quality(dev, root)
+    return ([route_line(route, card), quality_line(quality, card)], route["errs"],
+            [*route["launches"].values(), quality["launches"]])
+
+
+def gates_report(cfg, dev, card: str, which: str) -> int:
+    """``--route-gate`` / ``--quality``: that part of phase 3j alone."""
+    t_start = time.perf_counter()
+    if which == "route":
+        print(route_line(run_route_gate(cfg, dev), card), flush=True)
+    else:
+        with tempfile.TemporaryDirectory(prefix="mickey_quality_") as root:
+            print(quality_line(run_quality(dev, root), card), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s after the build", flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 # -- the overfit proxy (tools/train_curve_torch.py) ------------------------------------------
 
 CURVE_STEPS, CURVE_EVAL_EVERY, CURVE_LR = 150, 30, 4e-4  # tests/test_convergence.py's run
@@ -4899,48 +5091,54 @@ CURVE_MODES = {"fp32": None, "HEADS_BF16": {"TPU.HEADS_BF16": True, "TPU.HEADS_B
 def run_curve_phase(dev, steps: int = CURVE_STEPS, eval_every: int = CURVE_EVAL_EVERY) -> tuple:
     """The port's overfit proxy (``tools/train_curve_torch.run_curve``:
     ``grad_step`` on the geometric feature map, ``ValStep.tail`` at a fixed
-    seed at each eval point), ``steps`` steps from seed 0 at lr 4e-4, in
-    fp32 and under ``TPU.HEADS_BF16``, each curve in a process of its own,
-    both at once (``run_curves``), every step's loss and gradients finite
-    (``require_finite``); then ``hold_curves``. Returns (the curves' eval
-    points and summaries, the kernels the curves launched)."""
-    from tools.train_curve_torch import run_curves
+    seed at each eval point), ``steps`` steps at lr 4e-4 at each of
+    ``CURVE_SEEDS`` (the reference's), in fp32 and
+    under ``TPU.HEADS_BF16``, each curve in a process of its own, one a core
+    at once (``run_curves``), every step's loss and gradients finite
+    (``require_finite``); then ``hold_curves``. Returns (each mode's
+    seed-set report, the kernels the curves launched)."""
+    from tools.train_curve_torch import CURVE_SEEDS, run_curves
 
-    results = run_curves(CURVE_MODES, steps, eval_every, 0, CURVE_LR, dev)
+    results = run_curves(CURVE_MODES, steps, eval_every, CURVE_SEEDS, CURVE_LR, dev)
     launches = {}
     for _, counts in results.values():
         launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
-    return hold_curves({name: curve for name, (curve, _) in results.items()}), launches
+    return hold_curves({name: [results[(name, seed)][0] for seed in CURVE_SEEDS] for name in CURVE_MODES}), launches
 
 
 def hold_curves(curves: dict) -> dict:
-    """Each curve of ``CURVE_MODES``: the mode's with its convs in bf16 and
-    the fp32 one without, and ``tests/test_convergence.py``'s three gates
-    (``gate_failures``), every one of which it must meet. Returns the
-    curves' eval points and summaries."""
-    from tools.train_curve_torch import gate_failures
+    """Each mode of ``CURVE_MODES`` -> its seed set of curves: the mode's
+    with its convs in bf16 and the fp32 one without, every one; each set
+    held to the seed-set gate (``seed_set_report``: the medians of the eval
+    loss ratio, the VCRE ratio and the final rotation error over the seeds
+    against ``SEED_GATE``, from ``mickey_tpu``'s own curves at the same
+    seeds), with ``tests/test_convergence.py``'s three per-curve gates
+    counted over the seeds. Returns each mode's report and its seeds'
+    figures; raises where a mode misses the gate."""
+    from tools.train_curve_torch import seed_metrics, seed_set_report
 
     out, missed = {}, {}
-    for name, curve in curves.items():
-        if curve["heads_bf16"] != (CURVE_MODES[name] is not None):
-            raise SmokeError(f"curve {name}: the heads' convs {'did not run' if CURVE_MODES[name] else 'ran'} in bf16")
-        out[name] = {k: curve[k] for k in ("eval", "eval_loss_ratio", "initial_vcre", "final_vcre", "initial_R_err",
-                                           "final_R_err", "steps_run", "wall_s", "heads_bf16", "device")}
-        if gate_failures(curve):
-            missed[name] = gate_failures(curve)
+    for name, runs in curves.items():
+        for curve in runs:
+            if curve["heads_bf16"] != (CURVE_MODES[name] is not None):
+                raise SmokeError(f"curve {name}, seed {curve['seed']}: the heads' convs "
+                                 f"{'did not run' if CURVE_MODES[name] else 'ran'} in bf16")
+        out[name] = dict(seed_set_report(runs), per_seed={c["seed"]: dict(seed_metrics(c), wall_s=c["wall_s"])
+                                                          for c in runs})
+        if out[name]["missed"]:
+            missed[name] = out[name]["missed"]
     if missed:
-        raise SmokeError(f"curve: gates of tests/test_convergence.py missed {json.dumps(missed)}; curves "
-                         f"{json.dumps(out)}")
+        raise SmokeError(f"curve: the seed-set gate missed {json.dumps(missed)}; reports {json.dumps(out)}")
     return out
 
 
 def curve_line(curves: dict, card: str) -> str:
-    return f"curve: ok | {card} | tests/test_convergence.py's gates met | {json.dumps(curves)}"
+    return f"curve: ok | {card} | every mode's seed set meets the seed-set gate | {json.dumps(curves)}"
 
 
 def curve_report(dev, card: str) -> int:
-    """``--curve``: the overfit proxy's two curves, failing where a curve
-    misses a gate of ``tests/test_convergence.py``."""
+    """``--curve``: the overfit proxy's seed sets, failing where a mode
+    misses the seed-set gate."""
     t_start = time.perf_counter()
     curves, launches = run_curve_phase(dev)
     print(curve_line(curves, card), flush=True)

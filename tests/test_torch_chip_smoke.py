@@ -14,6 +14,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -980,25 +981,87 @@ def test_tp_phase_catches_a_wrong_shard(monkeypatch, one_torch_thread):
 
 
 def test_curve_phase_rehearsal(one_torch_thread):
-    """The overfit proxy's phase at 4 steps on the CPU: both curves in
-    processes of their own (fp32; HEADS_BF16 with its CPU gate), every step
-    finite, the mode's convs in bf16. ``hold_curves`` fails on a convergence
-    gate a curve misses and on a mode whose convs did not run in bf16."""
-    from tools.train_curve_torch import run_curves
+    """The overfit proxy's phase at 4 steps on the CPU: each mode at two
+    seeds in processes of their own (fp32; HEADS_BF16 with its CPU gate),
+    every step finite, the mode's convs in bf16. ``hold_curves`` holds each
+    mode's seed set to the seed-set gate, failing on a median that misses
+    it and on a mode whose convs did not run in bf16."""
+    from tools.train_curve_torch import SEED_GATE, run_curves
 
-    results = run_curves(chip_smoke.CURVE_MODES, 4, 2, 0, chip_smoke.CURVE_LR, "cpu")
-    curves = {name: curve for name, (curve, _) in results.items()}
-    assert [curves[n]["heads_bf16"] for n in ("fp32", "HEADS_BF16")] == [False, True]
-    assert all(c["steps_run"] == 4 and c["eval"]["step"] == [0, 2, 4] for c in curves.values())
+    results = run_curves(chip_smoke.CURVE_MODES, 4, 2, (0, 1), chip_smoke.CURVE_LR, "cpu")
+    assert sorted(results) == sorted((n, s) for n in chip_smoke.CURVE_MODES for s in (0, 1))
+    curves = {name: [results[(name, s)][0] for s in (0, 1)] for name in chip_smoke.CURVE_MODES}
+    assert [c["heads_bf16"] for n in ("fp32", "HEADS_BF16") for c in curves[n]] == [False, False, True, True]
+    assert [c["seed"] for c in curves["fp32"]] == [0, 1]
+    assert all(c["steps_run"] == 4 and c["eval"]["step"] == [0, 2, 4] for cs in curves.values() for c in cs)
     assert all(set(counts) == {name for name, _, _ in chip_smoke.KERNELS + chip_smoke.BF16_KERNELS}
                for _, counts in results.values())
-    good = {name: dict(c, eval_loss_ratio=0.5, initial_vcre=30.0, final_vcre=10.0, final_R_err=20.0)
-            for name, c in curves.items()}
-    assert set(chip_smoke.hold_curves(good)) == {"fp32", "HEADS_BF16"}
-    assert "gates met" in chip_smoke.curve_line(chip_smoke.hold_curves(good), "card")
-    for wrong, gate in ((dict(eval_loss_ratio=0.9), "eval_loss_ratio 0.9000 >= 0.70"),
-                        (dict(final_vcre=20.0), "final_vcre 20.000"), (dict(final_R_err=45.0), "final_R_err 45.000")):
+    good = {name: [dict(c, eval_loss_ratio=0.75, initial_vcre=30.0, final_vcre=20.0, final_R_err=60.0) for c in cs]
+            for name, cs in curves.items()}
+    held = chip_smoke.hold_curves(good)
+    assert set(held) == {"fp32", "HEADS_BF16"} and held["fp32"]["missed"] == []
+    assert held["fp32"]["thresholds"] == SEED_GATE and set(held["fp32"]["per_seed"]) == {0, 1}
+    assert held["fp32"]["curve_gates_met"] == {"eval_loss_ratio < 0.70": 0, "final_vcre < 0.6 x initial": 0,
+                                               "final_R_err < 45 deg": 0}
+    assert "seed-set gate" in chip_smoke.curve_line(held, "card")
+    for wrong, gate in ((dict(eval_loss_ratio=0.9), "median eval_loss_ratio 0.9000"),
+                        (dict(final_vcre=29.0), "median vcre_ratio 0.9667"),
+                        (dict(final_R_err=120.0), "median final_R_err 120.0000")):
         with pytest.raises(chip_smoke.SmokeError, match=gate):
-            chip_smoke.hold_curves(dict(good, fp32=dict(good["fp32"], **wrong)))
+            chip_smoke.hold_curves(dict(good, fp32=[dict(c, **wrong) for c in good["fp32"]]))
+    # a median: one seed of three past a threshold does not fail the set
+    three = [dict(good["fp32"][0], seed=s) for s in range(3)]
+    assert chip_smoke.hold_curves({"fp32": [dict(three[0], final_R_err=150.0)] + three[1:]})["fp32"]["missed"] == []
     with pytest.raises(chip_smoke.SmokeError, match="did not run in bf16"):
-        chip_smoke.hold_curves(dict(good, HEADS_BF16=dict(good["HEADS_BF16"], heads_bf16=False)))
+        chip_smoke.hold_curves(dict(good, HEADS_BF16=[dict(c, heads_bf16=False) for c in good["HEADS_BF16"]]))
+
+
+def test_gates_phase_rehearsal(tmp_path, monkeypatch, one_torch_thread):
+    """Phase 3j at the JAX tool's tiny shape on the CPU: the route gate on 8
+    pairs in batches of 4 (K2b and K3 against their plain versions first,
+    each route alone, the JAX tool's gates), then the quality tool's dry run
+    with its demo leg. The launch checks get the counts as the card would
+    give them."""
+    checked = _recorded_checks(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "_elapsed_ms", _wall_ms)  # CUDA events need the card
+    res = chip_smoke.run_route_gate(default_config(), "cpu", pairs=8, batch=4, n=96, tiny=True)
+    assert res["errs"] == {"pair_topk": 0.0, "hypothesis_scores": 0.0}  # plain against plain
+    assert list(res["stats"]) == ["shape", "dense", "fused", "paired"] and res["stats"]["paired"]["pairs"] == 8
+    assert res["stats"]["shape"]["N"] == 96 and set(res["ms"]) == {"dense", "fused"}
+    for route in ("dense", "fused"):
+        assert (f"route gate, {route} route", chip_smoke.ROUTE_KERNELS[route],
+                chip_smoke.ROUTE_ABSENT[route] + ("flash_attention_packed", "flash_attention",
+                                                  "flash_attention_packed_f32")) in checked
+        assert (f"route gate, {route} route", 2) in checked
+    assert "route gate: ok" in chip_smoke.route_line(res, "card")
+    q = chip_smoke.run_quality("cpu", tmp_path)
+    assert tuple(q["metrics"]) == chip_smoke.QUALITY_METRICS and (tmp_path / "q" / "submission.zip").is_file()
+    assert ("quality dry run", chip_smoke.QUALITY_KERNELS, chip_smoke.QUALITY_ABSENT) in checked
+    assert ("quality dry run", 2) in checked
+    assert "MICKEY_TOY_EXAMPLE" not in os.environ and "quality: ok" in chip_smoke.quality_line(q, "card")
+    from tools.fused_route_gate_torch import gate_shape, make_pair_batch
+
+    shape = gate_shape(default_config())  # the production shape: only the inputs are made here
+    d = {k: torch.from_numpy(v) for k, v in make_pair_batch(np.random.default_rng(0), 8, 1938, 128)[0].items()}
+    ins = chip_smoke.route_kernel_inputs("cpu", shape, d)
+    assert ins["dsc0"].shape == (8, 1938, 128) and ins["scr0"].shape == (8, 1938) and ins["topl"] == 16
+    assert ins["X"].shape == (160, 2048, 3) and ins["R"].shape == (160, 100, 3, 3) and ins["prefilter"] == 4096
+
+
+def test_route_gate_catches_a_wrong_route(monkeypatch, one_torch_thread):
+    """A fused route whose confidences are 20% off fails the JAX tool's
+    confidence gate, and the phase fails with it."""
+    import tools.fused_route_gate_torch as gate
+
+    _recorded_checks(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "_elapsed_ms", _wall_ms)
+    make = gate.make_routes
+
+    def wrong(cfg, shape):
+        routes = make(cfg, shape)
+        fused = routes["fused"]
+        return dict(routes, fused=lambda d, g, draws=None: (lambda o: (o[0], o[1], 1.2 * o[2], o[3]))(fused(d, g, draws)))
+
+    monkeypatch.setattr(gate, "make_routes", wrong)
+    with pytest.raises(chip_smoke.SmokeError, match="rel_conf_delta_med"):
+        chip_smoke.run_route_gate(default_config(), "cpu", pairs=8, batch=4, n=96, tiny=True)

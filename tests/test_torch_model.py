@@ -138,6 +138,9 @@ def test_heads_match_jax(jax_params):
 PORT = pathlib.Path(__file__).resolve().parent.parent / "mickey_tpu_torch"
 
 
+PORT_TOOLS = ["tools.train_curve_torch", "tools.fused_route_gate_torch", "tools.quality_run_torch"]
+
+
 def _port_modules():
     root = PORT.parent
     return sorted(".".join(p.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
@@ -145,12 +148,13 @@ def _port_modules():
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port, chip_smoke and the port's overfit
-    tool loads neither jax nor any module of the JAX package, nor
+    """Importing every module of the port, chip_smoke and the port's tools
+    (the overfit proxy, the route gate, the quality run) loads neither jax
+    nor any module of the JAX package, nor
     ``ml_dtypes`` or ``orbax``; the optional ``tensorboardX`` and
     ``matplotlib`` load only when used."""
     code = ("import sys, importlib\n"
-            f"for m in {_port_modules()!r} + ['chip_smoke', 'tools.train_curve_torch']: importlib.import_module(m)\n"
+            f"for m in {_port_modules()!r} + ['chip_smoke'] + {PORT_TOOLS!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'mickey_tpu', 'ml_dtypes', 'orbax', 'tensorboardX', 'matplotlib')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
@@ -161,9 +165,10 @@ def test_import_leaves_jax_out():
 def test_no_source_imports_the_jax_package():
     """An AST scan: no ``import mickey_tpu...`` / ``from mickey_tpu...`` (nor
     jax, ``ml_dtypes`` or ``orbax``) in the port, in chip_smoke.py or in the
-    port's overfit tool."""
+    port's tools."""
     bad = []
-    for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py", PORT.parent / "tools" / "train_curve_torch.py"]:
+    tools = [PORT.parent / (m.replace(".", "/") + ".py") for m in PORT_TOOLS]
+    for path in list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"] + tools:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

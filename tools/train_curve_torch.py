@@ -12,11 +12,18 @@ each step is ``MicKeyTrainer.train_step.grad_step`` on that map, each eval
 point ``ValStep.tail`` with a generator seeded anew with ``EVAL_SEED``, the
 counterpart of the JAX tool's fixed ``PRNGKey(1234)``.
 
-    python tools/train_curve_torch.py [--steps 150] [--eval-every 30] [--heads-bf16] [--device cuda]
+    python tools/train_curve_torch.py [--steps 150] [--eval-every 30] [--lr 4e-4] [--heads-bf16] [--device cuda]
 
 prints the curve's summary and, with ``--out``, writes the curve as JSON.
-``chip_smoke.py --curve`` runs it on the card in fp32 and under
-``TPU.HEADS_BF16`` and holds both to the convergence test's gates.
+With ``--seed-set`` it runs the curves at ``CURVE_SEEDS`` instead, holds
+their medians to the seed-set gate and exits 1 where they miss it (a planted
+control, such as ``--lr 1e-4``, shows what the gate can see).
+``chip_smoke.py --curve`` runs it on the card at the seeds ``CURVE_SEEDS``
+in fp32 and under ``TPU.HEADS_BF16`` and holds each mode's seed set to the
+seed-set gate (``seed_set_report``), whose thresholds ``SEED_GATE`` follow
+from ``mickey_tpu``'s own curves at the same seeds
+(``train_curve_reference_seeds.json``); the convergence test's three gates
+(``gate_failures``) are reported per curve.
 """
 
 from __future__ import annotations
@@ -294,47 +301,128 @@ def require_finite(step: int, metrics: dict) -> None:
 
 def _curve_process(kwargs: dict) -> tuple:
     """``run_curve(**kwargs)`` with ``require_finite`` in a process of its
-    own; returns (the curve, the kernels it launched)."""
+    own, on one intra-op thread (the curves share the host's cores); returns
+    (the curve, the kernels it launched)."""
     import torch
 
     from mickey_tpu_torch.ops import _cuda
 
-    if torch.device(kwargs["device"]).type == "cpu":
-        torch.set_num_threads(1)  # the curves share the host's cores
+    torch.set_num_threads(1)
     before = dict(_cuda.LAUNCHES)
     curve = run_curve(**kwargs, step_hook=require_finite)
     return curve, {k: v - before[k] for k, v in _cuda.LAUNCHES.items()}
 
 
-def run_curves(updates: dict, steps: int, eval_every: int, seed: int = 0, lr: float = 4e-4, device="cuda") -> dict:
-    """name -> (curve, kernels launched) for each named ``cfg_update`` of
-    ``updates``, every curve in a process of its own and all at once: a
-    curve's small steps are bound by its host thread, not by the device."""
+def run_curves(updates: dict, steps: int, eval_every: int, seeds, lr: float = 4e-4, device="cuda") -> dict:
+    """(name, seed) -> (curve, kernels launched) for each named ``cfg_update``
+    of ``updates`` at each of ``seeds``, every curve in a process of its
+    own, one a core at once: a curve's small steps are bound by its host
+    thread, not by the device. On a card the kernels are built here first,
+    once, not by each process."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
-    with ProcessPoolExecutor(len(updates), mp_context=mp.get_context("spawn")) as pool:
-        futures = {name: pool.submit(_curve_process, dict(steps=steps, eval_every=eval_every, seed=seed, lr=lr,
-                                                           cfg_update=update, device=str(device)))
-                   for name, update in updates.items()}
-        return {name: f.result() for name, f in futures.items()}
+    import torch
+
+    if torch.device(device).type == "cuda":
+        from mickey_tpu_torch.ops import _cuda
+
+        _cuda.build()
+    jobs = [(name, seed) for name in updates for seed in seeds]
+    with ProcessPoolExecutor(min(len(jobs), os.cpu_count() or 1), mp_context=mp.get_context("spawn")) as pool:
+        futures = {(name, seed): pool.submit(_curve_process, dict(steps=steps, eval_every=eval_every, seed=seed,
+                                                                  lr=lr, cfg_update=updates[name],
+                                                                  device=str(device)))
+                   for name, seed in jobs}
+        return {job: f.result() for job, f in futures.items()}
+
+
+# tests/test_convergence.py's three gates on one curve
+CURVE_GATES = ("eval_loss_ratio < 0.70", "final_vcre < 0.6 x initial", "final_R_err < 45 deg")
+
+
+def curve_gates(curve: dict) -> dict:
+    """``CURVE_GATES`` -> whether ``curve`` meets each."""
+    met = (curve["eval_loss_ratio"] < 0.70, curve["final_vcre"] < 0.6 * curve["initial_vcre"],
+           curve["final_R_err"] < 45.0)
+    return dict(zip(CURVE_GATES, met))
 
 
 def gate_failures(curve: dict) -> list:
     """``tests/test_convergence.py``'s three gates on a curve: the eval loss
     ratio below 0.70, the final median VCRE below 0.6 of the initial, the
-    final median rotation error below 45 degrees. Returns the gates missed."""
+    final median rotation error below 45 degrees. Returns the gates missed.
+    At one seed they are a draw: ``mickey_tpu``'s own curves meet all three
+    at one of the seeds 0-7 under one XLA thread (``REFERENCE_SEEDS``)."""
+    met = curve_gates(curve)
     missed = []
-    if not curve["eval_loss_ratio"] < 0.70:
+    if not met[CURVE_GATES[0]]:
         missed.append(f"eval_loss_ratio {curve['eval_loss_ratio']:.4f} >= 0.70")
-    if not curve["final_vcre"] < 0.6 * curve["initial_vcre"]:
+    if not met[CURVE_GATES[1]]:
         missed.append(f"final_vcre {curve['final_vcre']:.3f} >= 0.6 x initial {curve['initial_vcre']:.3f}")
-    if not curve["final_R_err"] < 45.0:
+    if not met[CURVE_GATES[2]]:
         missed.append(f"final_R_err {curve['final_R_err']:.3f} >= 45 deg")
     return missed
 
 
-def main():
+# -- the seed-set gate -----------------------------------------------------------------------
+
+REFERENCE_SEEDS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "train_curve_reference_seeds.json")
+CURVE_SEEDS = tuple(range(8))  # the reference's seeds; the port's curves run at the same
+SEED_METRICS = ("eval_loss_ratio", "vcre_ratio", "final_R_err")
+# The seed-set gate's thresholds, fixed from mickey_tpu's own curves at
+# CURVE_SEEDS (REFERENCE_SEEDS: tools/train_curve.py, 150 steps, eval every
+# 30, lr 4e-4, one XLA thread a curve) by one rule, before any curve of the
+# port was held to them: for each metric, the reference's median over its
+# seeds plus half its inter-quartile range (numpy's linear percentiles;
+# ``seed_gate_thresholds``). A mode passes where the median of each metric
+# over its own seeds is at most the threshold: the reference's medians pass
+# by half their IQR, and a set that does not learn (ratios 1.0, the
+# zero-pose fallback's 120 deg) fails all three.
+SEED_GATE = {
+    "eval_loss_ratio": 0.8574496169801362,  # eval loss at the end / at step 0
+    "vcre_ratio": 0.9094604753791038,  # median VCRE at the end / at step 0
+    "final_R_err": 110.57200598716736,  # median rotation error at the end, degrees
+}
+
+
+def seed_metrics(curve: dict) -> dict:
+    """``SEED_METRICS`` of one curve (or of a record of ``REFERENCE_SEEDS``)."""
+    return {"eval_loss_ratio": float(curve["eval_loss_ratio"]),
+            "vcre_ratio": float(curve["final_vcre"]) / float(curve["initial_vcre"]),
+            "final_R_err": float(curve["final_R_err"])}
+
+
+def seed_gate_thresholds(path: str = REFERENCE_SEEDS) -> dict:
+    """``SEED_GATE``'s rule on the curves recorded at ``path``: each metric's
+    median over the seeds plus half its inter-quartile range."""
+    with open(path) as f:
+        per = [seed_metrics(c) for c in json.load(f)["seeds"]]
+    out = {}
+    for m in SEED_METRICS:
+        q1, med, q3 = np.percentile([p[m] for p in per], [25, 50, 75])
+        out[m] = float(med + (q3 - q1) / 2)
+    return out
+
+
+def seed_set_report(curves) -> dict:
+    """A seed set of curves against ``SEED_GATE``: each metric's median over
+    the set, the thresholds, the gates missed (``missed``, empty where the
+    set passes), and how many curves meet each of ``CURVE_GATES``."""
+    per = [seed_metrics(c) for c in curves]
+    med = {m: float(np.median([p[m] for p in per])) for m in SEED_METRICS}
+    return {
+        "seeds": [c.get("seed") for c in curves],
+        "medians": med,
+        "thresholds": dict(SEED_GATE),
+        "missed": [f"median {m} {med[m]:.4f} > {SEED_GATE[m]:.4f}" for m in SEED_METRICS
+                   if not med[m] <= SEED_GATE[m]],
+        "curve_gates_met": {g: sum(curve_gates(c)[g] for c in curves) for g in CURVE_GATES},
+        "curves": len(per),
+    }
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=150)
     ap.add_argument("--eval-every", type=int, default=30)
@@ -342,9 +430,23 @@ def main():
     ap.add_argument("--lr", type=float, default=4e-4)
     ap.add_argument("--heads-bf16", action="store_true", help="TPU.HEADS_BF16 (and HEADS_BF16_ON_CPU on the CPU)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", default=None, help="write the curve as JSON here")
-    args = ap.parse_args()
+    ap.add_argument("--seed-set", action="store_true",
+                    help="run the curves at CURVE_SEEDS in place of --seed, each in a process of its own, hold their "
+                         "medians to SEED_GATE and exit 1 where they miss it")
+    ap.add_argument("--out", default=None, help="write the curve (the seed set's report and curves) as JSON here")
+    args = ap.parse_args(argv)
     update = {"TPU.HEADS_BF16": True, "TPU.HEADS_BF16_ON_CPU": True} if args.heads_bf16 else None
+    if args.seed_set:
+        runs = run_curves({"curve": update}, args.steps, args.eval_every, CURVE_SEEDS, args.lr, args.device)
+        curves = [runs[("curve", s)][0] for s in CURVE_SEEDS]
+        report = dict(seed_set_report(curves), lr=args.lr, heads_bf16=[c["heads_bf16"] for c in curves],
+                      per_seed={c["seed"]: dict(seed_metrics(c), wall_s=c["wall_s"]) for c in curves})
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"report": report, "curves": curves}, f, indent=1)
+        print(json.dumps(report))
+        print("SEED-SET GATE PASSED" if not report["missed"] else f"SEED-SET GATE MISSED: {report['missed']}")
+        return 1 if report["missed"] else 0
     curve = run_curve(args.steps, args.eval_every, args.seed, args.lr, update, args.device, verbose=True)
     if args.out:
         with open(args.out, "w") as f:
@@ -353,7 +455,8 @@ def main():
           f"(ratio {curve['eval_loss_ratio']:.3f}); R_err {curve['initial_R_err']:.2f} -> {curve['final_R_err']:.2f} "
           f"deg; vcre {curve['initial_vcre']:.1f} -> {curve['final_vcre']:.1f} px; heads_bf16 {curve['heads_bf16']}; "
           f"gates missed: {gate_failures(curve) or 'none'}")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())
