@@ -19,7 +19,9 @@ axis.
 package but never downloads.
 
 Native checkpoints (``save_checkpoint`` / ``restore_checkpoint``): the JAX
-package writes orbax directories, which the port neither reads nor writes.
+package writes orbax directories, which the port neither reads nor writes
+(``tools/checkpoint_bridge_torch.py``, run where jax and orbax are
+installed, converts them both ways).
 The port's native checkpoint is a directory holding one file,
 ``checkpoint.pt``, that ``torch.load(..., weights_only=True)`` reads: plain
 tensors and numbers only, in ``mickey_tpu``'s layout (``weights.params_to_numpy``),
@@ -262,7 +264,9 @@ def restore_checkpoint(path: str) -> Dict:
     if not is_native_checkpoint(path):
         orbax = any(os.path.exists(os.path.join(path, f)) for f in ("_CHECKPOINT_METADATA", "_METADATA",
                                                                      "manifest.ocdbt"))
-        kind = "an orbax checkpoint (mickey_tpu's format), which the port cannot read" if orbax else (
+        kind = ("an orbax checkpoint (mickey_tpu's format), which the port cannot read; convert it with "
+                "`python tools/checkpoint_bridge_torch.py to-native <orbax_dir> <out_dir> [--config ...]` where "
+                "jax and orbax are installed") if orbax else (
             f"not a native checkpoint of the port (no {CHECKPOINT_FILE})")
         raise NotImplementedError(f"{path}: {kind}")
     payload = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu", weights_only=True)
