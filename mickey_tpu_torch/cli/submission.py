@@ -15,6 +15,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 from collections import defaultdict
 from dataclasses import dataclass
@@ -25,7 +26,7 @@ from zipfile import ZipFile, ZipInfo
 import numpy as np
 import torch
 
-from .. import parallel
+from .. import parallel, tracing
 from ..data.io import crop_to_patches
 from ..geometry.rotations import mat2quat
 
@@ -73,6 +74,14 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True, dp=No
     last bits of the keyframe's extract, taken alone or stacked with the
     batch. The solver's draws come from ``step_generator(SOLVER_SEED, step)``.
 
+    Spans of ``tracing``, each with the batch's ``step`` as its request:
+    ``predict.load`` (the wait on the loader), ``predict.stage`` (the crop,
+    the copies, the generator), ``predict.kf_cache`` (counting
+    ``kf_hits``, ``kf_misses`` and ``kf_evicted`` once per keyframe of the
+    batch), ``predict.dispatch`` (the model's call) and ``predict.drain``
+    (the batch drained: its copies to the host, ``poses_skipped``); and one
+    ``predict.request`` a batch, from its hand-over to its poses on the host.
+
     ``dp`` (by default ``parallel.world()``): with N ranks the loader reads
     each rank's rows of every batch, padded to a multiple of N
     (``DataLoader.shard``); each rank serves them with its own keyframe
@@ -105,26 +114,33 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True, dp=No
             t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
         return t.to(device, non_blocking=True)
 
-    def drain(out, data):
-        R_b = out.R.cpu().numpy()
-        t_b = out.t.cpu().numpy()
-        conf_b = out.inliers.cpu().numpy()
-        for i in range(len(data["pair_names"])):
-            R, t, conf = R_b[i], t_b[i].reshape(-1), float(conf_b[i])
-            # skip frames without finite estimates (reference submission.py:51-52)
-            if not (np.isfinite(R).all() and np.isfinite(t).all()):
-                continue
-            if np.abs(R).max() == 0:  # zero-pose fallback = no estimate
-                continue
-            results_dict[data["scene_id"][i]].append(
-                Pose(image_name=data["pair_names"][i][1], q=mat2quat(R).reshape(-1), t=t, inliers=conf)
-            )
+    def drain(out, data, step, handed):
+        with tracing.span("predict.drain", request=step):
+            R_b = out.R.cpu().numpy()
+            t_b = out.t.cpu().numpy()
+            conf_b = out.inliers.cpu().numpy()
+            tracing.record("predict.request", handed, request=step)  # the batch's poses are on the host
+            skipped = 0
+            for i in range(len(data["pair_names"])):
+                R, t, conf = R_b[i], t_b[i].reshape(-1), float(conf_b[i])
+                # skip frames without finite estimates (reference submission.py:51-52);
+                # an all-zero rotation is the zero-pose fallback: no estimate
+                if not (np.isfinite(R).all() and np.isfinite(t).all()) or np.abs(R).max() == 0:
+                    skipped += 1
+                    continue
+                results_dict[data["scene_id"][i]].append(
+                    Pose(image_name=data["pair_names"][i][1], q=mat2quat(R).reshape(-1), t=t, inliers=conf)
+                )
+            tracing.count("poses_skipped", skipped)
 
     def gather_ref_feats(data, image0: np.ndarray):
         """Per-pair keyframe extract outputs, in pair order, from the cache;
         the batch's keyframes not yet held are extracted together."""
         pair_keys = [(scene, names[0]) for scene, names in zip(data["scene_id"], data["pair_names"])]
-        missing = [k for k in dict.fromkeys(pair_keys) if k not in ref_cache]
+        unique = dict.fromkeys(pair_keys)
+        missing = [k for k in unique if k not in ref_cache]
+        tracing.count("kf_hits", len(unique) - len(missing))
+        tracing.count("kf_misses", len(missing))
         if missing:
             feats = model.extract_feats(to_device(image0[[pair_keys.index(k) for k in missing]]))
             for j, k in enumerate(missing):
@@ -136,26 +152,40 @@ def predict(loader, model, progress: bool = True, shared_ref: bool = True, dp=No
                 if len(ref_cache) <= MAX_REF_CACHE:
                     break
                 ref_cache.pop(k)
+                tracing.count("kf_evicted")
         return ref_feats
 
-    in_flight = None  # (out, data) awaiting its poses
+    in_flight = None  # (out, data, step, hand-over time) awaiting its poses
+    batches, end = iter(it), object()
     with torch.inference_mode():
-        for step, data in enumerate(it):
-            image0 = crop_to_patches(data["image0"], model.cfg)
-            image1 = to_device(crop_to_patches(data["image1"], model.cfg))
-            K0, K1 = to_device(data["K_color0"]), to_device(data["K_color1"])
-            generator = step_generator(device, SOLVER_SEED, step)
-            if dp.size > 1:
-                generator = dp.fold(generator)
+        for step in itertools.count():
+            with tracing.span("predict.load", request=step):
+                data = next(batches, end)
+            if data is end:
+                break
+            handed = tracing.clock()
+            with tracing.span("predict.stage", request=step):
+                image0 = crop_to_patches(data["image0"], model.cfg)
+                image1 = to_device(crop_to_patches(data["image1"], model.cfg))
+                if not shared_ref:
+                    image0 = to_device(image0)
+                K0, K1 = to_device(data["K_color0"]), to_device(data["K_color1"])
+                generator = step_generator(device, SOLVER_SEED, step)
+                if dp.size > 1:
+                    generator = dp.fold(generator)
             if shared_ref:
-                out = model.call_with_ref_feats(gather_ref_feats(data, image0), image1, K0, K1, generator=generator)
-            else:
-                out = model(to_device(image0), image1, K0, K1, generator=generator, lite=True)
-            if dp.size > 1:
-                out, data = gather_batch(dp, out, data)
+                with tracing.span("predict.kf_cache", request=step):
+                    ref_feats = gather_ref_feats(data, image0)
+            with tracing.span("predict.dispatch", request=step):
+                if shared_ref:
+                    out = model.call_with_ref_feats(ref_feats, image1, K0, K1, generator=generator)
+                else:
+                    out = model(image0, image1, K0, K1, generator=generator, lite=True)
+                if dp.size > 1:
+                    out, data = gather_batch(dp, out, data)
             if in_flight is not None:
                 drain(*in_flight)
-            in_flight = (out, data)
+            in_flight = (out, data, step, handed)
         if in_flight is not None:
             drain(*in_flight)
     return results_dict
@@ -250,11 +280,16 @@ def main(argv=None):
         help="disable the per-scene keyframe extract cache (recompute the "
         "reference frame for every pair, like the upstream reference)",
     )
+    parser.add_argument("--trace_out", default=None,
+                        help="write the run's spans (predict's stages, the model's, the solver's) to this file "
+                             "as a Chrome trace, which Perfetto opens (rank 0's in a data-parallel run)")
+    args = parser.parse_args(argv)
     distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if distributed:  # NCCL on cuda:LOCAL_RANK: a rank without a card raises here
         parallel.build_libraries_once(parallel.init_data_parallel("nccl"))
     try:
-        eval_split(parser.parse_args(argv))
+        with tracing.traced(args.trace_out if parallel.world().rank == 0 else None):
+            eval_split(args)
     finally:
         if distributed:
             parallel.close_data_parallel()

@@ -14,8 +14,9 @@ Writes ``<path_weights>/<experiment name>/``: the merged config, the
 overlay, ``last/``, ``best_vcre/`` and ``best_pose/`` (native checkpoints,
 ``training/checkpoint.py``; ``--resume <dir>/last`` continues a run) and,
 where tensorboardX imports, ``tb/``. ``--feature_cache <dir>`` trains on
-cached frozen-backbone features (built on the first run). The model runs on
-``cuda``; a caller may pass ``train_model(args, device="cpu")``.
+cached frozen-backbone features (built on the first run). ``--trace_out
+<file>`` writes the run's spans as a Chrome trace (``tracing``). The model
+runs on ``cuda``; a caller may pass ``train_model(args, device="cpu")``.
 """
 
 from __future__ import annotations
@@ -104,19 +105,24 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--feature_cache", default="",
                    help="directory of the frozen-backbone feature cache (built on the first run): training "
                         "skips the DINOv2 forward (training/feature_cache.py)")
+    p.add_argument("--trace_out", default=None,
+                   help="write the run's spans (the training step's phases, validation's solver stages) to "
+                        "this file as a Chrome trace, which Perfetto opens (rank 0's in a data-parallel run)")
     return p
 
 
 def main(argv=None):
     """The CLI (``argv``: its arguments, by default the command line's); a
     rank that ``parallel.launch`` started trains in its group."""
-    from .. import parallel
+    from .. import parallel, tracing
 
+    args = parser().parse_args(argv)
     distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if distributed:  # NCCL on cuda:LOCAL_RANK: a rank without a card raises here
         parallel.build_libraries_once(parallel.init_data_parallel("nccl"))
     try:
-        train_model(parser().parse_args(argv))
+        with tracing.traced(args.trace_out if parallel.world().rank == 0 else None):
+            train_model(args)
     finally:
         if distributed:
             parallel.close_data_parallel()

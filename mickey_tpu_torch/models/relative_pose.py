@@ -14,6 +14,10 @@ matcher routes, chosen as the JAX package chooses them:
   with its inlier mask, as the demo draws them) and for every call when the
   fused route is off.
 
+Each stage is a span of ``tracing``: ``model.extract`` (its children
+``model.backbone`` and ``model.heads``, timed on the device too),
+``model.match`` and ``model.estimate``.
+
 ``call_with_ref_feats`` takes the image0 side from a cached
 ``extract_feats`` result, so a scene's shared keyframe runs the backbone
 once; it returns the lite output.
@@ -37,6 +41,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from .. import tracing
 from ..nn.extractor import (
     Correspondences,
     TopKCorrespondences,
@@ -80,20 +85,25 @@ class MickeyRelativePose:
     def extract_feats(self, images: torch.Tensor):
         """(B, H, W, 3) images -> (kpts, depths, scores, descs) head maps, each
         (B, H/14, W/14, .); deterministic, so cacheable per frame."""
-        return heads_apply(self.params, backbone_features(self.params, images, self.cfg), self.cfg)[0]
+        with tracing.span("model.extract"):
+            with tracing.span("model.backbone", device=True):
+                fmap = backbone_features(self.params, images, self.cfg)
+            with tracing.span("model.heads", device=True):
+                return heads_apply(self.params, fmap, self.cfg)[0]
 
     @torch.inference_mode()
     def match_feats(self, feats0, feats1, fused: Optional[bool] = None):
         """Matcher stage on two sides' ``extract_feats`` outputs: the fused
         route's ``TopKCorrespondences`` (``fused``, by default where the config
         selects it), else the dense ``Correspondences``."""
-        stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(feats0, feats1))
-        if fused is None:
-            fused = use_fused_topk(self.cfg)
-        if fused:
-            kpts = absolute_kpt_coordinates(stacked[0], self.cfg.MICKEY.DINOV2.DOWN_FACTOR)
-            return topk_correspondences_from_heads(self.params, kpts, *stacked[1:], self.cfg)
-        return correspondences_from_heads(self.params, stacked, self.cfg)
+        with tracing.span("model.match"):
+            stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(feats0, feats1))
+            if fused is None:
+                fused = use_fused_topk(self.cfg)
+            if fused:
+                kpts = absolute_kpt_coordinates(stacked[0], self.cfg.MICKEY.DINOV2.DOWN_FACTOR)
+                return topk_correspondences_from_heads(self.params, kpts, *stacked[1:], self.cfg)
+            return correspondences_from_heads(self.params, stacked, self.cfg)
 
     @torch.inference_mode()
     def estimate(self, corr: Union[TopKCorrespondences, Correspondences], K0, K1,
@@ -101,9 +111,10 @@ class MickeyRelativePose:
         """The solver on either matcher route's output."""
         if generator is None and draws is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        if isinstance(corr, TopKCorrespondences):
-            return estimate_pose_topk_from_cfg(corr, K0, K1, self.cfg, generator=generator, draws=draws)
-        return estimate_pose_from_cfg(corr, K0, K1, self.cfg, generator=generator, draws=draws)
+        with tracing.span("model.estimate"):
+            if isinstance(corr, TopKCorrespondences):
+                return estimate_pose_topk_from_cfg(corr, K0, K1, self.cfg, generator=generator, draws=draws)
+            return estimate_pose_from_cfg(corr, K0, K1, self.cfg, generator=generator, draws=draws)
 
     def solve(self, corr, K0, K1, generator: Optional[torch.Generator] = None,
               draws: Optional[Draws] = None) -> RelativePoseOutput:

@@ -25,6 +25,10 @@ in one launch, where the JAX package scores them draw by draw in a
 ``lax.scan``; each (draw, pair, hypothesis) sum is independent, so the
 scores are those of the per-draw calls. Refinement is the same fixed-trip
 masked loop, and the zero-pose fallback is per batch element.
+
+Spans of ``tracing``: ``solver.draws`` (``draw_samples``),
+``solver.hypotheses`` (the gathers, the minimal solves, their scoring and
+the pick) and ``solver.refine`` (the refinements and the confidence).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..geometry import backproject_3d, inlier_counting_3d, soft_inlier_counting_3d, weighted_procrustes
 from ..ops.hypothesis_scoring import hypothesis_scores
 from ..ops.sampling import gumbel_topk_sample, gumbel_topk_sample_draws
@@ -66,12 +71,13 @@ def draw_samples(generator: Optional[torch.Generator], w_table: torch.Tensor, it
     """The solver's two levels of draws from a (B, P) table of sampling
     weights: it_matches samples of num_samples table entries, then
     it_ransac minimal sets of num_corr within each."""
-    w_table = w_table.float()
-    B = w_table.shape[0]
-    outer = gumbel_topk_sample_draws(generator, log_weights(w_table), num_samples, it_matches, batch_axis=0)
-    w = torch.gather(w_table.expand(it_matches, -1, -1), 2, outer.long())  # (it, B, S)
-    logw_in = log_weights(w)[:, :, None, :].expand(it_matches, B, it_ransac, num_samples)
-    return Draws(outer, gumbel_topk_sample(generator, logw_in, num_corr, batch_axis=1))
+    with tracing.span("solver.draws"):
+        w_table = w_table.float()
+        B = w_table.shape[0]
+        outer = gumbel_topk_sample_draws(generator, log_weights(w_table), num_samples, it_matches, batch_axis=0)
+        w = torch.gather(w_table.expand(it_matches, -1, -1), 2, outer.long())  # (it, B, S)
+        logw_in = log_weights(w)[:, :, None, :].expand(it_matches, B, it_ransac, num_samples)
+        return Draws(outer, gumbel_topk_sample(generator, logw_in, num_corr, batch_axis=1))
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -91,55 +97,58 @@ def _solve_sampled(w_table, remap, row_ok, kps0, depth0, kps1, depth1, K0, K1,
     X_all = backproject_3d(kps0, depth0, K0.float())  # (B, N0, 3)
     Y_all = backproject_3d(kps1, depth1, K1.float())  # (B, N1, 3)
 
-    outer_local = draws.outer_local.long()
-    it, _, S = outer_local.shape
-    outer_idx = outer_local if remap is None else torch.gather(remap.long().expand(it, -1, -1), 2, outer_local)
-    X = _rows(X_all.expand(it, -1, -1, -1), outer_idx // n1)  # (it, B, S, 3)
-    Y = _rows(Y_all.expand(it, -1, -1, -1), outer_idx % n1)
+    with tracing.span("solver.hypotheses"):
+        outer_local = draws.outer_local.long()
+        it, _, S = outer_local.shape
+        outer_idx = outer_local if remap is None else torch.gather(remap.long().expand(it, -1, -1), 2, outer_local)
+        X = _rows(X_all.expand(it, -1, -1, -1), outer_idx // n1)  # (it, B, S, 3)
+        Y = _rows(Y_all.expand(it, -1, -1, -1), outer_idx % n1)
 
-    ridx = draws.ridx.long()  # (it, B, R, C)
-    nR, C = ridx.shape[2:]
-    flat = ridx.reshape(it, B, nR * C)
-    Xk = _rows(X, flat).reshape(it, B, nR, C, 3)
-    Yk = _rows(Y, flat).reshape(it, B, nR, C, 3)
-    sol = weighted_procrustes(Xk, Yk, use_weights=False)  # R (it, B, R, 3, 3)
+        ridx = draws.ridx.long()  # (it, B, R, C)
+        nR, C = ridx.shape[2:]
+        flat = ridx.reshape(it, B, nR * C)
+        Xk = _rows(X, flat).reshape(it, B, nR, C, 3)
+        Yk = _rows(Y, flat).reshape(it, B, nR, C, 3)
+        sol = weighted_procrustes(Xk, Yk, use_weights=False)  # R (it, B, R, 3, 3)
 
-    score = hypothesis_scores(X.reshape(it * B, S, 3), Y.reshape(it * B, S, 3), sol.R.reshape(it * B, nR, 3, 3),
-                              sol.t.reshape(it * B, nR, 1, 3), th_soft_inlier).reshape(it, B, nR)
-    hyp_ok = (
-        sol.valid
-        & torch.isfinite(sol.R).flatten(-2).all(-1)
-        & torch.isfinite(sol.t).flatten(-2).all(-1)
-    )
-    score = torch.where(hyp_ok, score, NEG_INF)
+        score = hypothesis_scores(X.reshape(it * B, S, 3), Y.reshape(it * B, S, 3),
+                                  sol.R.reshape(it * B, nR, 3, 3), sol.t.reshape(it * B, nR, 1, 3),
+                                  th_soft_inlier).reshape(it, B, nR)
+        hyp_ok = (
+            sol.valid
+            & torch.isfinite(sol.R).flatten(-2).all(-1)
+            & torch.isfinite(sol.t).flatten(-2).all(-1)
+        )
+        score = torch.where(hyp_ok, score, NEG_INF)
 
-    best = score.argmax(dim=-1)  # (it, B)
-    step_scores = torch.gather(score, 2, best[..., None])[..., 0]
-    sel = best[..., None, None, None]
-    R_step = torch.gather(sol.R, 2, sel.expand(it, B, 1, 3, 3))[:, :, 0]  # (it, B, 3, 3)
-    t_step = torch.gather(sol.t, 2, sel.expand(it, B, 1, 1, 3))[:, :, 0]  # (it, B, 1, 3)
+        best = score.argmax(dim=-1)  # (it, B)
+        step_scores = torch.gather(score, 2, best[..., None])[..., 0]
+        sel = best[..., None, None, None]
+        R_step = torch.gather(sol.R, 2, sel.expand(it, B, 1, 3, 3))[:, :, 0]  # (it, B, 3, 3)
+        t_step = torch.gather(sol.t, 2, sel.expand(it, B, 1, 1, 3))[:, :, 0]  # (it, B, 1, 3)
 
-    best_it = step_scores.argmax(dim=0)  # (B,)
-    b_idx = torch.arange(B, device=best_it.device)
-    R, t = R_step[best_it, b_idx], t_step[best_it, b_idx]
-    X_best, Y_best = X[best_it, b_idx], Y[best_it, b_idx]  # (B, S, 3)
-    idx_best = outer_idx[best_it, b_idx]  # (B, S) flat match indices
-    idx0, idx1 = idx_best // n1, idx_best % n1
+        best_it = step_scores.argmax(dim=0)  # (B,)
+        b_idx = torch.arange(B, device=best_it.device)
+        R, t = R_step[best_it, b_idx], t_step[best_it, b_idx]
+        X_best, Y_best = X[best_it, b_idx], Y[best_it, b_idx]  # (B, S, 3)
+        idx_best = outer_idx[best_it, b_idx]  # (B, S) flat match indices
+        idx0, idx1 = idx_best // n1, idx_best % n1
 
-    inliers_pre = torch.full((B,), float(num_corr), device=R.device)
-    inliers_ref = torch.zeros((B, S), device=R.device)
-    for _ in range(num_refinements):
-        inliers = inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)
-        n_in = inliers.sum(dim=-1)
-        do_ref = (n_in >= num_corr) & (n_in > inliers_pre)
-        inliers_pre = torch.where(do_ref, n_in, inliers_pre)
-        inliers_ref = torch.where(do_ref[:, None], inliers, inliers_ref)
-        ref = weighted_procrustes(X_best, Y_best, w=inliers_ref, use_weights=True, use_mask=True)
-        R = torch.where(do_ref[:, None, None], ref.R, R)
-        t = torch.where(do_ref[:, None, None], ref.t, t)
+    with tracing.span("solver.refine"):
+        inliers_pre = torch.full((B,), float(num_corr), device=R.device)
+        inliers_ref = torch.zeros((B, S), device=R.device)
+        for _ in range(num_refinements):
+            inliers = inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)
+            n_in = inliers.sum(dim=-1)
+            do_ref = (n_in >= num_corr) & (n_in > inliers_pre)
+            inliers_pre = torch.where(do_ref, n_in, inliers_pre)
+            inliers_ref = torch.where(do_ref[:, None], inliers, inliers_ref)
+            ref = weighted_procrustes(X_best, Y_best, w=inliers_ref, use_weights=True, use_mask=True)
+            R = torch.where(do_ref[:, None, None], ref.R, R)
+            t = torch.where(do_ref[:, None, None], ref.t, t)
 
-    confidence = soft_inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)[..., 0]
-    inlier_mask = inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)
+        confidence = soft_inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)[..., 0]
+        inlier_mask = inlier_counting_3d(X_best, Y_best, R, t, th=th_inlier)
     valid = (
         row_ok
         & torch.isfinite(R).flatten(1).all(-1)

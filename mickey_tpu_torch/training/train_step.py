@@ -48,6 +48,11 @@ the rank's shard of the backbone (``parallel.shard_backbone``), whose
 partial sums the group adds, and every rank of the group gets the same
 feature map. Everything after the backbone is replicated over the group.
 
+Spans of ``tracing``, each with the step (``TrainState.step``) as its
+request: ``train.backbone``, ``train.forward`` and ``train.backward``
+(``loss_and_grads``; the backward timed on the device too),
+``train.all_reduce`` (only in a data-parallel step) and ``train.optimizer``.
+
 Validation (``ValStep``) runs the heads in eval mode (BatchNorm running
 stats read, never moved), the loss metrics at topk 100, the dense solver
 over the whole N0 x N1 matrix (prefilter 0, as the JAX package's validation
@@ -71,7 +76,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-from .. import parallel
+from .. import parallel, tracing
 from ..metrics.pose_metrics import pose_error, vcre
 from ..nn.extractor import backbone_features, compute_correspondences, compute_correspondences_topk_train
 from ..solver.procrustes_ransac import estimate_pose, solver_kw
@@ -202,14 +207,16 @@ def train_loss(params, fmap, batch, cfg, lc: LossConfig, topk_pct: float,
 
 
 def loss_and_grads(params, fmap, batch, cfg, lc: LossConfig, topk_pct: float,
-                   generator: Optional[torch.Generator] = None, sample_override=None):
+                   generator: Optional[torch.Generator] = None, sample_override=None,
+                   request: Optional[int] = None):
     """Stage 2's forward and backward on a precomputed feature map. Returns
     (total, aux, new_params, grads): ``grads`` is a tree of params' structure
-    (zeros at BN stats)."""
-    total, aux, new_params = train_loss(params, fmap, batch, cfg, lc, topk_pct, generator, sample_override)
+    (zeros at BN stats). ``request``: the step its spans serve."""
+    with tracing.span("train.forward", request=request):
+        total, aux, new_params = train_loss(params, fmap, batch, cfg, lc, topk_pct, generator, sample_override)
     leaves = tree_leaves(params)
     wanted = [t for path, t in leaves if not is_bn_stat(path)]
-    with deterministic_backward():
+    with tracing.span("train.backward", request=request, device=True), deterministic_backward():
         got = iter(torch.autograd.grad(total, wanted, allow_unused=True))
     flat = []
     for path, t in leaves:
@@ -261,12 +268,14 @@ class StagedTrainStep:
     def grad_step(self, state: TrainState, fmap, batch, generator=None, topk_pct: float = 100.0,
                   sample_override=None):
         _, aux, fwd_params, grads = loss_and_grads(state.params, fmap, batch, self.cfg, self.lc, topk_pct,
-                                                   generator, sample_override)
+                                                   generator, sample_override, request=state.step)
         flat = [g for path, g in tree_leaves(grads) if not is_bn_stat(path)]
         step = parallel.active()
         if step is not None:  # each rank's loss is its share of the global one: sum
-            step.dp.all_reduce_(flat)
-        gnorm = self.optimizer.update(state.trainable(), flat, state.opt_state)
+            with tracing.span("train.all_reduce", request=state.step):
+                step.dp.all_reduce_(flat)
+        with tracing.span("train.optimizer", request=state.step):
+            gnorm = self.optimizer.update(state.trainable(), flat, state.opt_state)
         with torch.no_grad():
             copy_bn_stats(state.params, fwd_params)
         state.step += 1
@@ -282,7 +291,8 @@ class StagedTrainStep:
 
     def __call__(self, state: TrainState, backbone, batch, generator=None, topk_pct: float = 100.0,
                  sample_override=None):
-        fmap = self.backbone_fwd(backbone, batch["image0"], batch["image1"])
+        with tracing.span("train.backbone", request=state.step):
+            fmap = self.backbone_fwd(backbone, batch["image0"], batch["image1"])
         return self.grad_step(state, fmap, batch, generator, topk_pct, sample_override)
 
 
