@@ -205,6 +205,11 @@ ablations and distances from fp64.
 ``python3 chip_smoke.py --scoring`` does it for the RANSAC scoring kernel K3
 (``scoring_report``): its checks, one launch a solve against the 20
 launches of one a draw, its bound and timing ablations.
+``python3 chip_smoke.py --svd`` does it for the solver's 3 x 3 SVD kernel
+(``svd_report``): its checks, bit for bit against its plain version, its
+times beside the plain version's at the solver's three shapes, and the
+launches and host time left inside ``MickeyRelativePose.estimate`` at a
+served batch and inside ``train.forward`` at a training step.
 ``python3 chip_smoke.py --matcher-bwd`` does the same for the gradient
 kernels on that engine, K5 (``dual_softmax_bwd_sums``,
 ``dual_softmax_bwd_grads``) and K6 (``lse_bwd``) (``matcher_bwd_report``),
@@ -260,9 +265,10 @@ KERNELS = (
     ("dual_softmax_bwd_sums", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:234"),
     ("dual_softmax_bwd_grads", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:256"),
     ("lse_bwd", "mickey_tpu_torch/csrc/dual_softmax.cu", "mickey_tpu/ops/fused_matcher.py:665"),
+    ("svd3x3", "mickey_tpu_torch/csrc/svd3x3.cu", "none (XLA fuses mickey_tpu/geometry/kabsch.py:69)"),
 )
 # each main path's kernels, and the kernels it must not launch
-SERVING_KERNELS = ("flash_attention_packed", "col_lse", "pair_topk", "hypothesis_scores")
+SERVING_KERNELS = ("flash_attention_packed", "col_lse", "pair_topk", "hypothesis_scores", "svd3x3")
 UNPACKED_SERVING_KERNELS = ("flash_attention", "col_lse", "pair_topk", "hypothesis_scores")
 TRAIN_KERNELS = ("flash_attention_packed", "col_lse", "pair_softmax", "dual_softmax_bwd_sums",
                  "dual_softmax_bwd_grads")
@@ -413,9 +419,10 @@ def kernel_inputs(device, *, images: int, seq: int, heads: int, kpts: int, desc:
     Y = Y + rng.normal(0, 0.1, Y.shape).astype(np.float32)
     qkv32 = t(rng.standard_normal((images, seq, 3 * heads * 64), dtype=np.float32))
     qkv_old = t(0.05 * rng.standard_normal((old_images, old_seq, 3 * heads * 64), dtype=np.float32)).to(torch.bfloat16)
+    H = t(svd_inputs("rank2", (draws, images // 2, hyps), seed))  # a solve's minimal sets' covariances
     return dict(qkv=qkv, heads=heads, dsc0=t(d[0]), dsc1=t(d[1]), scr0=t(scr[0]), scr1=t(scr[1]),
                 topl=topl, prefilter=prefilter, draws=draws, X=t(X), Y=t(Y), R=t(R), t=t(tr), qkv32=qkv32,
-                qkv_old=qkv_old, old_len=old_len)
+                qkv_old=qkv_old, old_len=old_len, H=H)
 
 
 def _rot(a) -> np.ndarray:
@@ -440,6 +447,7 @@ def kernel_calls(inp, alpha: float = 1.0, inv_temp: float = 10.0):
         flash_attention_packed_upcast,
         qkv_heads,
     )
+    from mickey_tpu_torch.geometry import kabsch
     from mickey_tpu_torch.ops.hypothesis_scoring import hypothesis_scores, hypothesis_scores_plain
 
     heads = inp["heads"]
@@ -468,6 +476,7 @@ def kernel_calls(inp, alpha: float = 1.0, inv_temp: float = 10.0):
                     lambda: fm.col_lse_plain(inp["dsc0"], inp["dsc1"], inv_temp, alpha)),
         "pair_topk": (lambda: fm.pair_topk(*k2b, split), lambda: fm.pair_topk_plain(*k2b)),
         "hypothesis_scores": (lambda: hypothesis_scores(*hyp), lambda: hypothesis_scores_plain(*hyp)),
+        "svd3x3": (lambda: kabsch.svd3x3(inp["H"]), lambda: kabsch.svd3x3_plain(inp["H"])),
     }
 
 
@@ -498,6 +507,7 @@ def check_kernels(inp, topk_sizes=MATCHER_SIZES) -> dict:
     out, ref = (f() for f in calls["hypothesis_scores"])
     res["hypothesis_scores"] = _close_k3(out, ref, "hypothesis_scores")
     _bitwise(calls["hypothesis_scores"][0], out, "hypothesis_scores")
+    res["svd3x3"] = svd_bitwise(*(f() for f in calls["svd3x3"]), "svd3x3, a solve's minimal sets")
     res["pair_topk"] = max(res["pair_topk"], check_topk_shapes(inp["dsc0"].device, topk_sizes))
     return res
 
@@ -1751,6 +1761,7 @@ def kernel_bounds(inp, tin) -> dict:
         "dual_softmax_bwd_sums": bwd_sums_bound(tin["dsc0"], tin["dsc1"]),
         "dual_softmax_bwd_grads": bwd_grads_bound(tin["dsc0"], tin["dsc1"]),
         "lse_bwd": lse_bwd_bound(tin["dsc0"], tin["dsc1"]),
+        "svd3x3": svd_bound(inp["H"].numel() // 9),
     }
 
 
@@ -1850,6 +1861,8 @@ def main() -> int:
         return gates_report(cfg, dev, card, "route")
     if "--quality" in sys.argv[1:]:
         return gates_report(cfg, dev, card, "quality")
+    if "--svd" in sys.argv[1:]:
+        return svd_report(cfg, dev, card)
     inp = kernel_inputs(dev, images=4, seq=1939, heads=16, kpts=1938, desc=128, topl=int(cfg.TPU.MATCHER_TOPL),
                         prefilter=int(cfg.TPU.SAMPLING_PREFILTER), draws=int(cfg.PROCRUSTES.IT_MATCHES),
                         samples=int(cfg.PROCRUSTES.NUM_SAMPLED_MATCHES), hyps=int(cfg.PROCRUSTES.IT_RANSAC),
@@ -2566,6 +2579,254 @@ def scoring_report(inp, card: str) -> int:
              "fast_intrinsics_max_abs_err": (out - ref).abs().max().item(),
              "fast_intrinsics_max_rel_err": ((out - ref).abs() / ref.abs()).max().item()}
     return _kernel_loop(card, checks, fns, time_many_ms, ["one_launch"], 3000, SCORING_ABLATIONS, launch, extra)
+
+
+# csrc/svd3x3.cu: the solver's 3 x 3 SVD. Shapes: the minimal sets of a served
+# batch (it_matches, B, it_RANSAC), the B = 8 pairs of a refinement, the
+# training loss's re-solve (B, it, it)
+SVD_SHAPES = ((20, 8, 100), (8,), (8, 20, 20))
+SVD_CASES = ("random", "zero", "rank1", "rank2", "reflection", "repeated", "diagonal", "tiny", "huge", "nonfinite")
+# the cases whose squared column norms stay inside fp32's range: there the
+# Jacobi SVD is an SVD (at 1e-20 the squares underflow and every rotation is
+# skipped, at 1e20 they overflow)
+SVD_FINITE_CASES = SVD_CASES[:7]
+# the runtime calls that launch a kernel (PERF.md section 7's counting rules)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _rotations(rng, n: int, reflect: bool = False) -> np.ndarray:
+    """n random rotations (det +1), or reflections (det -1)."""
+    q, r = np.linalg.qr(rng.standard_normal((n, 3, 3)))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[:, :, 2] *= (np.sign(np.linalg.det(q)) * (-1.0 if reflect else 1.0))[:, None]
+    return q
+
+
+def svd_inputs(case: str, shape: tuple, seed: int = SEED) -> np.ndarray:
+    """fp32 (*shape, 3, 3) matrices of one of SVD_CASES: "random" U diag(s)
+    V^T with s in [0.5, 2]; "rank1" outer products; "rank2" the covariance of
+    three points and their noisy rotated copies (a minimal set's); "reflection"
+    det < 0; "repeated" singular values (2, 2, 1), (2, 1, 1), (1, 1, 1) in
+    turn; "diagonal" (every rotation takes the skip path); "tiny" and "huge"
+    Gaussian entries at 1e-20 and 1e20; "nonfinite" Gaussian with a NaN, an
+    inf or a -inf in three of every four."""
+    rng = np.random.default_rng([seed, SVD_CASES.index(case)])
+    n = int(np.prod(shape))
+    s = np.sort(rng.uniform(0.5, 2.0, (n, 3)), -1)[:, ::-1]
+    if case in ("random", "reflection", "repeated"):
+        if case == "repeated":
+            s = np.array([[2, 2, 1], [2, 1, 1], [1, 1, 1]], np.float64)[np.arange(n) % 3]
+        H = _rotations(rng, n, case == "reflection") @ (s[:, :, None] * _rotations(rng, n).transpose(0, 2, 1))
+    elif case == "zero":
+        H = np.zeros((n, 3, 3))
+    elif case == "rank1":
+        H = rng.standard_normal((n, 3, 1)) @ rng.standard_normal((n, 1, 3))
+    elif case == "rank2":
+        P = rng.standard_normal((n, 3, 3))
+        Q = P @ _rotations(rng, n) + 0.01 * rng.standard_normal((n, 3, 3))
+        H = (P - P.mean(1, keepdims=True)).transpose(0, 2, 1) @ (Q - Q.mean(1, keepdims=True))
+    elif case == "diagonal":
+        H = np.eye(3) * rng.standard_normal((n, 1, 3))
+    elif case in ("tiny", "huge"):
+        H = (1e-20 if case == "tiny" else 1e20) * rng.standard_normal((n, 3, 3))
+    else:
+        H = rng.standard_normal((n, 3, 3))
+        k = np.arange(n)
+        H[k % 4 == 0, 1, 2], H[k % 4 == 1, 0, 0], H[k % 4 == 2, 2, 1] = np.nan, np.inf, -np.inf
+    return H.astype(np.float32).reshape(*shape, 3, 3)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaN where NaN (of any payload)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def svd_bitwise(out, ref, what: str) -> float:
+    """The kernel's (U, S, V) against the plain version's: bit for bit (NaN
+    where NaN). The kernel repeats each of the plain version's operations in
+    its order and rounding, PyTorch's sum over three values and
+    ``linalg.cross``'s fused product included (the kernel's source note).
+    Returns the max |diff| (0.0)."""
+    for name, a, b in zip("USV", out, ref):
+        if a.shape != b.shape or a.dtype != b.dtype or not _same_bits(a, b):
+            raise SmokeError(f"{what}: {name} differs from the plain version")
+    return 0.0
+
+
+def check_svd_kernel(device, shapes=SVD_SHAPES, seed: int = SEED) -> dict:
+    """The SVD kernel against its plain version on every case of SVD_CASES
+    at each shape (``svd_bitwise``), then ``svd_solve_bitwise`` at each
+    shape. Returns "shape case" -> max |diff|."""
+    from mickey_tpu_torch.geometry import kabsch
+
+    res = {}
+    for shape in shapes:
+        for case in SVD_CASES:
+            H = torch.from_numpy(svd_inputs(case, shape, seed)).to(device)
+            res[f"{shape} {case}"] = svd_bitwise(kabsch.svd3x3(H), kabsch.svd3x3_plain(H), f"svd3x3 {case} {shape}")
+        svd_solve_bitwise(device, shape, seed)
+    return res
+
+
+def svd_solve_bitwise(device, shape: tuple, seed: int = SEED) -> None:
+    """Through the kernel and through the plain version, bit for bit (the
+    rest is the same eager code): ``weighted_procrustes``'s R, t and valid
+    on (*shape) point sets, of 3 points unweighted (a minimal set) where
+    ``shape`` has more than one axis, else of 2048 points under 0 / 1
+    weights (a refinement); and the gradient of ``svd3x3`` on "random"
+    matrices through ``svd3x3_vjp``."""
+    from mickey_tpu_torch.geometry import kabsch
+
+    rng = np.random.default_rng([seed, 13, len(shape)])
+    points = 3 if len(shape) > 1 else 2048
+    X = rng.uniform(-2, 2, (*shape, points, 3))
+    Y = X @ _rotations(rng, 1)[0].T + 0.05 * rng.standard_normal(X.shape)
+    w = (rng.uniform(0, 1, (*shape, points)) < 0.7).astype(np.float32)
+    X, Y, w = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (X, Y, w))
+    H = torch.from_numpy(svd_inputs("random", shape, seed)).to(device)
+    cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
+           for s in (H.shape, H.shape[:-1], H.shape)]
+
+    def solve_and_grad():
+        if points == 3:
+            sol = kabsch.weighted_procrustes(X, Y, use_weights=False)
+        else:
+            sol = kabsch.weighted_procrustes(X, Y, w=w, use_weights=True, use_mask=True)
+        Hg = H.clone().requires_grad_(True)
+        grad, = torch.autograd.grad(sum((o * c).sum() for o, c in zip(kabsch.svd3x3(Hg), cot)), Hg)
+        return sol, grad
+
+    sol, grad = solve_and_grad()
+    primal, kabsch._svd3x3_primal = kabsch._svd3x3_primal, kabsch.svd3x3_plain
+    try:
+        sol_p, grad_p = solve_and_grad()
+    finally:
+        kabsch._svd3x3_primal = primal
+    for name, a, b in (("R", sol.R, sol_p.R), ("t", sol.t, sol_p.t), ("gradient", grad, grad_p)):
+        if not _same_bits(a, b):
+            raise SmokeError(f"svd3x3 {shape}: {name} through the kernel differs from the plain version's")
+    if not torch.equal(sol.valid, sol_p.valid):
+        raise SmokeError(f"svd3x3 {shape}: weighted_procrustes's valid differs from the plain version's")
+
+
+def svd_bound(n: int) -> tuple:
+    """The SVD kernel's bound on n matrices: ~1.3 kFLOP a matrix (18
+    rotations of ~70 fp32 operations, the sort and U's completion) at 67
+    TFLOP/s against 36 bytes read and 84 written a matrix."""
+    return _bound(1300.0 * n, 120.0 * n, PEAK_FP32)
+
+
+def solver_inputs(device, pairs: int, kpts: int, table: int, seed: int = SEED):
+    """The fused route's solver input at a served batch, made up: keypoints
+    on a 714 x 532 frame with depths in [1, 5] m, a descending top-``table``
+    table of positive scores over random flat match indices. Returns
+    (TopKCorrespondences, K0, K1)."""
+    from mickey_tpu_torch.nn.extractor import TopKCorrespondences
+
+    rng = np.random.default_rng(seed + 14)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    kp = lambda: t(rng.uniform(0, 1, (pairs, kpts, 2)).astype(np.float32) * np.float32([532, 714]))  # noqa: E731
+    dep = lambda: t(rng.uniform(1, 5, (pairs, kpts, 1)).astype(np.float32))  # noqa: E731
+    scores = np.sort(rng.uniform(1e-4, 1e-2, (pairs, table)).astype(np.float32), -1)[:, ::-1]
+    idx = np.stack([rng.choice(kpts * kpts, table, replace=False) for _ in range(pairs)]).astype(np.int32)
+    corr = TopKCorrespondences(kp(), dep(), kp(), dep(), t(scores), t(idx), t(np.ones(pairs, bool)))
+    K = t(np.tile(np.array([[[590.0, 0, 266], [0, 590.0, 357], [0, 0, 1]]], np.float32), (pairs, 1, 1)))
+    return corr, K, K.clone()
+
+
+def span_launches(fn, spans, iters: int = 3) -> tuple:
+    """Launches and host time a call of ``fn()`` inside each of the port's
+    ``spans``, by PERF.md section 7's rules: ``fn`` runs ``iters`` times with
+    ``tracing`` on under ``torch.profiler``; a runtime call of LAUNCH_CALLS
+    counts in a span when it starts inside one of the span's ``span:<name>``
+    ranges. Returns ({span: launches a call}, {span: median host ms from the
+    records}, {kernel: ``LAUNCHES`` a call})."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mickey_tpu_torch import tracing
+    from mickey_tpu_torch.ops import _cuda
+
+    fn()
+    torch.cuda.synchronize()
+    tracing.enable()
+    try:
+        tracing.take()
+        _cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = tracing.take()
+    finally:
+        tracing.disable()
+    kernels = {k: v / iters for k, v in _cuda.LAUNCHES.items() if v}
+    # host events only: each ``span:`` range is also recorded on the device's
+    # timeline, and a launch inside both would count twice
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    starts = sorted(e.time_range.start for e in events if e.name in LAUNCH_CALLS)
+    counts = {}
+    for name in spans:
+        ranges = [(e.time_range.start, e.time_range.end) for e in events if e.name == "span:" + name]
+        counts[name] = sum(bisect.bisect_left(starts, b) - bisect.bisect_left(starts, a) for a, b in ranges) / iters
+    host = {name: round(statistics.median((r.end_ns - r.start_ns) / 1e6 for r in records if r.name == name), 3)
+            for name in spans if any(r.name == name for r in records)}
+    return counts, host, kernels
+
+
+SOLVER_SPANS = ("model.estimate", "solver.draws", "solver.hypotheses", "solver.refine")
+
+
+def svd_report(cfg, dev, card: str) -> int:
+    """``python3 chip_smoke.py --svd``: the solver's SVD kernel alone. Its
+    checks (``check_svd_kernel``); CUDA-event medians in turns, of 10 calls
+    enqueued back to back (``time_many_ms``), of the kernel, its C entry
+    without the wrapper's host work, and the plain version at each of
+    SVD_SHAPES beside the bound (``svd_bound``); then the launches and host
+    ms inside ``MickeyRelativePose.estimate`` and its stages at a served
+    batch of 8 (``solver_inputs``: 1938 keypoints a frame, the top-P table)
+    and inside ``train.forward`` at a training step of 8 pairs of 714 x 532,
+    by PERF.md section 7's rules (``span_launches``), with the SVD kernel's
+    launches a call (``NUM_REFINEMENTS + 1`` either way)."""
+    from mickey_tpu_torch.geometry import kabsch
+    from mickey_tpu_torch.models import MicKeyTrainer, MickeyRelativePose
+    from mickey_tpu_torch.ops import _cuda
+    from mickey_tpu_torch.weights import init_params_numpy
+
+    t_start = time.perf_counter()
+    checks = check_svd_kernel(dev)
+    times = {}
+    for shape in SVD_SHAPES:
+        H = torch.from_numpy(svd_inputs("rank2", shape)).to(dev)
+        n = H.numel() // 9
+        U, S, V = (torch.empty_like(x) for x in kabsch.svd3x3_plain(H))
+        entry = lambda: _cuda.check(_cuda.lib().mk_svd3x3_f32(  # noqa: E731
+            H.data_ptr(), U.data_ptr(), S.data_ptr(), V.data_ptr(), n, _cuda.stream_ptr(H)), "svd3x3")
+        fns = {"kernel": lambda: kabsch.svd3x3(H), "entry": entry, "plain": lambda: kabsch.svd3x3_plain(H)}
+        t = {k: [] for k in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            t[name].append(time_many_ms(fns[name], reps=10))
+        times[str(shape)] = {"matrices": n, **{k: round(statistics.mean(v), 4) for k, v in t.items()},
+                             "bound_ms": svd_bound(n)[0], "bound_by": svd_bound(n)[1]}
+    model = MickeyRelativePose(cfg, {}, device=dev)
+    corr, K0, K1 = solver_inputs(dev, pairs=8, kpts=1938, table=int(cfg.TPU.SAMPLING_PREFILTER))
+    gen = torch.Generator(device=dev)
+    serve = span_launches(lambda: model.estimate(corr, K0, K1, gen.manual_seed(SEED)), SOLVER_SPANS)
+    trainer = MicKeyTrainer(cfg, params=init_params_numpy(cfg, SEED), seed=SEED, device=dev)
+    batch = train_batch(dev, pairs=cfg.TRAINING.BATCH_SIZE, height=714, width=532)
+    train = span_launches(lambda: trainer.training_step(batch), ("train.forward",))
+    expected = int(cfg.PROCRUSTES.NUM_REFINEMENTS) + 1
+    for what, (_, _, kernels) in (("model.estimate", serve), ("training step", train)):
+        if kernels.get("svd3x3") != expected:
+            raise SmokeError(f"{what}: svd3x3 launched {kernels.get('svd3x3')} times a call, not {expected}")
+    print(json.dumps({"card": card, "bitwise_cases": len(checks), "max_abs_err": max(checks.values()),
+                      "back_to_back_ms_in_turns": times,
+                      "estimate_b8": {"launches": serve[0], "host_ms": serve[1], "kernels": serve[2]},
+                      "train_b8": {"launches": train[0], "host_ms": train[1], "kernels": train[2]},
+                      "seconds": round(time.perf_counter() - t_start, 1)}))
+    return 0
 
 
 def _stage_times(model, image0, image1, K0, K1, fused: bool = True) -> dict:

@@ -6,6 +6,10 @@ determinant fix, so the rank-validity bits and the orientation of R follow
 the reference function rather than ``torch.linalg.svd``'s conventions.
 Matrices are carried as lists of their three columns, each (..., 3).
 
+On the card the SVD is one kernel launch (``ops/svd3x3.py``,
+``csrc/svd3x3.cu``) that repeats ``svd3x3_plain`` op for op; a CPU tensor
+takes ``svd3x3_plain``, ~830 elementwise ops, itself.
+
 ``svd3x3`` is a ``torch.autograd.Function`` when its input needs a gradient
 (the training loss re-solves Procrustes with gradient): the forward is the
 Jacobi path unchanged, the backward the regularized closed-form SVD
@@ -18,6 +22,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from ..ops import svd3x3 as svd3x3_kernel
 
 _JACOBI_SWEEPS = 6
 
@@ -52,7 +58,8 @@ def _orthogonal_unit(v: torch.Tensor) -> torch.Tensor:
     return w / torch.clamp(torch.linalg.norm(w, dim=-1, keepdim=True), min=1e-20)
 
 
-def _svd3x3_primal(H: torch.Tensor, eps: float = 1e-12):
+def svd3x3_plain(H: torch.Tensor, eps: float = 1e-12):
+    """The Jacobi SVD as eager ops: the CPU's path and the kernel's plain version."""
     A = [H[..., :, j].float() for j in range(3)]
     eye = torch.eye(3, dtype=torch.float32, device=H.device)
     V = [eye[:, j].expand_as(A[0]) for j in range(3)]
@@ -76,6 +83,12 @@ def _svd3x3_primal(H: torch.Tensor, eps: float = 1e-12):
     V[2] = torch.where(flip, -V[2], V[2])
     U = torch.stack([u0, u1, u2], dim=-1)
     return U.to(H.dtype), torch.stack(S, dim=-1).to(H.dtype), torch.stack(V, dim=-1).to(H.dtype)
+
+
+def _svd3x3_primal(H: torch.Tensor):
+    if H.device.type == "cpu":
+        return svd3x3_plain(H)
+    return tuple(x.to(H.dtype) for x in svd3x3_kernel.svd3x3(H))
 
 
 def svd3x3_vjp(U, S, V, gU, gS, gV) -> torch.Tensor:

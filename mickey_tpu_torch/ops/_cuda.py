@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("flash_attention_packed.cu", "flash_attention_f32.cu", "fused_topk.cu", "hypothesis_scoring.cu",
-           "dual_softmax.cu")
+           "dual_softmax.cu", "svd3x3.cu")
 HEADERS = ("hopper.cuh", "corr_tf32.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,7 +39,7 @@ LAUNCHES = {"flash_attention_packed": 0, "flash_attention": 0, "flash_attention_
             "flash_attention_f32": 0, "flash_attention_packed_upcast": 0, "col_lse": 0, "pair_topk": 0,
             "hypothesis_scores": 0, "pair_softmax": 0, "dual_softmax_bwd_sums": 0,
             "dual_softmax_bwd_grads": 0, "lse_bwd": 0, "col_lse_bf16": 0, "pair_topk_bf16": 0,
-            "pair_softmax_bf16": 0}
+            "pair_softmax_bf16": 0, "svd3x3": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "mk_dual_softmax_bwd_sums_f32": [_P] * 9 + [_LLP] + [_I] * 4 + [_F, _I, _P],
     "mk_dual_softmax_bwd_grads_f32": [_P] * 11 + [_LLP] + [_I] * 4 + [_F, _I, _P],
     "mk_lse_bwd_f32": [_P] * 10 + [_LLP] + [_I] * 4 + [_F, _I, _P],
+    "mk_svd3x3_f32": [_P] * 4 + [ctypes.c_longlong, _P],
 }
 
 

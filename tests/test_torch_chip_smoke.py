@@ -64,6 +64,16 @@ def test_kernel_phase_rehearsal():
     assert all(e == 0.0 for e in errs.values())
 
 
+def test_svd_phase_rehearsal():
+    """``--svd``'s checks and solver input at a tiny size: plain against plain."""
+    res = chip_smoke.check_svd_kernel("cpu", shapes=((2, 3), (4,)))
+    assert len(res) == 2 * len(chip_smoke.SVD_CASES) and set(res.values()) == {0.0}
+    cfg = _tiny_cfg()
+    corr, K0, K1 = chip_smoke.solver_inputs("cpu", pairs=2, kpts=40, table=int(cfg.TPU.SAMPLING_PREFILTER))
+    est = MickeyRelativePose(cfg, {}, device="cpu").estimate(corr, K0, K1)
+    assert est.R.shape == (2, 3, 3) and bool(torch.isfinite(est.R).all())
+
+
 def test_slice_phase_rehearsal():
     cfg = _tiny_cfg()
     params = _tiny_params(cfg)
